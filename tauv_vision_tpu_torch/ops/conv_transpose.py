@@ -1,0 +1,64 @@
+"""Depthwise transposed-conv upsample of the CenterNet aggregation stage.
+
+A groups=C ``ConvTranspose2d(kernel=2f, stride=f, padding=f//2,
+bias=False)``.  ``depthwise_upsample`` is the plain version;
+``depthwise_upsample_cuda`` wraps ``csrc/depthwise_upsample.cu``, the
+counterpart of ``tauv_vision_tpu/ops/pallas/depthwise_upsample.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tauv_vision_tpu_torch import kernels
+
+
+def bilinear_kernel(k: int) -> np.ndarray:
+    """The fill_up_weights bilinear upsample kernel [k, k]."""
+    f = int(np.ceil(k / 2))
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    w = np.zeros((k, k), np.float32)
+    for i in range(k):
+        for j in range(k):
+            w[i, j] = (1 - abs(i / f - c)) * (1 - abs(j / f - c))
+    return w
+
+
+def depthwise_upsample(x: torch.Tensor, weight: torch.Tensor, factor: int) -> torch.Tensor:
+    """Plain version: x [B, C, H, W], weight [C, 1, 2f, 2f]."""
+    return F.conv_transpose2d(
+        x, weight, stride=factor, padding=factor // 2, groups=x.shape[1]
+    )
+
+
+def depthwise_upsample_cuda(
+    x: torch.Tensor, weight: torch.Tensor, factor: int
+) -> torch.Tensor:
+    """Kernel C: ``depthwise_upsample`` as one CUDA op.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises.  x [B, C, H, W] f32, weight [C, 1, 2f, 2f] f32."""
+    b, c, h, w = x.shape
+    k = 2 * factor
+    if factor < 1 or tuple(weight.shape) != (c, 1, k, k):
+        raise ValueError(
+            f"weight must be [C, 1, 2f, 2f] = [{c}, 1, {k}, {k}] for "
+            f"factor {factor}, got {tuple(weight.shape)}"
+        )
+    if x.device.type == "cpu":
+        return depthwise_upsample(x, weight, factor)
+    kernels.check_cuda_tensor(x, "x", torch.float32, 4)
+    kernels.check_cuda_tensor(weight, "weight", torch.float32, 4)
+    pad = factor // 2
+    ho = (h - 1) * factor - 2 * pad + k
+    wo = (w - 1) * factor - 2 * pad + k
+    out = torch.empty((b, c, ho, wo), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    kernels.launch(
+        "tauv_depthwise_upsample_f32", "depthwise_upsample",
+        x.data_ptr(), weight.data_ptr(), out.data_ptr(), b, c, h, w, factor,
+    )
+    return out

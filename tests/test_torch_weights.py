@@ -1,0 +1,129 @@
+"""Weight carriage between the JAX package and the PyTorch port.
+
+- The port's CenterNet ``state_dict`` goes through the JAX package's own
+  reference-torch importer (``load_centerpoint_dla34_state_dict``) and
+  rebuilds the flax tree leaf for leaf: the live check that the port
+  keeps the reference torch names.
+- ``yolact_state_dict_from_flax`` equals the JAX package's
+  ``export_yolact_state_dict`` and loads into the port strictly.
+- The port, ``chip_smoke.py`` and the card-only tests import no JAX.
+"""
+
+import ast
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tauv_vision_tpu.models.centerpoint_dla import (
+    CenterpointDLA34 as JaxCenterpointDLA34,
+    load_centerpoint_dla34_state_dict,
+)
+from tauv_vision_tpu.models.yolact import Yolact as JaxYolact
+from tauv_vision_tpu.models.yolact import export_yolact_state_dict
+from tauv_vision_tpu_torch.configs import centernet_config, yolact_config
+from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
+from tauv_vision_tpu_torch.models.yolact import Yolact
+from tauv_vision_tpu_torch.weights import (
+    centerpoint_state_dict_from_flax,
+    yolact_state_dict_from_flax,
+)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "tauv_vision_tpu_torch"
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _randomize_stats(variables, seed):
+    """numpy tree with non-trivial BatchNorm statistics."""
+    rng = np.random.default_rng(seed)
+    tree = jax.tree_util.tree_map(lambda a: np.array(a), jax.device_get(variables))
+    for path, leaf in _flat(tree.get("batch_stats", {})):
+        node = tree["batch_stats"]
+        for k in path[:-1]:
+            node = node[k]
+        lo, hi = (-0.3, 0.3) if path[-1] == "mean" else (0.5, 1.5)
+        node[path[-1]] = rng.uniform(lo, hi, leaf.shape).astype(np.float32)
+    return tree
+
+
+@pytest.fixture(scope="module")
+def centernet_variables():
+    oc, _ = centernet_config()
+    model = JaxCenterpointDLA34(object_config=oc, deform=False)
+    variables = jax.jit(
+        lambda k: model.init(k, jnp.zeros((1, 32, 32, 3)), train=False)
+    )(jax.random.key(0))
+    return oc, _randomize_stats(variables, 0)
+
+
+def test_torch_centerpoint_names_rebuild_flax_tree(centernet_variables):
+    """A freshly built port model's state_dict imports into exactly the
+    flax tree structure (every path, every shape)."""
+    oc, variables = centernet_variables
+    port = CenterpointDLA34(oc, generator=torch.Generator().manual_seed(0))
+    rebuilt = load_centerpoint_dla34_state_dict(port.state_dict())
+    want = {p: a.shape for p, a in _flat(variables)}
+    got = {p: np.asarray(a).shape for p, a in _flat(rebuilt)}
+    assert got == want
+
+
+def test_torch_centerpoint_weights_round_trip(centernet_variables):
+    """flax -> port (strict load) -> reference importer == flax, leaf for leaf."""
+    oc, variables = centernet_variables
+    port = CenterpointDLA34(oc)
+    port.load_state_dict(centerpoint_state_dict_from_flax(variables), strict=True)
+    rebuilt = dict(_flat(load_centerpoint_dla34_state_dict(port.state_dict())))
+    want = dict(_flat(variables))
+    assert rebuilt.keys() == want.keys()
+    for path, leaf in want.items():
+        np.testing.assert_array_equal(np.asarray(rebuilt[path]), leaf, err_msg=str(path))
+
+
+def test_torch_yolact_weights_match_export():
+    cfg = yolact_config(72, 104, feature_depth=32)
+    model = JaxYolact(cfg)
+    variables = _randomize_stats(
+        jax.jit(lambda k: model.init(k, jnp.zeros((1, 72, 104, 3)), train=False))(
+            jax.random.key(1)
+        ), 1,
+    )
+    got = yolact_state_dict_from_flax(variables)
+    want = export_yolact_state_dict(variables)
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), value, err_msg=key)
+    port = Yolact(cfg)
+    port.load_state_dict(got, strict=True)
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_torch_port_imports_no_jax():
+    allowed = {"tauv_vision_tpu.configs", "tauv_vision_tpu.eval.detection_eval"}
+    sources = sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "test_torch_kernels_cuda.py"]
+    assert len(sources) > 10
+    for path in sources:
+        for name in _imports(path):
+            root = name.split(".")[0]
+            assert root not in ("jax", "flax", "optax"), (path, name)
+            if root == "tauv_vision_tpu":
+                assert any(name == a or name.startswith(a + ".") for a in allowed), (
+                    path, name)
