@@ -3,26 +3,35 @@
 
     python3 chip_smoke.py [--profile DIR]
 
+Two served paths, each CenterNet beside the same YOLACT: ``plain_ida``,
+the CenterpointDLA34 with plain-conv IDA that ``bench.py`` serves with no
+flags, and ``dcn_ida``, the reference's deployed CenterpointDLA34 with
+DCNv2 in its 16 IDA blocks (``deform=True``, kernel E).
+
 Phases, each fatal on failure (exit code != 0, no result line):
 
 1. device: require CUDA, print the card and its power limit, and turn
    TF32 off (this slice is f32);
 2. build: compile the port's CUDA kernels from ``tauv_vision_tpu_torch/
-   csrc`` and print the build time and each kernel's registers;
+   csrc`` (one nvcc a source, in parallel) and print the build time and
+   each kernel's registers and spills;
 3. check: each kernel against its plain PyTorch version on the card at
    the served shapes (batch 8), tolerances printed beside each result;
-4. serve: the served CenterNet + YOLACT at full width on seeded random
-   weights answer 4 requests of 8 random 640x480 uint8 frames through
+   kernel E at each distinct shape of the 16 DCN calls of one forward,
+   with the net's own offsets and masks, with planted offsets of up to
+   40 cells and without a mask;
+4. serve: for each path, the served pair at full width on seeded random
+   weights answers 4 requests of 8 random 640x480 uint8 frames through
    ``make_combined_pipeline``; outputs must be finite and well shaped,
-   the launch counters must show every kernel on every request, and the
-   same frames through the plain versions must decode the same;
+   the launch counters (zeroed just before the path) must show every
+   kernel of the path on every request, and the same frames through the
+   plain versions must decode the same;
 5. time: each kernel against its plain version (CUDA events, after
-   warm-up), the pipeline's frames/s at batch 32, and its stages one by
-   one.
+   warm-up), each path's frames/s at batch 32, and its stages one by one.
 
 Prints one JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes a
-``torch.profiler`` table of one batch-32 request into DIR.
+``torch.profiler`` table of three batch-32 requests of each path into DIR.
 """
 
 from __future__ import annotations
@@ -39,15 +48,13 @@ import torch
 
 from tauv_vision_tpu_torch import kernels
 from tauv_vision_tpu_torch.configs import centernet_config, yolact_config
-from tauv_vision_tpu_torch.models.centerpoint_dla import (
-    CenterpointDLA34,
-    DepthwiseUpsample,
-)
+from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
 from tauv_vision_tpu_torch.models.yolact import Yolact
 from tauv_vision_tpu_torch.ops.conv_transpose import (
     depthwise_upsample,
     depthwise_upsample_cuda,
 )
+from tauv_vision_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_cuda
 from tauv_vision_tpu_torch.ops.image import normalize_image, resize_frames
 from tauv_vision_tpu_torch.ops.masks import assemble_mask_batch, assemble_mask_cuda
 from tauv_vision_tpu_torch.ops.peaks import peak_decode, peak_decode_cuda
@@ -69,7 +76,19 @@ FPS_BATCH = 32
 PEAK_ATOL = 1e-6      # score; index and label exact
 MASK_ATOL = 1e-5      # sigmoid of an 8-term dot, summed in another order
 UPSAMPLE_TOL = 1e-5   # rtol and atol: 4 f32 taps in another order than cuDNN
-HEAD_ATOL = 1e-4      # raw heads, kernel C against cuDNN inside the net
+HEAD_ATOL = {         # raw heads, kernel path against the plain path
+    "plain_ida": 1e-4,   # kernel C against cuDNN inside the net
+    # kernels C and E: a sample position that moves by one ulp moves every
+    # later DCN block's samples, through 16 blocks; the bound the CPU
+    # tests hold this net to against the JAX package
+    "dcn_ida": 2e-4,
+}
+DCN_TOL = 1e-4        # rtol and atol: 9 C (up to 4,608) f32 products an
+                      # output, summed in another order than the plain
+                      # version's per-tap GEMMs, weight x mask folded first
+PLANTED_OFFSET = 40.0  # cells: past the map edge, as torch-trained offsets go
+N_DCN = 16            # DeformConv2d calls of one DCN-IDA forward
+N_DCN_SHAPES = 7      # distinct (x shape, O) among them
 
 KERNELS = {
     "peak_decode": ("tauv_vision_tpu_torch/csrc/peak_decode.cu",
@@ -78,7 +97,10 @@ KERNELS = {
                       "tauv_vision_tpu/ops/pallas/mask_assembly.py:62"),
     "depthwise_upsample": ("tauv_vision_tpu_torch/csrc/depthwise_upsample.cu",
                            "tauv_vision_tpu/ops/pallas/depthwise_upsample.py:81"),
+    "deform_conv": ("tauv_vision_tpu_torch/csrc/deform_conv.cu",
+                    "tauv_vision_tpu/ops/pallas/deform_conv.py:409"),
 }
+PATHS = ("plain_ida", "dcn_ida")
 
 
 def fail(msg: str) -> None:
@@ -112,8 +134,10 @@ def device_phase() -> str:
 def build_phase() -> None:
     path, seconds, log = kernels.build(("-Xptxas", "-v"))
     kernels.library()
+    sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
     print(f"build: {path.name} in {seconds:.1f} s "
-          f"({'cached' if seconds == 0 else 'compiled'})")
+          f"({'cached' if seconds == 0 else 'compiled'}), {len(sources)} kernel "
+          f"sources {sources}, entry points {sorted(kernels._SIGNATURES)}")
     for line in log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas: " + line.split("ptxas info    : ")[-1].strip())
@@ -122,28 +146,61 @@ def build_phase() -> None:
 # ---- models -------------------------------------------------------------
 
 def build_models(device):
+    """{path: (CenterNet on the kernels, the same weights on the plain
+    versions)}, the CenterNet config, YOLACT and its config."""
     oc, cn_cfg = centernet_config()
     yl_cfg = yolact_config()
-    cn = CenterpointDLA34(oc, generator=torch.Generator().manual_seed(0),
-                          device=device).eval()
-    cn_plain = CenterpointDLA34(oc, up_impl="plain", device=device).eval()
-    cn_plain.load_state_dict(cn.state_dict())
+    nets = {}
+    for path, seed, deform in (("plain_ida", 0, False), ("dcn_ida", 2, True)):
+        cn = CenterpointDLA34(oc, generator=torch.Generator().manual_seed(seed),
+                              device=device, deform=deform).eval()
+        cn_plain = CenterpointDLA34(oc, up_impl="plain", device=device,
+                                    deform=deform, dcn_impl="plain").eval()
+        cn_plain.load_state_dict(cn.state_dict())
+        nets[path] = (cn, cn_plain)
     yl = Yolact(yl_cfg, generator=torch.Generator().manual_seed(1),
                 device=device).eval()
-    return cn, cn_plain, cn_cfg, yl, yl_cfg
+    return nets, cn_cfg, yl, yl_cfg
 
 
-def upsample_calls(cn_plain, img):
-    """(x, weight, factor) of every DepthwiseUpsample call of one forward."""
+def hooked_calls(cn_plain, modules, img, record):
+    """``record(module, args)`` of every call of ``modules`` in one forward."""
     calls = []
-    hooks = [m.register_forward_pre_hook(
-        lambda m, args: calls.append((args[0].clone(), m.weight.detach(), m.factor)))
-        for m in cn_plain.modules() if isinstance(m, DepthwiseUpsample)]
+    hooks = [m.register_forward_pre_hook(lambda m, args: calls.append(record(m, args)))
+             for m in modules]
     with torch.inference_mode():
         cn_plain(img)
     for h in hooks:
         h.remove()
     return calls
+
+
+def upsample_calls(cn_plain, img):
+    """(x, weight, factor) of every DepthwiseUpsample call of one forward."""
+    return hooked_calls(cn_plain, cn_plain.depthwise_upsamples(), img, lambda m, args: (
+        args[0].clone(), m.weight.detach(), m.factor))
+
+
+def dcn_calls(cn_plain, img):
+    """(x, offset, mask, weight, bias) of every DeformConv2d call of one
+    forward: the net's own offsets and masks."""
+    return hooked_calls(cn_plain, cn_plain.deform_convs(), img, lambda m, args: (
+        *(a.clone() for a in args), m.weight.detach(), m.bias.detach()))
+
+
+def dcn_shapes(calls):
+    """{(x shape, O): (the first call of that shape, how many calls)}."""
+    shapes = {}
+    for call in calls:
+        key = (tuple(call[0].shape), call[3].shape[0])
+        first, n = shapes.get(key, (call, 0))
+        shapes[key] = (first, n + 1)
+    return shapes
+
+
+def dcn_flop(calls) -> int:
+    """Multiply-adds x 2 of the DCN products (the sampling not counted)."""
+    return sum(2 * 9 * x.numel() * w.shape[0] for x, _, _, w, _ in calls)
 
 
 # ---- phase 3 ------------------------------------------------------------
@@ -158,7 +215,8 @@ def planted_ties(shape, gen):
     return x
 
 
-def check_phase(cn_plain, cn_cfg, yl_cfg):
+def check_phase(nets, cn_cfg, yl_cfg):
+    cn_plain = nets["plain_ida"][1]
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     b = CHECK_BATCH
@@ -222,6 +280,34 @@ def check_phase(cn_plain, cn_cfg, yl_cfg):
             print(f"check depthwise_upsample f={f} {tuple(x.shape)} {wname}: "
                   f"max_abs_err {e:.3g} (rtol=atol={UPSAMPLE_TOL})")
     errs["depthwise_upsample"] = err
+
+    calls = dcn_calls(nets["dcn_ida"][1], img)
+    require(len(calls) == N_DCN, f"{len(calls)} DCN calls a forward, expected {N_DCN}")
+    by_shape = dcn_shapes(calls)
+    require(len(by_shape) == N_DCN_SHAPES,
+            f"{len(by_shape)} distinct DCN shapes, expected {N_DCN_SHAPES}")
+    err = 0.0
+    for (shape, o), ((x, offset, mask, w, bias), _) in by_shape.items():
+        planted = (torch.rand(offset.shape, generator=gen, device="cuda") * 2 - 1
+                   ) * PLANTED_OFFSET
+        reach = offset.abs().max().item()
+        for case, args in (("net", (x, offset, mask, w, bias)),
+                           ("planted_40", (x, planted, mask, w, bias)),
+                           ("no_mask", (x, offset, None, w, bias))):
+            got, want = deform_conv2d_cuda(*args), deform_conv2d(*args)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape == (shape[0], o) + shape[2:],
+                    f"deform_conv shape {tuple(got.shape)}")
+            require(bool(torch.isfinite(got).all()), f"deform_conv {shape} {case}: non-finite")
+            e = (got - want).abs().max().item()
+            bad = (got - want).abs() > DCN_TOL + DCN_TOL * want.abs()
+            require(not bad.any().item(), f"deform_conv {shape}->{o} {case}: err {e}")
+            err = max(err, e)
+            print(f"check deform_conv {shape} -> O={o} {case}"
+                  f"{f' (net |offset| <= {reach:.2f})' if case == 'net' else ''}: "
+                  f"max_abs_err {e:.3g}, max |plain| {want.abs().max().item():.3g} "
+                  f"(rtol=atol={DCN_TOL})")
+    errs["deform_conv"] = err
     return errs
 
 
@@ -231,25 +317,27 @@ def finite(*ts):
     return all(torch.isfinite(t.float()).all().item() for t in ts)
 
 
-def serve_phase(cn, cn_plain, cn_cfg, yl, yl_cfg):
+def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg):
     device = torch.device("cuda")
     frames = np.random.default_rng(0).integers(
         0, 256, (N_REQUESTS, CHECK_BATCH, FRAME_H, FRAME_W, 3), np.uint8)
     requests = [torch.from_numpy(f).pin_memory() for f in frames]
     pipe = make_combined_pipeline(cn, cn_cfg, yl, yl_cfg, device)
     plain = make_combined_pipeline(cn_plain, cn_cfg, yl, yl_cfg, device, impl="plain")
-    n_up = len(cn.depthwise_upsamples())
+    n_up, n_dcn = len(cn.depthwise_upsamples()), len(cn.deform_convs())
+    require(n_dcn == (N_DCN if path == "dcn_ida" else 0),
+            f"{path}: {n_dcn} DeformConv2d modules")
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     answers = [pipe(r) for r in requests]
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    print(f"serve: {N_REQUESTS} requests x {CHECK_BATCH} frames, launches {launches}, "
-          f"{n_up} DepthwiseUpsample modules")
+    print(f"serve {path}: {N_REQUESTS} requests x {CHECK_BATCH} frames, launches "
+          f"{launches}, {n_up} DepthwiseUpsample and {n_dcn} DeformConv2d modules")
     want = {"peak_decode": N_REQUESTS, "mask_assembly": N_REQUESTS,
-            "depthwise_upsample": N_REQUESTS * n_up}
-    require(launches == want, f"launch counts {launches}, expected {want}")
+            "depthwise_upsample": N_REQUESTS * n_up, "deform_conv": N_REQUESTS * n_dcn}
+    require(launches == want, f"{path}: launch counts {launches}, expected {want}")
 
     b, k, kk = CHECK_BATCH, SERVING_DECODE.n_detections, SERVING_DECODE.top_k
     mask_hw = (yl_cfg.in_h // 2, yl_cfg.in_w // 2)
@@ -272,22 +360,27 @@ def serve_phase(cn, cn_plain, cn_cfg, yl, yl_cfg):
             got, ref = cn(cn_in), cn_plain(cn_in)
         for name in ("heatmap", "size", "offset"):
             head_err = max(head_err, (getattr(got, name) - getattr(ref, name)).abs().max().item())
-    print(f"serve: CenterNet raw heads kernel vs plain max_abs_err {head_err:.3g} "
-          f"(atol {HEAD_ATOL})")
-    require(head_err <= HEAD_ATOL, f"raw heads differ by {head_err}")
+    atol = HEAD_ATOL[path]
+    print(f"serve {path}: CenterNet raw heads kernel vs plain max_abs_err "
+          f"{head_err:.3g} (atol {atol})")
+    require(head_err <= atol, f"{path}: raw heads differ by {head_err}")
 
-    mask_err = 0.0
+    mask_err, cn_p95 = 0.0, {}
     for r, (cn_d, yl_d) in zip(requests, answers):
         cn_p, yl_p = plain(r)
         for name, got, ref in (("CenterNet", cn_d, cn_p), ("YOLACT", yl_d, yl_p)):
             stats = detection_deltas(ref, got, score_threshold=0.0)
             require(stats["matched_fraction"] == 1.0,
-                    f"{name} decode kernel vs plain: {stats}")
+                    f"{path}: {name} decode kernel vs plain: {stats}")
+            if name == "CenterNet":
+                for what in ("center", "score", "size"):
+                    key = f"{what}_delta_p95"
+                    cn_p95[key] = max(cn_p95.get(key, 0.0), stats[key])
         require(torch.equal(yl_d.valid, yl_p.valid), "YOLACT keep masks differ")
         mask_err = max(mask_err, (yl_d.mask - yl_p.mask).abs().max().item())
     require(mask_err <= MASK_ATOL, f"served masks differ by {mask_err}")
-    print(f"serve: decoded kernel vs plain 100% matched (score threshold 0), "
-          f"mask max_abs_err {mask_err:.3g}; "
+    print(f"serve {path}: decoded kernel vs plain 100% matched (score threshold 0), "
+          f"CenterNet p95 {cn_p95}, mask max_abs_err {mask_err:.3g}; "
           f"{sum(int(a[0].valid.sum()) for a in answers)} CenterNet and "
           f"{sum(int(a[1].valid.sum()) for a in answers)} YOLACT detections valid "
           f"at the served thresholds")
@@ -320,7 +413,7 @@ def abba(kernel_fn, plain_fn, iters: int, warmup: int = 3):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def time_phase(cn, cn_plain, cn_cfg, yl, yl_cfg, card, profile_dir):
+def time_phase(nets, cn_cfg, yl, yl_cfg, card, profile_dir):
     gen = torch.Generator(device="cuda").manual_seed(1)
     b = CHECK_BATCH
     times = {}
@@ -336,32 +429,50 @@ def time_phase(cn, cn_plain, cn_cfg, yl, yl_cfg, card, profile_dir):
     times["mask_assembly"] = abba(lambda: assemble_mask_cuda(proto, coeff, box),
                                   lambda: assemble_mask_batch(proto, coeff, box), 50)
     img = torch.randn((b, 3, cn_cfg.in_h, cn_cfg.in_w), generator=gen, device="cuda")
-    calls = upsample_calls(cn_plain, img)
+    calls = upsample_calls(nets["plain_ida"][1], img)
     times["depthwise_upsample"] = abba(
         lambda: [depthwise_upsample_cuda(x, w, f) for x, w, f in calls],
         lambda: [depthwise_upsample(x, w, f) for x, w, f in calls], 50)
+    dcns = dcn_calls(nets["dcn_ida"][1], img)
+    times["deform_conv"] = abba(lambda: [deform_conv2d_cuda(*c) for c in dcns],
+                                lambda: [deform_conv2d(*c) for c in dcns], 20)
     what = {
         "peak_decode": f"[{b},4,{cn_cfg.out_h},{cn_cfg.out_w}] K={k}",
         "mask_assembly": f"proto [{b},{p},{yl_cfg.in_h // 2},{yl_cfg.in_w // 2}] K={kk} crop",
         "depthwise_upsample": f"all {len(calls)} calls of one batch-{b} forward",
+        "deform_conv": f"all {len(dcns)} calls of one batch-{b} DCN-IDA forward",
     }
     for name, (k_ms, p_ms) in times.items():
         print(f"time {name} {what[name]}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"({card})")
         times[name] = (k_ms, p_ms, what[name])
+    gflop = dcn_flop(dcns) / 1e9
+    print(f"time deform_conv: {gflop:.2f} GFLOP in the products for {b} frames, "
+          f"kernel {gflop / times['deform_conv'][0]:.2f} TFLOP/s, plain "
+          f"{gflop / times['deform_conv'][1]:.2f} TFLOP/s (f32 peak 67 off the tensor cores)")
+    for shape, (c, n) in dcn_shapes(dcns).items():
+        k_ms, p_ms = abba(lambda: deform_conv2d_cuda(*c), lambda: deform_conv2d(*c), 20)
+        print(f"time deform_conv {shape[0]} -> O={shape[1]} (x{n} a forward): kernel "
+              f"{k_ms:.4f} ms = {dcn_flop([c]) / 1e9 / k_ms:.2f} TFLOP/s, plain "
+              f"{p_ms:.4f} ms ({card})")
 
     device = torch.device("cuda")
     frames = torch.from_numpy(np.random.default_rng(1).integers(
         0, 256, (FPS_BATCH, FRAME_H, FRAME_W, 3), np.uint8)).pin_memory()
-    pipe = make_combined_pipeline(cn, cn_cfg, yl, yl_cfg, device)
-    plain = make_combined_pipeline(cn_plain, cn_cfg, yl, yl_cfg, device, impl="plain")
-    k_ms, p_ms = abba(lambda: pipe(frames), lambda: plain(frames), 10)
-    print(f"time pipeline batch {FPS_BATCH} (upload + resize + both nets + decode, f32): "
-          f"kernels {k_ms:.3f} ms = {FPS_BATCH * 1000 / k_ms:.2f} frames/s, "
-          f"plain {p_ms:.3f} ms = {FPS_BATCH * 1000 / p_ms:.2f} frames/s ({card})")
+    pipes = {}
+    for path, (cn, cn_plain) in nets.items():
+        pipe = make_combined_pipeline(cn, cn_cfg, yl, yl_cfg, device)
+        plain = make_combined_pipeline(cn_plain, cn_cfg, yl, yl_cfg, device, impl="plain")
+        k_ms, p_ms = abba(lambda: pipe(frames), lambda: plain(frames), 10)
+        print(f"time pipeline {path} batch {FPS_BATCH} (upload + resize + both nets + "
+              f"decode, f32): kernels {k_ms:.3f} ms = {FPS_BATCH * 1000 / k_ms:.2f} "
+              f"frames/s, plain {p_ms:.3f} ms = {FPS_BATCH * 1000 / p_ms:.2f} frames/s "
+              f"({card})")
+        pipes[path] = pipe
 
     # The request's stages one by one, on device-resident frames.
     knobs = SERVING_DECODE
+    cn, dcn, dcn_plain = nets["plain_ida"][0], *nets["dcn_ida"]
     with torch.inference_mode():
         on_card = frames.to(device)
         img = resize_frames(on_card, (cn_cfg.in_h, cn_cfg.in_w))
@@ -378,6 +489,8 @@ def time_phase(cn, cn_plain, cn_cfg, yl, yl_cfg, card, profile_dir):
             "upload": lambda: frames.to(device, non_blocking=True),
             "resize + normalise": preprocess_both,
             "CenterNet forward": lambda: cn(cn_in),
+            "CenterNet DCN-IDA forward": lambda: dcn(cn_in),
+            "CenterNet DCN-IDA forward, plain DCN": lambda: dcn_plain(cn_in),
             "YOLACT forward": lambda: yl(yl_in),
             "CenterNet decode": lambda: decode(cn_pred, cn_cfg, knobs.n_detections,
                                                knobs.score_threshold),
@@ -397,14 +510,15 @@ def time_phase(cn, cn_plain, cn_cfg, yl, yl_cfg, card, profile_dir):
 
         out = pathlib.Path(profile_dir)
         out.mkdir(parents=True, exist_ok=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                pipe(frames)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        (out / "pipeline_profile.txt").write_text(f"{card}\n{table}\n")
-        print("profile (3 batch-32 requests), top kernels by device time:")
-        print("\n".join(table.splitlines()[:22]))
+        for path, pipe in pipes.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    pipe(frames)
+                torch.cuda.synchronize()
+            table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+            (out / f"pipeline_profile_{path}.txt").write_text(f"{card}\n{table}\n")
+            print(f"profile {path} (3 batch-32 requests), top kernels by device time:")
+            print("\n".join(table.splitlines()[:22]))
     return times
 
 
@@ -417,14 +531,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     card = device_phase()
     build_phase()
-    cn, cn_plain, cn_cfg, yl, yl_cfg = build_models(torch.device("cuda"))
-    errs = check_phase(cn_plain, cn_cfg, yl_cfg)
-    launches = serve_phase(cn, cn_plain, cn_cfg, yl, yl_cfg)
-    times = time_phase(cn, cn_plain, cn_cfg, yl, yl_cfg, card, args.profile)
+    nets, cn_cfg, yl, yl_cfg = build_models(torch.device("cuda"))
+    errs = check_phase(nets, cn_cfg, yl_cfg)
+    launches = {path: serve_phase(path, *nets[path], cn_cfg, yl, yl_cfg)
+                for path in PATHS}
+    times = time_phase(nets, cn_cfg, yl, yl_cfg, card, args.profile)
 
+    # ``launches``: the DCN-IDA path's run, which goes through all four
+    # kernels; ``launches_by_path``: each path's own run.
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errs[name],
+         "launches": launches["dcn_ida"][name],
+         "launches_by_path": {path: launches[path][name] for path in PATHS},
+         "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1], "timed": times[name][2]}
         for name, (src, replaces) in KERNELS.items()
     ]}

@@ -30,10 +30,11 @@ BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"peak_decode": 0, "mask_assembly": 0, "depthwise_upsample": 0}
+LAUNCHES = {"peak_decode": 0, "mask_assembly": 0, "depthwise_upsample": 0,
+            "deform_conv": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,7 @@ _SIGNATURES = {
     "tauv_peak_decode_f32": [_P] * 5 + [_I] * 7 + [_P],
     "tauv_mask_assembly_f32": [_P] * 4 + [_I] * 6 + [_P],
     "tauv_depthwise_upsample_f32": [_P] * 3 + [_I] * 6 + [_P],
+    "tauv_deform_conv_f32": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _lib = None
@@ -78,25 +80,42 @@ def _nvcc() -> str:
 def build(extra_flags=()) -> tuple[pathlib.Path, float, str]:
     """Compile ``csrc/*.cu`` unless the hashed library exists.
 
+    One ``nvcc -c`` a source, all started together, then one link.
     Returns (library path, seconds spent compiling, compiler output).
     ``extra_flags`` (for example ``("-Xptxas", "-v")``) only reach a
     fresh build."""
     out = library_path()
     if out.exists():
         return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    obj_dir = BUILD_DIR / f"obj.{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    if proc.returncode != 0:
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = obj_dir / f"{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        log = proc.communicate()[0]
+        logs.append(log)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]],
+        capture_output=True, text=True)
+    if link.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+            f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    seconds = time.perf_counter() - start
     os.replace(tmp, out)
-    return out, seconds, proc.stdout + proc.stderr
+    shutil.rmtree(obj_dir)
+    return out, seconds, "".join(logs) + link.stdout + link.stderr
 
 
 def library() -> ctypes.CDLL:

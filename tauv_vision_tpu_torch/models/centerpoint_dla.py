@@ -1,10 +1,12 @@
-"""DLA-34 CenterNet with plain-conv IDA (``deform=False``).
+"""DLA-34 CenterNet with plain-conv or deformable (DCNv2) IDA.
 
-Counterpart of ``tauv_vision_tpu/models/centerpoint_dla.py`` for the
-served configuration: the DLA-34 trunk, DLAUp / IDAUp aggregation with
-plain 3x3 conv blocks and the trainable bilinear depthwise upsamples
-(kernel C), and the heads (3x3 conv, ReLU, 1x1 conv; the heatmap head's
-bias starts at -2.19).  NCHW inside; the ``Prediction`` is NHWC.
+Counterpart of ``tauv_vision_tpu/models/centerpoint_dla.py``: the DLA-34
+trunk, DLAUp / IDAUp aggregation whose 16 conv blocks are plain 3x3 convs
+(``deform=False``, the served ``bench.py`` default) or modulated
+deformable convs (``deform=True``, the reference's deployed net; kernel
+E), the trainable bilinear depthwise upsamples (kernel C), and the heads
+(3x3 conv, ReLU, 1x1 conv; the heatmap head's bias starts at -2.19).
+NCHW inside; the ``Prediction`` is NHWC.
 
 Module and parameter names follow the reference torch layout that
 ``tauv_vision_tpu.models.centerpoint_dla.load_centerpoint_dla34_state_dict``
@@ -29,6 +31,7 @@ from tauv_vision_tpu_torch.ops.conv_transpose import (
     depthwise_upsample,
     depthwise_upsample_cuda,
 )
+from tauv_vision_tpu_torch.ops.deform_conv import DeformConv2d
 
 DLA34_LEVELS = (1, 1, 1, 2, 2, 1)
 DLA34_CHANNELS = (16, 32, 64, 128, 256, 512)
@@ -176,20 +179,37 @@ class DLATrunk(nn.Module):
 
 
 class DeformConvBlock(nn.Module):
-    """The IDA conv block with ``deform=False``: 3x3 conv + BN + ReLU
-    (keys ``conv`` and ``actf.0``, the reference's plain-IDA layout)."""
+    """The IDA conv block, then BN + ReLU (``actf``).
 
-    def __init__(self, in_channels: int, out_channels: int, deform: bool = False):
+    ``deform=False``: a plain 3x3 conv (``conv``), the reference's
+    plain-IDA layout.  ``deform=True``: DCNv2 as the reference builds it
+    (``offset`` 3x3 conv to 18 channels, ``mask`` 3x3 conv to 9 channels
+    and sigmoid, ``conv`` the ``DeformConv2d``); ``offset_bound`` squashes
+    the offsets through ``bound * tanh(offset / bound)`` as the JAX
+    block's option does, and ``dcn_impl`` picks kernel E or the plain
+    version (see ``DeformConv2d``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, deform: bool = False,
+                 offset_bound: Optional[float] = None, dcn_impl: str = "kernel"):
         super().__init__()
+        self.deform = deform
+        self.offset_bound = offset_bound
         if deform:
-            raise NotImplementedError(
-                "deformable IDA (deform=True) is not ported yet"
-            )
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+            self.offset = nn.Conv2d(in_channels, 18, 3, padding=1)
+            self.mask = nn.Conv2d(in_channels, 9, 3, padding=1)
+            self.conv = DeformConv2d(in_channels, out_channels, dcn_impl)
+        else:
+            self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.actf = nn.Sequential(batch_norm(out_channels), nn.ReLU(inplace=True))
 
     def forward(self, x):
-        return self.actf(self.conv(x))
+        if not self.deform:
+            return self.actf(self.conv(x))
+        offset = self.offset(x)
+        if self.offset_bound is not None:
+            offset = self.offset_bound * torch.tanh(offset / self.offset_bound)
+        mask = torch.sigmoid(self.mask(x))
+        return self.actf(self.conv(x, offset, mask))
 
 
 class DepthwiseUpsample(nn.Module):
@@ -221,15 +241,17 @@ class IDAUpStage(nn.Module):
     layers[i] = node(up(proj(layers[i])) + layers[i-1])."""
 
     def __init__(self, out_channels: int, in_channels: Sequence[int],
-                 up_factors: Sequence[int], up_impl: str = "kernel"):
+                 up_factors: Sequence[int], up_impl: str = "kernel", **block):
         super().__init__()
         self.up_factors = [int(f) for f in up_factors]
         for i in range(1, len(in_channels)):
-            self.add_module(f"proj_{i}", DeformConvBlock(in_channels[i], out_channels))
+            self.add_module(f"proj_{i}", DeformConvBlock(
+                in_channels[i], out_channels, **block))
             if self.up_factors[i] > 1:
                 self.add_module(f"up_{i}", DepthwiseUpsample(
                     out_channels, self.up_factors[i], up_impl))
-            self.add_module(f"node_{i}", DeformConvBlock(out_channels, out_channels))
+            self.add_module(f"node_{i}", DeformConvBlock(
+                out_channels, out_channels, **block))
 
     def forward(self, layers: List[torch.Tensor]) -> List[torch.Tensor]:
         layers = list(layers)
@@ -245,7 +267,7 @@ class IDAUpStage(nn.Module):
 class DLAUp(nn.Module):
     """Aggregate the consumed levels down to the finest one."""
 
-    def __init__(self, channels: Sequence[int], up_impl: str = "kernel"):
+    def __init__(self, channels: Sequence[int], up_impl: str = "kernel", **block):
         super().__init__()
         channels = list(channels)
         in_channels = list(channels)
@@ -256,7 +278,7 @@ class DLAUp(nn.Module):
             j = -i - 2
             self.add_module(f"ida_{i}", IDAUpStage(
                 channels[j], in_channels[j:], (scales[j:] // scales[j]).tolist(),
-                up_impl,
+                up_impl, **block,
             ))
             scales[j + 1:] = scales[j]
             in_channels[j + 1:] = [channels[j]] * len(in_channels[j + 1:])
@@ -272,17 +294,21 @@ class DLAUp(nn.Module):
 
 
 class DLASeg(nn.Module):
-    """Trunk + DLAUp + IDAUp + heads; returns the NCHW head outputs."""
+    """Trunk + DLAUp + IDAUp + heads; returns the NCHW head outputs.
+    ``block`` (``deform``, ``offset_bound``, ``dcn_impl``) reaches every
+    IDA conv block."""
 
-    def __init__(self, head_channels: Sequence[int], up_impl: str = "kernel"):
+    def __init__(self, head_channels: Sequence[int], up_impl: str = "kernel",
+                 **block):
         super().__init__()
         self.n_heads = len(head_channels)
         self.base = DLATrunk()
         channels = list(DLA34_CHANNELS[FIRST_LEVEL:])
-        self.dla_up = DLAUp(channels, up_impl)
+        self.dla_up = DLAUp(channels, up_impl, **block)
         n_ida = LAST_LEVEL - FIRST_LEVEL
         self.ida_up = IDAUpStage(
             channels[0], channels[:n_ida], [2**i for i in range(n_ida)], up_impl,
+            **block,
         )
         for i, n_out in enumerate(head_channels):
             self.add_module(str(i), nn.Sequential(
@@ -304,14 +330,20 @@ class CenterpointDLA34(nn.Module):
 
     Weights are drawn from ``generator`` (the torch default generator
     when None), the heatmap heads' biases start at -2.19, and the module
-    is moved to ``device``; call ``.eval()`` to serve.  Plain-conv IDA
-    only (``deform=False`` in the JAX package)."""
+    is moved to ``device``; call ``.eval()`` to serve.  ``deform`` and
+    ``offset_bound`` mean what they mean in the JAX package, whose
+    ``dcn_impl="gather"`` the port's DCN matches; ``up_impl`` and
+    ``dcn_impl`` pick kernels C and E or their plain versions."""
 
     def __init__(self, object_config: ObjectConfigSet, up_impl: str = "kernel",
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 deform: bool = False, offset_bound: Optional[float] = None,
+                 dcn_impl: str = "kernel"):
         super().__init__()
         self.object_config = object_config
-        self.model = DLASeg(get_head_channels(object_config), up_impl=up_impl)
+        self.model = DLASeg(get_head_channels(object_config), up_impl=up_impl,
+                            deform=deform, offset_bound=offset_bound,
+                            dcn_impl=dcn_impl)
         if generator is None:
             generator = torch.default_generator
         init_parameters(self, generator)
@@ -324,6 +356,9 @@ class CenterpointDLA34(nn.Module):
 
     def depthwise_upsamples(self) -> List[DepthwiseUpsample]:
         return [m for m in self.modules() if isinstance(m, DepthwiseUpsample)]
+
+    def deform_convs(self) -> List[DeformConv2d]:
+        return [m for m in self.modules() if isinstance(m, DeformConv2d)]
 
     def forward(self, img: torch.Tensor) -> Prediction:
         """img: [B, 3, H, W] normalised f32."""

@@ -7,6 +7,8 @@ import math
 import torch
 from torch import nn
 
+from tauv_vision_tpu_torch.ops.deform_conv import DeformConv2d
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; the JAX package's 0.9
 
@@ -19,13 +21,13 @@ def batch_norm(channels: int) -> nn.BatchNorm2d:
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init of every conv under ``module``.
 
-    Conv and transposed-conv weights are normal with std 1/sqrt(fan_in)
-    (LeCun normal), drawn from ``generator``; biases are zero.  BatchNorm
-    keeps identity statistics.  Parameters that are not conv weights (the
-    bilinear depthwise upsamples) keep their init.
+    Conv, transposed-conv and deformable-conv weights are normal with std
+    1/sqrt(fan_in) (LeCun normal), drawn from ``generator``; biases are
+    zero.  BatchNorm keeps identity statistics.  Parameters that are not
+    conv weights (the bilinear depthwise upsamples) keep their init.
     """
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, DeformConv2d)):
             w = m.weight
             if isinstance(m, nn.ConvTranspose2d):
                 fan_in = w.shape[0] // m.groups * w.shape[2] * w.shape[3]

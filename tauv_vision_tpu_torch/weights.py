@@ -4,6 +4,8 @@ Each function takes the JAX package's ``{"params", "batch_stats"}`` tree
 as nested dicts of numpy arrays (for example ``jax.device_get`` of a
 flax ``init``) and returns the port model's ``state_dict``: conv kernels
 HWIO -> OIHW, the depthwise upsample ``[k, k, 1, C]`` -> ``[C, 1, k, k]``,
+a DCN block's own ``weight`` [3, 3, C, O] / ``bias`` leaves -> its
+``conv.weight`` [O, C, 3, 3] / ``conv.bias``,
 the protonet's transposed-conv ``[kh, kw, Cin, Cout]`` ->
 ``[Cin, Cout, kh, kw]``, BatchNorm ``scale/bias/mean/var`` ->
 ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``).
@@ -58,6 +60,10 @@ def _convert(variables: dict, name_of: Callable[[Path], str],
                 np.asarray(leaves["kernel"], np.float32), transpose_of(path)))
             if "bias" in leaves:
                 put(f"{name}.bias", leaves["bias"])
+        elif "weight" in leaves:  # a DCN block's deformable conv
+            put(f"{name}.conv.weight", np.transpose(
+                np.asarray(leaves["weight"], np.float32), _HWIO_TO_OIHW))
+            put(f"{name}.conv.bias", leaves["bias"])
         elif "scale" in leaves:
             s = _get(stats, path)
             put(f"{name}.weight", leaves["scale"])
@@ -93,8 +99,8 @@ def _centerpoint_name(path: Path) -> str:
 
 
 def centerpoint_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
-    """``CenterpointDLA34(deform=False)`` weights (flax tree under
-    ``model``) -> the port's ``CenterpointDLA34`` state dict."""
+    """``CenterpointDLA34`` weights, plain-conv or DCN IDA (flax tree
+    under ``model``) -> the port's ``CenterpointDLA34`` state dict."""
     return _convert(variables, _centerpoint_name, root=("model",))
 
 

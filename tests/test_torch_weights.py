@@ -3,7 +3,10 @@
 - The port's CenterNet ``state_dict`` goes through the JAX package's own
   reference-torch importer (``load_centerpoint_dla34_state_dict``) and
   rebuilds the flax tree leaf for leaf: the live check that the port
-  keeps the reference torch names.
+  keeps the reference torch names.  The same holds with DCN IDA
+  (``deform=True``), whose blocks carry the deformable kernel as
+  block-level ``weight`` / ``bias`` leaves in flax and as ``conv`` in
+  torch; there every leaf is random, so a transposition cannot hide.
 - ``yolact_state_dict_from_flax`` equals the JAX package's
   ``export_yolact_state_dict`` and loads into the port strictly.
 - The port, ``chip_smoke.py`` and the card-only tests import no JAX.
@@ -31,6 +34,7 @@ from tauv_vision_tpu_torch.weights import (
     centerpoint_state_dict_from_flax,
     yolact_state_dict_from_flax,
 )
+from torch_parity import random_variables
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "tauv_vision_tpu_torch"
@@ -86,6 +90,36 @@ def test_torch_centerpoint_weights_round_trip(centernet_variables):
     rebuilt = dict(_flat(load_centerpoint_dla34_state_dict(port.state_dict())))
     want = dict(_flat(variables))
     assert rebuilt.keys() == want.keys()
+    for path, leaf in want.items():
+        np.testing.assert_array_equal(np.asarray(rebuilt[path]), leaf, err_msg=str(path))
+
+
+@pytest.fixture(scope="module")
+def dcn_variables():
+    oc, _ = centernet_config()
+    model = JaxCenterpointDLA34(object_config=oc, deform=True, dcn_impl="gather")
+    return oc, random_variables(model, (1, 32, 32, 3), 2)
+
+
+def test_torch_dcn_centerpoint_names_rebuild_flax_tree(dcn_variables):
+    oc, variables = dcn_variables
+    port = CenterpointDLA34(oc, deform=True, generator=torch.Generator().manual_seed(0))
+    rebuilt = load_centerpoint_dla34_state_dict(port.state_dict())
+    want = {p: a.shape for p, a in _flat(variables)}
+    got = {p: np.asarray(a).shape for p, a in _flat(rebuilt)}
+    assert got == want
+    assert len(port.deform_convs()) == 16
+
+
+def test_torch_dcn_centerpoint_weights_round_trip(dcn_variables):
+    """flax (DCN IDA) -> port (strict load) -> reference importer == flax."""
+    oc, variables = dcn_variables
+    port = CenterpointDLA34(oc, deform=True)
+    port.load_state_dict(centerpoint_state_dict_from_flax(variables), strict=True)
+    rebuilt = dict(_flat(load_centerpoint_dla34_state_dict(port.state_dict())))
+    want = dict(_flat(variables))
+    assert rebuilt.keys() == want.keys()
+    assert ("params", "model", "ida_up", "node_2", "weight") in want
     for path, leaf in want.items():
         np.testing.assert_array_equal(np.asarray(rebuilt[path]), leaf, err_msg=str(path))
 
