@@ -2,8 +2,10 @@
 
 Mirrors the JAX package's layout (``ops``, ``models``, ``serving``) so
 each module's counterpart is easy to find.  It imports ``torch`` and
-``numpy`` and never JAX; from the JAX package it reads only the JAX-free
-``tauv_vision_tpu.configs`` and ``tauv_vision_tpu.eval.detection_eval``.
+``numpy`` and nothing of JAX or of the JAX package: the configuration
+dataclasses (``configs``) and the numpy detection matcher
+(``eval/detection_eval.py``) are copies.  Models and pipelines run on the
+card unless the caller passes ``device="cpu"``.
 
 The kernels that the JAX package wrote in Pallas are CUDA C++ under
 ``csrc/``, built and loaded by ``kernels.py``.  Each has a plain PyTorch

@@ -1,9 +1,11 @@
-"""The served model configurations, built from ``tauv_vision_tpu.configs``.
+"""Model configurations (``centernet``, ``yolact``: copies of the JAX
+package's dataclasses) and the served configurations built from them.
 
-The same configurations that ``bench.py`` serves with no flags: the
-deployed CenterpointDLA34 (4 classes, heatmap/size/offset heads) and the
-production YOLACT (ResNet-18, 256-wide FPN, 8 prototypes, 7 classes), both
-at their native 640x360 input.
+``centernet_config`` and ``yolact_config`` are the configurations that
+``bench.py`` serves with no flags: the deployed CenterpointDLA34 (4
+classes, heatmap/size/offset heads) and the production YOLACT (ResNet-18,
+256-wide FPN, 8 prototypes, 7 classes), both at their native 640x360
+input.
 """
 
 from __future__ import annotations
@@ -11,13 +13,25 @@ from __future__ import annotations
 from math import pi
 from typing import Tuple
 
-from tauv_vision_tpu.configs import (
+from tauv_vision_tpu_torch.configs.centernet import (
     AngleConfig,
     CenternetModelConfig,
     ObjectConfig,
     ObjectConfigSet,
-    YolactModelConfig,
+    get_head_channels,
 )
+from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig
+
+__all__ = [
+    "AngleConfig",
+    "CenternetModelConfig",
+    "ObjectConfig",
+    "ObjectConfigSet",
+    "YolactModelConfig",
+    "centernet_config",
+    "get_head_channels",
+    "yolact_config",
+]
 
 CENTERNET_LABELS = ("sample_24_coral", "sample_24_nautilus", "torpedo_24",
                     "torpedo_24_octagon")

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"peak_decode": 0, "mask_assembly": 0, "depthwise_upsample": 0,
-            "deform_conv": 0}
+            "deform_conv": 0, "transpose_conv": 0, "int8_dot_probe": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +44,8 @@ _SIGNATURES = {
     "tauv_mask_assembly_f32": [_P] * 4 + [_I] * 6 + [_P],
     "tauv_depthwise_upsample_f32": [_P] * 3 + [_I] * 6 + [_P],
     "tauv_deform_conv_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "tauv_transpose_conv2x_int8": [_P] * 6 + [_I] * 8 + [_P],
+    "tauv_int8_dot_probe": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 _lib = None
@@ -138,6 +140,9 @@ def launch(name: str, counter: str, *args) -> None:
     ``args`` are the entry point's arguments up to, not including, the
     device and stream, which are filled in here."""
     fn = getattr(library(), name)
+    if len(args) + 2 != len(fn.argtypes):
+        raise TypeError(f"{name} takes {len(fn.argtypes) - 2} arguments before the "
+                        f"device and stream, got {len(args)}")
     device = torch.cuda.current_device()
     stream = torch.cuda.current_stream().cuda_stream
     code = fn(*args, device, stream)

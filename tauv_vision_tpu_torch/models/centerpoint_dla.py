@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tauv_vision_tpu.configs.centernet import ObjectConfigSet, get_head_channels
+from tauv_vision_tpu_torch.configs.centernet import ObjectConfigSet, get_head_channels
+from tauv_vision_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from tauv_vision_tpu_torch.models.centernet import Prediction
 from tauv_vision_tpu_torch.models.layers import batch_norm, init_parameters
 from tauv_vision_tpu_torch.ops.conv_transpose import (
@@ -330,16 +331,19 @@ class CenterpointDLA34(nn.Module):
 
     Weights are drawn from ``generator`` (the torch default generator
     when None), the heatmap heads' biases start at -2.19, and the module
-    is moved to ``device``; call ``.eval()`` to serve.  ``deform`` and
+    is moved to ``device`` (the card unless the caller passes "cpu"); call
+    ``.eval()`` to serve.  ``deform`` and
     ``offset_bound`` mean what they mean in the JAX package, whose
     ``dcn_impl="gather"`` the port's DCN matches; ``up_impl`` and
     ``dcn_impl`` pick kernels C and E or their plain versions."""
 
     def __init__(self, object_config: ObjectConfigSet, up_impl: str = "kernel",
-                 generator: Optional[torch.Generator] = None, device=None,
+                 generator: Optional[torch.Generator] = None,
+                 device=DEFAULT_DEVICE,
                  deform: bool = False, offset_bound: Optional[float] = None,
                  dcn_impl: str = "kernel"):
         super().__init__()
+        device = resolve_device(device)
         self.object_config = object_config
         self.model = DLASeg(get_head_channels(object_config), up_impl=up_impl,
                             deform=deform, offset_bound=offset_bound,
@@ -351,8 +355,7 @@ class CenterpointDLA34(nn.Module):
         with torch.no_grad():
             for i in heatmap_heads:
                 getattr(self.model, str(i))[2].bias.fill_(HEATMAP_BIAS)
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def depthwise_upsamples(self) -> List[DepthwiseUpsample]:
         return [m for m in self.modules() if isinstance(m, DepthwiseUpsample)]

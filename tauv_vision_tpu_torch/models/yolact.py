@@ -15,7 +15,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from tauv_vision_tpu.configs.yolact import YolactModelConfig
+from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig
+from tauv_vision_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from tauv_vision_tpu_torch.models.fpn import FeaturePyramid
 from tauv_vision_tpu_torch.models.layers import init_parameters
 from tauv_vision_tpu_torch.models.prediction_head import PredictionHead
@@ -35,12 +36,14 @@ class YolactPrediction:
 
 class Yolact(nn.Module):
     """Weights are drawn from ``generator`` (the torch default generator
-    when None) and the module is moved to ``device``; call ``.eval()``
-    to serve."""
+    when None) and the module is moved to ``device`` (the card unless the
+    caller passes "cpu"); call ``.eval()`` to serve."""
 
     def __init__(self, config: YolactModelConfig,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None,
+                 device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device)
         cfg = config
         self.config = cfg
         self._backbone = Resnet18Features()
@@ -63,8 +66,7 @@ class Yolact(nn.Module):
         if generator is None:
             generator = torch.default_generator
         init_parameters(self, generator)
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def forward(self, img: torch.Tensor) -> YolactPrediction:
         """img: [B, 3, H, W] normalised f32."""

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from tauv_vision_tpu.configs.centernet import CenternetModelConfig
+from tauv_vision_tpu_torch.configs.centernet import CenternetModelConfig
 from tauv_vision_tpu_torch.models.centernet import Prediction
 from tauv_vision_tpu_torch.ops.heatmap import gather_at_cells
 from tauv_vision_tpu_torch.ops.peaks import peak_decode, peak_decode_cuda

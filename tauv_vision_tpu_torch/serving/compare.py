@@ -11,7 +11,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from tauv_vision_tpu.eval.detection_eval import (
+from tauv_vision_tpu_torch.eval.detection_eval import (
     EvalDetection,
     decoded_pair_deltas,
     detections_from_arrays,

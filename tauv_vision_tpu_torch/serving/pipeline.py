@@ -2,8 +2,9 @@
 (counterpart of ``tauv_vision_tpu/serving/pipeline.py``).
 
 Each ``make_*_pipeline`` returns ``fn(img_uint8 [B, H, W, 3])`` that
-uploads the frames to the given device, preprocesses, runs the net and
-decodes, under ``torch.inference_mode``.  The decode knobs live in
+uploads the frames to ``device`` (the card unless the caller passes
+"cpu"), preprocesses, runs the net and decodes, under
+``torch.inference_mode``.  The decode knobs live in
 ``SERVING_DECODE`` and nowhere else.
 """
 
@@ -14,8 +15,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tauv_vision_tpu.configs.centernet import CenternetModelConfig
-from tauv_vision_tpu.configs.yolact import YolactModelConfig
+from tauv_vision_tpu_torch.configs.centernet import CenternetModelConfig
+from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig
+from tauv_vision_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from tauv_vision_tpu_torch.ops.image import normalize_image, preprocess, resize_frames
 from tauv_vision_tpu_torch.serving.centernet_decode import decode
 from tauv_vision_tpu_torch.serving.yolact_decode import decode_yolact
@@ -45,10 +47,12 @@ def _upload(img_uint8, device) -> torch.Tensor:
     return img_uint8.to(device, non_blocking=True)
 
 
-def make_centernet_pipeline(model, model_config: CenternetModelConfig, device,
+def make_centernet_pipeline(model, model_config: CenternetModelConfig,
+                            device=DEFAULT_DEVICE,
                             knobs: DecodeKnobs = SERVING_DECODE,
                             impl: str = "kernel"):
     """``fn(img_uint8) -> Detections``."""
+    device = resolve_device(device)
     out_hw = (model_config.in_h, model_config.in_w)
 
     def pipeline(img_uint8):
@@ -61,10 +65,14 @@ def make_centernet_pipeline(model, model_config: CenternetModelConfig, device,
     return pipeline
 
 
-def make_yolact_pipeline(model, model_config: YolactModelConfig, device,
+def make_yolact_pipeline(model, model_config: YolactModelConfig,
+                         device=DEFAULT_DEVICE,
                          knobs: DecodeKnobs = SERVING_DECODE,
                          impl: str = "kernel"):
-    """``fn(img_uint8) -> YolactDetections``."""
+    """``fn(img_uint8) -> YolactDetections``; ``model(img)`` takes the
+    normalised NCHW f32 image (the model itself, or a chain forward of
+    ``serving/quantize_chain.py``)."""
+    device = resolve_device(device)
     out_hw = (model_config.in_h, model_config.in_w)
 
     def pipeline(img_uint8):
@@ -80,7 +88,8 @@ def make_yolact_pipeline(model, model_config: YolactModelConfig, device,
 
 def make_combined_pipeline(cn_forward, cn_model_config: CenternetModelConfig,
                            yl_forward, yl_model_config: YolactModelConfig,
-                           device, knobs: DecodeKnobs = SERVING_DECODE,
+                           device=DEFAULT_DEVICE,
+                           knobs: DecodeKnobs = SERVING_DECODE,
                            impl: str = "kernel"):
     """Both serving nets on one camera batch, sharing one bilinear resize.
 
@@ -88,6 +97,7 @@ def make_combined_pipeline(cn_forward, cn_model_config: CenternetModelConfig,
     YolactPrediction`` take normalised NCHW inputs (for example the
     models themselves).  Returns ``fn(img_uint8) -> (Detections,
     YolactDetections)``."""
+    device = resolve_device(device)
     if (cn_model_config.in_h, cn_model_config.in_w) != (
         yl_model_config.in_h, yl_model_config.in_w
     ):

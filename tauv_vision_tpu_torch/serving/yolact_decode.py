@@ -7,7 +7,7 @@ from dataclasses import dataclass
 
 import torch
 
-from tauv_vision_tpu.configs.yolact import YolactModelConfig
+from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig
 from tauv_vision_tpu_torch.models.yolact import YolactPrediction
 from tauv_vision_tpu_torch.ops.boxes import box_decode
 from tauv_vision_tpu_torch.ops.masks import assemble_mask_batch, assemble_mask_cuda
@@ -59,7 +59,9 @@ def decode_yolact(
     score = confidence.amax(dim=-1)
     label = confidence.argmax(dim=-1).to(torch.int32) + 1  # first maximum
 
-    proto = prediction.mask_prototype.permute(0, 3, 1, 2)  # [B, P, h, w]
+    # [B, P, h, w]; a copy only where the prototypes were made NHWC (the
+    # int8 chain), which kernel B does not take.
+    proto = prediction.mask_prototype.permute(0, 3, 1, 2).contiguous()
     assemble = assemble_mask_cuda if impl == "kernel" else assemble_mask_batch
     masks = assemble(proto, sel_coeff, sel_box)
     return YolactDetections(

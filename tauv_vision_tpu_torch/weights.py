@@ -142,6 +142,47 @@ def _yolact_name(path: Path) -> str:
     raise ValueError(f"unrecognised YOLACT module {'/'.join(path)}")
 
 
+_HEAD_GROUP_OF = {v: k for k, v in _HEAD_GROUPS.items()}
+_HEAD_OUTPUT_OF = {v: k for k, v in _HEAD_OUTPUTS.items()}
+_PROTONET_STACKS = {"1": "pre", "2": "mid", "3": "post"}
+
+
+def yolact_flax_path(name: str) -> str:
+    """The JAX package's module path (``backbone/layer1_0/conv1``) of a
+    port ``Yolact`` module name (``_backbone.layer1.0.conv1``): the
+    inverse of the naming used by ``yolact_state_dict_from_flax``, so that
+    calibration scales are keyed the same in both stacks."""
+    top, _, rest = name.partition(".")
+    parts = rest.split(".")
+    if top == "_backbone":
+        if len(parts) == 1:
+            return f"backbone/{parts[0]}"
+        layer, block, sub = parts[0], parts[1], ".".join(parts[2:])
+        sub = {"downsample.0": "downsample_conv",
+               "downsample.1": "downsample_bn"}.get(sub, sub)
+        return f"backbone/{layer}_{block}/{sub}"
+    if top == "_feature_pyramid":
+        kind = re.fullmatch(r"_(\w+)_layers", parts[0])[1]
+        return f"fpn/{kind}_{parts[1]}"
+    if top == "_masknet":
+        if parts[0] == "_output_layer":
+            return "protonet/output"
+        upsample = re.fullmatch(r"_upsample_layer_(\d)", parts[0])
+        if upsample:
+            return f"protonet/upsample_{upsample[1]}"
+        stack = re.fullmatch(r"_layers_(\d)", parts[0])[1]
+        return f"protonet/{_PROTONET_STACKS[stack]}_{parts[1]}"
+    if top == "_prediction_head":
+        if parts[0] in _HEAD_OUTPUT_OF:
+            return f"prediction_head/{_HEAD_OUTPUT_OF[parts[0]]}"
+        kind = re.fullmatch(r"(_\w+?)(_conv|_bn)?_layers", parts[0])
+        prefix = f"prediction_head/{_HEAD_GROUP_OF[kind[1]]}_{parts[1]}"
+        if kind[2] is None:
+            return f"{prefix}/bottleneck/{parts[2]}"
+        return f"{prefix}/{kind[2][1:]}"
+    raise ValueError(f"unrecognised YOLACT module {name}")
+
+
 def yolact_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """``Yolact`` weights -> the port's ``Yolact`` state dict."""
     return _convert(

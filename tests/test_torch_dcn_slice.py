@@ -53,7 +53,7 @@ def dcn_centernet():
     oc, mc = centernet_config(H, W)
     jax_model = JaxCenterpointDLA34(object_config=oc, deform=True, dcn_impl="gather")
     variables = random_variables(jax_model, (1, 32, 32, 3), 0)
-    port = CenterpointDLA34(oc, deform=True).eval()
+    port = CenterpointDLA34(oc, deform=True, device="cpu").eval()
     port.load_state_dict(centerpoint_state_dict_from_flax(variables), strict=True)
     return jax_model, variables, port, mc
 
@@ -63,7 +63,7 @@ def yolact():
     cfg = yolact_config(H, W, feature_depth=32)
     jax_model = JaxYolact(cfg)
     variables = random_variables(jax_model, (1, H, W, 3), 1)
-    port = Yolact(cfg).eval()
+    port = Yolact(cfg, device="cpu").eval()
     port.load_state_dict(yolact_state_dict_from_flax(variables), strict=True)
     return jax_model, variables, port, cfg
 

@@ -11,6 +11,9 @@ Tolerances: peak decode index/label exact and score 1e-6; mask assembly
 atol = 1e-5 (4 f32 taps in another order than cuDNN); deformable conv
 rtol = atol = 1e-4 (9 C f32 products an output, up to 4,608 at the
 served shapes, summed in another order than the plain per-tap GEMMs).
+Exact: the int8 transposed conv (integer sums, the same fused
+multiply-add epilogue), the chain's integer conv core against the
+float64 conv, and probe P2 (small integers).
 """
 
 import numpy as np
@@ -25,8 +28,15 @@ from tauv_vision_tpu_torch.ops.conv_transpose import (
     depthwise_upsample_cuda,
 )
 from tauv_vision_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_cuda
+from tauv_vision_tpu_torch.ops.int8_conv import conv2d_int8, conv2d_int8_f64
 from tauv_vision_tpu_torch.ops.masks import assemble_mask_batch, assemble_mask_cuda
 from tauv_vision_tpu_torch.ops.peaks import peak_decode, peak_decode_cuda
+from tauv_vision_tpu_torch.ops.transpose_conv import (
+    kernel_taps,
+    transpose_conv2x_int8,
+    transpose_conv2x_int8_cuda,
+)
+from tauv_vision_tpu_torch.scripts.int8_dot_probe import dot_probe, dot_probe_cuda, inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -138,6 +148,63 @@ def test_torch_deform_conv_kernel_on_card(cuda, case, b, c, o, h, w):
     torch.testing.assert_close(got.cpu(), deform_conv2d(*args), rtol=1e-4, atol=1e-4)
 
 
+def _codes(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["leaky", "relu", "none"])
+@pytest.mark.parametrize("b,h,w,c,o", [
+    (2, 45, 80, 256, 256),   # the first protonet upsample of the served net
+    (1, 5, 7, 32, 32),       # ragged column and channel tiles
+    (2, 9, 33, 64, 40),      # O not a multiple of the 64-channel tile
+])
+def test_torch_transpose_conv_kernel_on_card(cuda, b, h, w, c, o, act, out_dtype):
+    rng = np.random.default_rng(12)
+    x, qk = _codes((b, h, w, c), 13), _codes((3, 3, c, o), 14)
+    deq = torch.from_numpy(rng.uniform(1e-6, 1e-5, o).astype(np.float32))
+    bias = _normal((o,), 15)
+    scale = torch.from_numpy(rng.uniform(0.01, 0.1, o).astype(np.float32))
+    args = [t.to(cuda) for t in (x, qk, deq, bias, scale)]
+    before = kernels.LAUNCHES["transpose_conv"]
+    got = transpose_conv2x_int8_cuda(*args, act=act, out_dtype=out_dtype)
+    want = transpose_conv2x_int8(*args, act=act, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["transpose_conv"] == before + 1
+    assert got.shape == (b, 2 * h, 2 * w, o) and got.dtype == out_dtype
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), transpose_conv2x_int8(x, qk, deq, bias, scale, act=act,
+                                                        out_dtype=out_dtype))
+    prebuilt = transpose_conv2x_int8_cuda(*args, act=act, out_dtype=out_dtype,
+                                          taps=kernel_taps(args[1]))
+    assert torch.equal(prebuilt, want)
+
+
+@pytest.mark.parametrize("b,h,w,c,o,k,stride,padding", [
+    (2, 45, 80, 256, 256, 3, 1, 1),   # protonet pre_0
+    (2, 23, 40, 128, 256, 3, 2, 1),   # a stride-2 ResNet conv1
+    (2, 23, 40, 128, 256, 1, 2, 0),   # its downsample conv
+    (2, 12, 20, 512, 256, 1, 1, 0),   # an FPN lateral
+])
+def test_torch_conv2d_int8_on_card(cuda, b, h, w, c, o, k, stride, padding):
+    q, qk = _codes((b, h, w, c), 16).to(cuda), _codes((k, k, c, o), 17).to(cuda)
+    got = conv2d_int8(q, qk, stride, padding)
+    want = conv2d_int8_f64(q, qk, stride, padding)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_torch_int8_dot_probe_on_card(cuda, dtype):
+    a, b = inputs(dtype, cuda)
+    before = kernels.LAUNCHES["int8_dot_probe"]
+    got = dot_probe_cuda(a, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["int8_dot_probe"] == before + 1
+    assert torch.equal(got.to(torch.int64), dot_probe(a, b))
+
+
 def test_torch_kernel_wrappers_reject_bad_input(cuda):
     x = _normal((1, 4, 8, 8), 6).to(cuda)
     with pytest.raises(TypeError):
@@ -157,3 +224,13 @@ def test_torch_kernel_wrappers_reject_bad_input(cuda):
         deform_conv2d_cuda(x, offset, mask.cpu(), weight, bias)
     with pytest.raises(ValueError):
         deform_conv2d_cuda(x, offset, mask, weight[:, :, :2, :2].contiguous(), bias)
+    q, qk = _codes((1, 4, 5, 8), 18).to(cuda), _codes((3, 3, 8, 8), 19).to(cuda)
+    ones = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError):
+        transpose_conv2x_int8_cuda(q.float(), qk, ones, ones, ones)
+    with pytest.raises(ValueError):
+        transpose_conv2x_int8_cuda(q[..., :6].contiguous(), qk[:, :, :6], ones, ones, ones)
+    with pytest.raises(ValueError):
+        transpose_conv2x_int8_cuda(q, qk, ones, ones, ones, taps=kernel_taps(qk)[:, :8].contiguous())
+    with pytest.raises(ValueError):
+        conv2d_int8(q[:, :1, :1], qk, 1, 1)   # 1 row: torch._int_mm needs more than 16

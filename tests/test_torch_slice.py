@@ -73,7 +73,7 @@ def centernet():
     variables = _randomize_stats(jax.jit(
         lambda k: jax_model.init(k, jnp.zeros((1, 32, 32, 3)), train=False)
     )(jax.random.key(0)), 0)
-    port = CenterpointDLA34(oc).eval()
+    port = CenterpointDLA34(oc, device="cpu").eval()
     port.load_state_dict(centerpoint_state_dict_from_flax(variables))
     return jax_model, variables, port, mc
 
@@ -85,7 +85,7 @@ def yolact():
     variables = _randomize_stats(jax.jit(
         lambda k: jax_model.init(k, jnp.zeros((1, H, W, 3)), train=False)
     )(jax.random.key(1)), 1)
-    port = Yolact(cfg).eval()
+    port = Yolact(cfg, device="cpu").eval()
     port.load_state_dict(yolact_state_dict_from_flax(variables))
     return jax_model, variables, port, cfg
 

@@ -1,8 +1,63 @@
 """Helpers shared by the port's parity tests (not a test module)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
+
+from tauv_vision_tpu.configs import YolactModelConfig as JaxYolactModelConfig
+from tauv_vision_tpu.models.yolact import Yolact as JaxYolact
+from tauv_vision_tpu_torch.configs import YolactModelConfig
+from tauv_vision_tpu_torch.models.yolact import Yolact
+from tauv_vision_tpu_torch.weights import yolact_state_dict_from_flax
+
+# The small YOLACT of tests/test_quantize_chain.py.
+SMALL_YOLACT = dict(
+    in_w=64, in_h=64, feature_depth=16, n_classes=2, n_prototype_masks=4,
+    n_masknet_layers_pre_upsample=1, n_masknet_layers_post_upsample=1,
+    n_prediction_head_layers=1, n_classification_layers=0,
+    n_box_layers=0, n_mask_layers=0, n_fpn_downsample_layers=2,
+    anchor_scales=(12, 24, 48, 96, 192), anchor_aspect_ratios=(1.0,),
+    box_variances=(0.1, 0.2), iou_pos_threshold=0.5,
+    iou_neg_threshold=0.4, negative_example_ratio=3,
+)
+
+
+def yolact_pair(cfg: YolactModelConfig, seed: int):
+    """(JAX config, JAX model, numpy variables, port Yolact on the CPU
+    holding the same weights, eval mode)."""
+    jax_cfg = JaxYolactModelConfig(**dataclasses.asdict(cfg))
+    jax_model = JaxYolact(jax_cfg)
+    variables = random_variables(jax_model, (1, cfg.in_h, cfg.in_w, 3), seed)
+    port = Yolact(cfg, device="cpu").eval()
+    port.load_state_dict(yolact_state_dict_from_flax(variables))
+    return jax_cfg, jax_model, variables, port
+
+
+def upsample_scales(port, batches):
+    """Per-input-channel scales of the protonet's two transposed convs,
+    by ``calibrate``'s rule (max(absmax, 1e-6) / 127 over the batches of
+    the f32 forward), which ``calibrate`` itself does not record."""
+    absmax = {}
+
+    def recorder(path):
+        def hook(module, args):
+            value = args[0].abs().amax(dim=(0, 2, 3)).double().cpu().numpy()
+            absmax[path] = np.maximum(absmax.get(path, value), value)
+        return hook
+
+    hooks = [getattr(port._masknet, f"_upsample_layer_{i}").register_forward_pre_hook(
+        recorder(f"protonet/upsample_{i}")) for i in (1, 2)]
+    try:
+        with torch.inference_mode():
+            for batch in batches:
+                port(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {path: np.maximum(v, 1e-6) / 127.0 for path, v in absmax.items()}
 
 
 def random_variables(model, in_shape, seed):
