@@ -5,13 +5,17 @@ package's dataclasses) and the served configurations built from them.
 ``bench.py`` serves with no flags: the deployed CenterpointDLA34 (4
 classes, heatmap/size/offset heads) and the production YOLACT (ResNet-18,
 256-wide FPN, 8 prototypes, 7 classes), both at their native 640x360
-input.
+input.  ``NORTH_STAR`` is the precision recipe it serves them in, and
+the only place that recipe is written.
 """
 
 from __future__ import annotations
 
+from dataclasses import asdict, dataclass
 from math import pi
 from typing import Tuple
+
+import torch
 
 from tauv_vision_tpu_torch.configs.centernet import (
     AngleConfig,
@@ -26,7 +30,9 @@ __all__ = [
     "AngleConfig",
     "CenternetModelConfig",
     "ObjectConfig",
+    "NORTH_STAR",
     "ObjectConfigSet",
+    "ServedRecipe",
     "YolactModelConfig",
     "centernet_config",
     "get_head_channels",
@@ -68,3 +74,56 @@ def yolact_config(in_h: int = 360, in_w: int = 640,
         box_variances=(0.1, 0.2), iou_pos_threshold=0.4,
         iou_neg_threshold=0.3, negative_example_ratio=3,
     )
+
+
+@dataclass(frozen=True)
+class CenternetRecipe:
+    """``CenterpointDLA34``'s precision knobs (its keyword arguments)."""
+
+    dtype: torch.dtype
+    bn_out: torch.dtype
+    f32_stages: Tuple[str, ...]
+    deform: bool
+
+
+@dataclass(frozen=True)
+class YolactChainRecipe:
+    """The int8 YOLACT chain's recipe: per-channel ``calibrate`` scales
+    with ``float_paths`` stripped (they run in ``dtype``), residual joins
+    and feature taps rounded to ``join_dtype``, and the protonet's two
+    transposed convs int8 in and out (kernel D) when ``int8_transposes``
+    adds their scales."""
+
+    per_channel: bool
+    float_paths: Tuple[str, ...]
+    dtype: torch.dtype
+    join_dtype: torch.dtype
+    int8_transposes: bool
+
+
+@dataclass(frozen=True)
+class ServedRecipe:
+    """What ``bench.py`` serves with no flags (its ``north-star`` profile,
+    ``bench.py:1276-1305,1410-1454,1578-1610``): the float CenterNet in
+    bf16 with bf16 BatchNorm outputs and an f32 stem, plain-conv IDA,
+    beside the int8-chain YOLACT, both behind one combined pipeline whose
+    normalised input is ``input_dtype`` (see
+    ``serving.pipeline.make_combined_pipeline``)."""
+
+    centernet: CenternetRecipe
+    yolact: YolactChainRecipe
+    input_dtype: torch.dtype
+
+    def centernet_kwargs(self) -> dict:
+        return asdict(self.centernet)
+
+
+NORTH_STAR = ServedRecipe(
+    centernet=CenternetRecipe(dtype=torch.bfloat16, bn_out=torch.bfloat16,
+                              f32_stages=("stem",), deform=False),
+    yolact=YolactChainRecipe(per_channel=True,
+                             float_paths=("prediction_head", "protonet/output"),
+                             dtype=torch.bfloat16, join_dtype=torch.bfloat16,
+                             int8_transposes=True),
+    input_dtype=torch.float32,
+)

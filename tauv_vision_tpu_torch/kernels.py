@@ -10,7 +10,9 @@ the CPU test suite imports every module of the port on machines with no
 
 ``LAUNCHES`` counts kernel launches per wrapper.  A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that the
-served path went through the kernels (``chip_smoke.py``).
+served path went through the kernels (``chip_smoke.py``);
+``ENTRY_LAUNCHES`` counts the same launches by C entry point, which tells
+a kernel's variants apart (kernel C's f32 and bf16).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"peak_decode": 0, "mask_assembly": 0, "depthwise_upsample": 0,
-            "deform_conv": 0, "transpose_conv": 0, "int8_dot_probe": 0}
+            "deform_conv": 0, "transpose_conv": 0, "int8_dot_probe": 0,
+            "op_probe": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,17 +46,24 @@ _SIGNATURES = {
     "tauv_peak_decode_f32": [_P] * 5 + [_I] * 7 + [_P],
     "tauv_mask_assembly_f32": [_P] * 4 + [_I] * 6 + [_P],
     "tauv_depthwise_upsample_f32": [_P] * 3 + [_I] * 6 + [_P],
+    "tauv_depthwise_upsample_bf16": [_P] * 3 + [_I] * 6 + [_P],
     "tauv_deform_conv_f32": [_P] * 6 + [_I] * 6 + [_P],
     "tauv_transpose_conv2x_int8": [_P] * 6 + [_I] * 8 + [_P],
     "tauv_int8_dot_probe": [_P] * 3 + [_I] * 7 + [_P],
+    "tauv_op_probe_dot": [_P] * 3 + [_I] * 5 + [_P],
+    "tauv_op_probe_copy": [_P] * 2 + [_I] * 3 + [_P],
+    "tauv_op_probe_decimate": [_P] * 2 + [_I] * 3 + [_P],
+    "tauv_op_probe_transpose": [_P] * 2 + [_I] * 2 + [_P],
 }
+ENTRY_LAUNCHES = {name: 0 for name in _SIGNATURES}
 
 _lib = None
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ENTRY_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _sources():
@@ -149,6 +159,7 @@ def launch(name: str, counter: str, *args) -> None:
     if code != 0:
         raise RuntimeError(f"{name} failed with CUDA error {code}")
     LAUNCHES[counter] += 1
+    ENTRY_LAUNCHES[name] += 1
 
 
 def check_cuda_tensor(t, name: str, dtype, ndim: int) -> None:

@@ -8,6 +8,15 @@ E), the trainable bilinear depthwise upsamples (kernel C), and the heads
 (3x3 conv, ReLU, 1x1 conv; the heatmap head's bias starts at -2.19).
 NCHW inside; the ``Prediction`` is NHWC.
 
+The JAX package's dtype knobs, with its numerics: ``dtype`` is the convs'
+compute dtype (input, weight and bias cast to it, the bias added after
+the conv rounds), ``bn_out`` the dtype each BatchNorm rounds its f32
+result to, and ``f32_stages`` the stages that run in f32 whatever the
+other two say.  Parameters stay f32; a bf16 conv casts its weight once
+and keeps the copy (``layers.cast_parameter``).  Joins follow PyTorch's
+type promotion, which is jnp's for these dtypes: bf16 + bf16 stays bf16,
+bf16 + f32 is f32.
+
 Module and parameter names follow the reference torch layout that
 ``tauv_vision_tpu.models.centerpoint_dla.load_centerpoint_dla34_state_dict``
 reads (``base.base_layer.0``, ``dla_up.ida_{i}.{proj,up,node}_{j}``,
@@ -26,7 +35,12 @@ from torch import nn
 from tauv_vision_tpu_torch.configs.centernet import ObjectConfigSet, get_head_channels
 from tauv_vision_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from tauv_vision_tpu_torch.models.centernet import Prediction
-from tauv_vision_tpu_torch.models.layers import batch_norm, init_parameters
+from tauv_vision_tpu_torch.models.layers import (
+    Conv2d,
+    batch_norm,
+    cast_parameter,
+    init_parameters,
+)
 from tauv_vision_tpu_torch.ops.conv_transpose import (
     bilinear_kernel,
     depthwise_upsample,
@@ -41,6 +55,10 @@ LAST_LEVEL = 5
 HEAD_CONV = 256
 HEATMAP_BIAS = -2.19
 UP_IMPLS = ("kernel", "plain")
+# Stage names of ``f32_stages``: DLATrunk's ("early" is stem, level0 and
+# level1) and DLASeg's.
+TRUNK_STAGES = ("stem", "level0", "level1", "level2", "level3", "level4", "level5")
+F32_STAGES = TRUNK_STAGES + ("early", "dla_up", "ida_up", "heads")
 
 
 def pad_to_match(feature: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
@@ -61,36 +79,40 @@ def pad_to_match(feature: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Ten
 
 
 class BasicBlock(nn.Module):
-    """conv3x3(s)-bn-relu-conv3x3-bn (+ supplied residual) - relu."""
+    """conv3x3(s)-bn-relu-conv3x3-bn (+ supplied residual) - relu; convs
+    in ``dtype``, BatchNorm outputs in ``bn_out``, the residual cast to
+    the second BatchNorm's dtype before the join."""
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 dtype=torch.float32, bn_out=torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = batch_norm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = batch_norm(planes)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, 1, bias=False, compute_dtype=dtype)
+        self.bn1 = batch_norm(planes, bn_out)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False, compute_dtype=dtype)
+        self.bn2 = batch_norm(planes, bn_out)
 
     def forward(self, x, residual=None):
         if residual is None:
             residual = x
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
-        return F.relu(out + pad_to_match(residual, out.shape[-2:]))
+        return F.relu(out + pad_to_match(residual, out.shape[-2:]).to(out.dtype))
 
 
 class Root(nn.Module):
     """concat -> 1x1 conv -> bn (+ children[0] if residual) -> relu."""
 
-    def __init__(self, in_channels: int, out_channels: int, residual: bool):
+    def __init__(self, in_channels: int, out_channels: int, residual: bool,
+                 dtype=torch.float32, bn_out=torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 1, bias=False)
-        self.bn = batch_norm(out_channels)
+        self.conv = Conv2d(in_channels, out_channels, 1, bias=False, compute_dtype=dtype)
+        self.bn = batch_norm(out_channels, bn_out)
         self.residual = residual
 
     def forward(self, children: List[torch.Tensor]):
         x = self.bn(self.conv(torch.cat(children, dim=1)))
         if self.residual:
-            x = x + children[0]
+            x = x + children[0].to(x.dtype)
         return F.relu(x)
 
 
@@ -99,7 +121,8 @@ class Tree(nn.Module):
 
     def __init__(self, levels: int, in_channels: int, out_channels: int,
                  stride: int = 1, level_root: bool = False, root_dim: int = 0,
-                 root_residual: bool = False):
+                 root_residual: bool = False, dtype=torch.float32,
+                 bn_out=torch.float32):
         super().__init__()
         if root_dim == 0:
             root_dim = 2 * out_channels
@@ -108,21 +131,22 @@ class Tree(nn.Module):
         self.levels = levels
         self.stride = stride
         self.level_root = level_root
+        dt = dict(dtype=dtype, bn_out=bn_out)
         if levels == 1:
-            self.tree1 = BasicBlock(in_channels, out_channels, stride)
-            self.tree2 = BasicBlock(out_channels, out_channels, 1)
-            self.root = Root(root_dim, out_channels, root_residual)
+            self.tree1 = BasicBlock(in_channels, out_channels, stride, **dt)
+            self.tree2 = BasicBlock(out_channels, out_channels, 1, **dt)
+            self.root = Root(root_dim, out_channels, root_residual, **dt)
         else:
             self.tree1 = Tree(levels - 1, in_channels, out_channels, stride,
-                              root_dim=0, root_residual=root_residual)
+                              root_dim=0, root_residual=root_residual, **dt)
             self.tree2 = Tree(levels - 1, out_channels, out_channels,
                               root_dim=root_dim + out_channels,
-                              root_residual=root_residual)
+                              root_residual=root_residual, **dt)
         self.project = None
         if in_channels != out_channels:
             self.project = nn.Sequential(
-                nn.Conv2d(in_channels, out_channels, 1, bias=False),
-                batch_norm(out_channels),
+                Conv2d(in_channels, out_channels, 1, bias=False, compute_dtype=dtype),
+                batch_norm(out_channels, bn_out),
             )
 
     def forward(self, x, children=None):
@@ -143,31 +167,61 @@ class Tree(nn.Module):
         return self.tree2(x1, children=children)
 
 
-def _conv_level(in_channels: int, out_channels: int, stride: int) -> nn.Sequential:
+def _conv_level(in_channels: int, out_channels: int, stride: int,
+                dtype=torch.float32, bn_out=torch.float32) -> nn.Sequential:
     return nn.Sequential(
-        nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=False),
-        batch_norm(out_channels),
+        Conv2d(in_channels, out_channels, 3, stride, 1, bias=False, compute_dtype=dtype),
+        batch_norm(out_channels, bn_out),
         nn.ReLU(inplace=True),
     )
 
 
-class DLATrunk(nn.Module):
-    """DLA-34 feature trunk returning all six level outputs."""
+def check_f32_stages(f32_stages: Sequence[str]) -> Tuple[str, ...]:
+    """``f32_stages`` as a tuple; raises on a name the JAX model does not
+    know."""
+    unknown = sorted(set(f32_stages) - set(F32_STAGES))
+    if unknown:
+        raise ValueError(f"unknown f32_stages {unknown}; known: {F32_STAGES}")
+    return tuple(f32_stages)
 
-    def __init__(self):
+
+def _stage_dtypes(f32: bool, dtype, bn_out) -> dict:
+    """A stage's ``dtype`` and ``bn_out``: all f32 for a stage in
+    ``f32_stages``, else the model's."""
+    if f32:
+        return dict(dtype=torch.float32, bn_out=torch.float32)
+    return dict(dtype=dtype, bn_out=bn_out)
+
+
+class DLATrunk(nn.Module):
+    """DLA-34 feature trunk returning all six level outputs.
+
+    ``f32_stages`` (a subset of ``TRUNK_STAGES`` and "early", which is
+    stem, level0 and level1) runs those stages' convs and BatchNorm
+    outputs in f32 whatever ``dtype`` and ``bn_out`` say."""
+
+    def __init__(self, dtype=torch.float32, bn_out=torch.float32,
+                 f32_stages: Sequence[str] = ()):
         super().__init__()
+        f32_stages = check_f32_stages(f32_stages)
+
+        def dts(stage):
+            early = "early" in f32_stages and stage in ("stem", "level0", "level1")
+            return _stage_dtypes(stage in f32_stages or early, dtype, bn_out)
+
         levels, channels = DLA34_LEVELS, DLA34_CHANNELS
+        stem = dts("stem")
         self.base_layer = nn.Sequential(
-            nn.Conv2d(3, channels[0], 7, 1, 3, bias=False),
-            batch_norm(channels[0]),
+            Conv2d(3, channels[0], 7, 1, 3, bias=False, compute_dtype=stem["dtype"]),
+            batch_norm(channels[0], stem["bn_out"]),
             nn.ReLU(inplace=True),
         )
-        self.level0 = _conv_level(channels[0], channels[0], 1)
-        self.level1 = _conv_level(channels[0], channels[1], 2)
+        self.level0 = _conv_level(channels[0], channels[0], 1, **dts("level0"))
+        self.level1 = _conv_level(channels[0], channels[1], 2, **dts("level1"))
         for i in (2, 3, 4, 5):
             self.add_module(f"level{i}", Tree(
                 levels[i], channels[i - 1], channels[i], 2,
-                level_root=(i != 2),
+                level_root=(i != 2), **dts(f"level{i}"),
             ))
 
     def forward(self, img):
@@ -188,20 +242,26 @@ class DeformConvBlock(nn.Module):
     and sigmoid, ``conv`` the ``DeformConv2d``); ``offset_bound`` squashes
     the offsets through ``bound * tanh(offset / bound)`` as the JAX
     block's option does, and ``dcn_impl`` picks kernel E or the plain
-    version (see ``DeformConv2d``)."""
+    version (see ``DeformConv2d``).  The plain conv computes in ``dtype``
+    and the BatchNorm rounds to ``bn_out``; the DCN is f32 only (kernel
+    E), so ``deform=True`` with another ``dtype`` raises."""
 
     def __init__(self, in_channels: int, out_channels: int, deform: bool = False,
-                 offset_bound: Optional[float] = None, dcn_impl: str = "kernel"):
+                 offset_bound: Optional[float] = None, dcn_impl: str = "kernel",
+                 dtype=torch.float32, bn_out=torch.float32):
         super().__init__()
         self.deform = deform
         self.offset_bound = offset_bound
         if deform:
+            if dtype != torch.float32:
+                raise NotImplementedError(
+                    f"deform=True computes in f32 only (kernel E), got dtype={dtype}")
             self.offset = nn.Conv2d(in_channels, 18, 3, padding=1)
             self.mask = nn.Conv2d(in_channels, 9, 3, padding=1)
             self.conv = DeformConv2d(in_channels, out_channels, dcn_impl)
         else:
-            self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.actf = nn.Sequential(batch_norm(out_channels), nn.ReLU(inplace=True))
+            self.conv = Conv2d(in_channels, out_channels, 3, padding=1, compute_dtype=dtype)
+        self.actf = nn.Sequential(batch_norm(out_channels, bn_out), nn.ReLU(inplace=True))
 
     def forward(self, x):
         if not self.deform:
@@ -219,14 +279,18 @@ class DepthwiseUpsample(nn.Module):
 
     ``impl="kernel"`` runs ``depthwise_upsample_cuda`` (kernel C on a CUDA
     tensor, the plain version on a CPU one); ``impl="plain"`` always runs
-    the plain version, for comparisons on the card."""
+    the plain version, for comparisons on the card.  It computes in
+    ``dtype`` (f32 or bf16) with the weight cast to it, as the JAX
+    module's dilated lowering does."""
 
-    def __init__(self, channels: int, factor: int, impl: str = "kernel"):
+    def __init__(self, channels: int, factor: int, impl: str = "kernel",
+                 dtype=torch.float32):
         super().__init__()
         if impl not in UP_IMPLS:
             raise ValueError(f"impl must be one of {UP_IMPLS}, got {impl!r}")
         self.factor = factor
         self.impl = impl
+        self.dtype = dtype
         k = 2 * factor
         self.weight = nn.Parameter(torch.from_numpy(np.ascontiguousarray(
             np.broadcast_to(bilinear_kernel(k), (channels, 1, k, k))
@@ -234,7 +298,7 @@ class DepthwiseUpsample(nn.Module):
 
     def forward(self, x):
         fn = depthwise_upsample_cuda if self.impl == "kernel" else depthwise_upsample
-        return fn(x, self.weight, self.factor)
+        return fn(x.to(self.dtype), cast_parameter(self, "weight", self.dtype), self.factor)
 
 
 class IDAUpStage(nn.Module):
@@ -242,15 +306,17 @@ class IDAUpStage(nn.Module):
     layers[i] = node(up(proj(layers[i])) + layers[i-1])."""
 
     def __init__(self, out_channels: int, in_channels: Sequence[int],
-                 up_factors: Sequence[int], up_impl: str = "kernel", **block):
+                 up_factors: Sequence[int], up_impl: str = "kernel",
+                 dtype=torch.float32, bn_out=torch.float32, **block):
         super().__init__()
         self.up_factors = [int(f) for f in up_factors]
+        block = dict(block, dtype=dtype, bn_out=bn_out)
         for i in range(1, len(in_channels)):
             self.add_module(f"proj_{i}", DeformConvBlock(
                 in_channels[i], out_channels, **block))
             if self.up_factors[i] > 1:
                 self.add_module(f"up_{i}", DepthwiseUpsample(
-                    out_channels, self.up_factors[i], up_impl))
+                    out_channels, self.up_factors[i], up_impl, dtype))
             self.add_module(f"node_{i}", DeformConvBlock(
                 out_channels, out_channels, **block))
 
@@ -295,27 +361,35 @@ class DLAUp(nn.Module):
 
 
 class DLASeg(nn.Module):
-    """Trunk + DLAUp + IDAUp + heads; returns the NCHW head outputs.
-    ``block`` (``deform``, ``offset_bound``, ``dcn_impl``) reaches every
-    IDA conv block."""
+    """Trunk + DLAUp + IDAUp + heads; returns the NCHW head outputs in
+    f32.  ``block`` (``deform``, ``offset_bound``, ``dcn_impl``) reaches
+    every IDA conv block.  ``f32_stages`` may also name "dla_up",
+    "ida_up" and "heads", which then run in f32."""
 
     def __init__(self, head_channels: Sequence[int], up_impl: str = "kernel",
-                 **block):
+                 dtype=torch.float32, bn_out=torch.float32,
+                 f32_stages: Sequence[str] = (), **block):
         super().__init__()
+        f32_stages = check_f32_stages(f32_stages)
+
+        def dts(stage):
+            return _stage_dtypes(stage in f32_stages, dtype, bn_out)
+
         self.n_heads = len(head_channels)
-        self.base = DLATrunk()
+        self.base = DLATrunk(dtype, bn_out, f32_stages)
         channels = list(DLA34_CHANNELS[FIRST_LEVEL:])
-        self.dla_up = DLAUp(channels, up_impl, **block)
+        self.dla_up = DLAUp(channels, up_impl, **block, **dts("dla_up"))
         n_ida = LAST_LEVEL - FIRST_LEVEL
         self.ida_up = IDAUpStage(
             channels[0], channels[:n_ida], [2**i for i in range(n_ida)], up_impl,
-            **block,
+            **block, **dts("ida_up"),
         )
+        heads = dts("heads")["dtype"]
         for i, n_out in enumerate(head_channels):
             self.add_module(str(i), nn.Sequential(
-                nn.Conv2d(channels[0], HEAD_CONV, 3, padding=1),
+                Conv2d(channels[0], HEAD_CONV, 3, padding=1, compute_dtype=heads),
                 nn.ReLU(inplace=True),
-                nn.Conv2d(HEAD_CONV, n_out, 1),
+                Conv2d(HEAD_CONV, n_out, 1, compute_dtype=heads),
             ))
 
     def forward(self, img) -> List[torch.Tensor]:
@@ -323,7 +397,8 @@ class DLASeg(nn.Module):
         dla_up_out = self.dla_up(levels[FIRST_LEVEL:])
         y = self.ida_up(dla_up_out[: LAST_LEVEL - FIRST_LEVEL])
         features = y[-1]
-        return [getattr(self, str(i))(features) for i in range(self.n_heads)]
+        return [getattr(self, str(i))(features).to(torch.float32)
+                for i in range(self.n_heads)]
 
 
 class CenterpointDLA34(nn.Module):
@@ -332,22 +407,25 @@ class CenterpointDLA34(nn.Module):
     Weights are drawn from ``generator`` (the torch default generator
     when None), the heatmap heads' biases start at -2.19, and the module
     is moved to ``device`` (the card unless the caller passes "cpu"); call
-    ``.eval()`` to serve.  ``deform`` and
-    ``offset_bound`` mean what they mean in the JAX package, whose
-    ``dcn_impl="gather"`` the port's DCN matches; ``up_impl`` and
-    ``dcn_impl`` pick kernels C and E or their plain versions."""
+    ``.eval()`` to serve.  ``deform``, ``offset_bound``, ``dtype``,
+    ``bn_out`` and ``f32_stages`` mean what they mean in the JAX package,
+    whose ``dcn_impl="gather"`` the port's DCN matches; ``up_impl`` and
+    ``dcn_impl`` pick kernels C and E or their plain versions.  The served
+    recipe is ``configs.NORTH_STAR``."""
 
     def __init__(self, object_config: ObjectConfigSet, up_impl: str = "kernel",
                  generator: Optional[torch.Generator] = None,
                  device=DEFAULT_DEVICE,
                  deform: bool = False, offset_bound: Optional[float] = None,
-                 dcn_impl: str = "kernel"):
+                 dcn_impl: str = "kernel", dtype=torch.float32,
+                 bn_out=torch.float32, f32_stages: Sequence[str] = ()):
         super().__init__()
         device = resolve_device(device)
         self.object_config = object_config
         self.model = DLASeg(get_head_channels(object_config), up_impl=up_impl,
                             deform=deform, offset_bound=offset_bound,
-                            dcn_impl=dcn_impl)
+                            dcn_impl=dcn_impl, dtype=dtype, bn_out=bn_out,
+                            f32_stages=f32_stages)
         if generator is None:
             generator = torch.default_generator
         init_parameters(self, generator)
@@ -364,7 +442,8 @@ class CenterpointDLA34(nn.Module):
         return [m for m in self.modules() if isinstance(m, DeformConv2d)]
 
     def forward(self, img: torch.Tensor) -> Prediction:
-        """img: [B, 3, H, W] normalised f32."""
+        """img: [B, 3, H, W] normalised, f32 (the stem casts it to its
+        dtype); the fields are f32."""
         oc = self.object_config
         out = [o.permute(0, 2, 3, 1) for o in self.model(img)]  # NHWC views
         heatmap = out.pop(0)

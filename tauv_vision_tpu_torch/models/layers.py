@@ -1,10 +1,12 @@
-"""Shared model pieces: BatchNorm settings and seeded initialisation."""
+"""Shared model pieces: BatchNorm settings, convs that compute in a given
+dtype, and seeded initialisation."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tauv_vision_tpu_torch.ops.deform_conv import DeformConv2d
@@ -13,8 +15,89 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; the JAX package's 0.9
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose inference output is rounded once to
+    ``out_dtype``, as the JAX package's ``_bn``: the normalisation runs in
+    f32 on any input and only the output is rounded.
+
+    f32 in and out is ``F.batch_norm``, one pass, as the f32 slices serve
+    it.  Otherwise the op order is flax's, y = (x - mean) * (rsqrt(var +
+    eps) * scale) + bias in f32, so that the rounding to bf16 falls where
+    flax's does: three passes (the sub promotes the bf16 input, the add
+    writes ``out_dtype``).  The rsqrt is correctly rounded (an f64 root);
+    XLA's is within one ulp of it.  The state dict is
+    ``nn.BatchNorm2d``'s."""
+
+    def __init__(self, channels: int, out_dtype=torch.float32):
+        super().__init__(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.out_dtype = out_dtype
+
+    def _affine(self):
+        """(mean, mul, bias) as [C, 1, 1] f32, kept until a statistic or
+        parameter changes."""
+        ts = (self.running_mean, self.running_var, self.weight, self.bias)
+        key = tuple((t.data_ptr(), t._version) for t in ts)
+        cached = self.__dict__.get("_affine_cache")
+        if cached is None or cached[0] != key:
+            with torch.no_grad():
+                var_eps = self.running_var.float() + self.eps
+                mul = (1.0 / torch.sqrt(var_eps.double())).float() * self.weight.float()
+                cached = (key, tuple(t.reshape(-1, 1, 1) for t in (
+                    self.running_mean.float(), mul, self.bias.detach().float())))
+            self.__dict__["_affine_cache"] = cached
+        return cached[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x).to(self.out_dtype)
+        if x.dtype == self.out_dtype == torch.float32:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        mean, mul, bias = self._affine()
+        y = torch.sub(x, mean).mul_(mul)
+        return torch.add(y, bias, out=torch.empty_like(y, dtype=self.out_dtype))
+
+
+def batch_norm(channels: int, out_dtype=torch.float32) -> BatchNorm2d:
+    return BatchNorm2d(channels, out_dtype)
+
+
+def cast_parameter(module: nn.Module, name: str, dtype) -> torch.Tensor:
+    """``module``'s parameter ``name`` in ``dtype``, cast once and kept
+    until the parameter changes: a move to another device or an in-place
+    update (``load_state_dict``) gives it a new address or version, and
+    the next call casts again.  The parameter itself stays f32, as flax's
+    do."""
+    p = getattr(module, name)
+    if p.dtype == dtype:
+        return p
+    key = (p.data_ptr(), p._version, dtype)
+    cache = module.__dict__.setdefault("_cast_cache", {})
+    if cache.get(name, (None,))[0] != key:
+        with torch.no_grad():
+            cache[name] = (key, p.detach().to(dtype))
+    return cache[name][1]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` as flax's
+    ``nn.Conv(dtype=...)`` does: the input, the weight and the bias are
+    cast to it, and the bias is added after the convolution's own
+    rounding.  In f32 it is ``nn.Conv2d``."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype
+        if dtype == torch.float32:
+            return super().forward(x.to(dtype))
+        y = F.conv2d(x.to(dtype), cast_parameter(self, "weight", dtype), None,
+                     self.stride, self.padding, self.dilation, self.groups)
+        if self.bias is not None:
+            y = y + cast_parameter(self, "bias", dtype)[:, None, None]
+        return y
 
 
 @torch.no_grad()

@@ -26,11 +26,20 @@ def bilinear_kernel(k: int) -> np.ndarray:
     return w
 
 
+ENTRY_POINTS = {torch.float32: "tauv_depthwise_upsample_f32",
+                torch.bfloat16: "tauv_depthwise_upsample_bf16"}
+
+
 def depthwise_upsample(x: torch.Tensor, weight: torch.Tensor, factor: int) -> torch.Tensor:
-    """Plain version: x [B, C, H, W], weight [C, 1, 2f, 2f]."""
+    """Plain version: x [B, C, H, W], weight [C, 1, 2f, 2f], both f32 or
+    both bf16.  bf16 runs the f32 version on the upcast values (the
+    products of bf16 values are exact in f32) and rounds once to bf16."""
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x, weight = x.float(), weight.float()
     return F.conv_transpose2d(
         x, weight, stride=factor, padding=factor // 2, groups=x.shape[1]
-    )
+    ).to(dtype)
 
 
 def depthwise_upsample_cuda(
@@ -39,7 +48,8 @@ def depthwise_upsample_cuda(
     """Kernel C: ``depthwise_upsample`` as one CUDA op.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises.  x [B, C, H, W] f32, weight [C, 1, 2f, 2f] f32."""
+    kernel or raises.  x [B, C, H, W] and weight [C, 1, 2f, 2f], both f32
+    or both bf16 (the bf16 variant accumulates in f32 and rounds once)."""
     b, c, h, w = x.shape
     k = 2 * factor
     if factor < 1 or tuple(weight.shape) != (c, 1, k, k):
@@ -49,16 +59,18 @@ def depthwise_upsample_cuda(
         )
     if x.device.type == "cpu":
         return depthwise_upsample(x, weight, factor)
-    kernels.check_cuda_tensor(x, "x", torch.float32, 4)
-    kernels.check_cuda_tensor(weight, "weight", torch.float32, 4)
+    if x.dtype not in ENTRY_POINTS:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    kernels.check_cuda_tensor(x, "x", x.dtype, 4)
+    kernels.check_cuda_tensor(weight, "weight", x.dtype, 4)
     pad = factor // 2
     ho = (h - 1) * factor - 2 * pad + k
     wo = (w - 1) * factor - 2 * pad + k
-    out = torch.empty((b, c, ho, wo), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, c, ho, wo), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     kernels.launch(
-        "tauv_depthwise_upsample_f32", "depthwise_upsample",
+        ENTRY_POINTS[x.dtype], "depthwise_upsample",
         x.data_ptr(), weight.data_ptr(), out.data_ptr(), b, c, h, w, factor,
     )
     return out

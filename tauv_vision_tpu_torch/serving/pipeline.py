@@ -90,13 +90,21 @@ def make_combined_pipeline(cn_forward, cn_model_config: CenternetModelConfig,
                            yl_forward, yl_model_config: YolactModelConfig,
                            device=DEFAULT_DEVICE,
                            knobs: DecodeKnobs = SERVING_DECODE,
-                           impl: str = "kernel"):
+                           impl: str = "kernel", dtype=torch.float32):
     """Both serving nets on one camera batch, sharing one bilinear resize.
 
     ``cn_forward(img) -> Prediction`` and ``yl_forward(img) ->
     YolactPrediction`` take normalised NCHW inputs (for example the
-    models themselves).  Returns ``fn(img_uint8) -> (Detections,
-    YolactDetections)``."""
+    models themselves, or a chain forward of ``serving/quantize_chain.py``),
+    normalised in f32 and rounded to ``dtype``.  Returns ``fn(img_uint8)
+    -> (Detections, YolactDetections)``.
+
+    ``dtype`` is the JAX function's parameter, whose default there is
+    bf16.  The port's default, f32, is the served recipe: the bf16
+    CenterNet's f32 stem was certified on an f32 image (the JAX package's
+    ``scripts/cn_f32_ladder.py``), and the bf16 default would round the
+    image before that stem.  The int8 YOLACT chain is fed the same either
+    way: its stem is a float conv in bf16, which casts its input."""
     device = resolve_device(device)
     if (cn_model_config.in_h, cn_model_config.in_w) != (
         yl_model_config.in_h, yl_model_config.in_w
@@ -107,9 +115,9 @@ def make_combined_pipeline(cn_forward, cn_model_config: CenternetModelConfig,
     def pipeline(img_uint8):
         with torch.inference_mode():
             img = resize_frames(_upload(img_uint8, device), out_hw)
-            cn_in = normalize_image(img, IMAGENET_MEAN, IMAGENET_STDDEV)
+            cn_in = normalize_image(img, IMAGENET_MEAN, IMAGENET_STDDEV, dtype)
             yl_in = normalize_image(img, yl_model_config.img_mean,
-                                    yl_model_config.img_stddev)
+                                    yl_model_config.img_stddev, dtype)
             cn_dets = decode(cn_forward(cn_in), cn_model_config,
                              knobs.n_detections, knobs.score_threshold,
                              impl=impl)

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tauv_vision_tpu_torch.configs import NORTH_STAR
 from tauv_vision_tpu_torch.device import DEFAULT_DEVICE
 from tauv_vision_tpu_torch.models.yolact import Yolact, YolactPrediction
 from tauv_vision_tpu_torch.ops.image import resize_bilinear_nhwc
@@ -134,10 +135,12 @@ class ChainCtx:
     upsamples') runs int8 through kernel D with ``impl="kernel"``, through
     its plain version with ``"plain"``; without one it runs in ``dtype``.
     ``join_dtype`` rounds residual joins and feature taps (None keeps the
-    flax flow's f32).  The defaults are the served recipe."""
+    flax flow's f32).  The defaults are the served recipe
+    (``configs.NORTH_STAR.yolact``)."""
 
     def __init__(self, model: Yolact, scales: Dict[str, object],
-                 dtype=torch.bfloat16, join_dtype=torch.bfloat16, impl: str = "kernel"):
+                 dtype=NORTH_STAR.yolact.dtype, join_dtype=NORTH_STAR.yolact.join_dtype,
+                 impl: str = "kernel"):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.model = model
@@ -426,7 +429,8 @@ def yolact_chain_forward(ctx: ChainCtx) -> Callable[[torch.Tensor], YolactPredic
 
 def make_yolact_chain_pipeline(model: Yolact, scales: Dict[str, object],
                                device=DEFAULT_DEVICE, knobs: DecodeKnobs = SERVING_DECODE,
-                               *, dtype=torch.bfloat16, join_dtype=torch.bfloat16,
+                               *, dtype=NORTH_STAR.yolact.dtype,
+                               join_dtype=NORTH_STAR.yolact.join_dtype,
                                impl: str = "kernel"):
     """uint8 frames -> ``YolactDetections`` through the chain-int8
     forward (``make_yolact_pipeline`` with the chain in place of the

@@ -8,7 +8,9 @@ that has only PyTorch:
 
 Tolerances: peak decode index/label exact and score 1e-6; mask assembly
 1e-5 (an 8-term dot summed in another order); depthwise upsample rtol =
-atol = 1e-5 (4 f32 taps in another order than cuDNN); deformable conv
+atol = 1e-5 (4 f32 taps in another order than cuDNN), in bf16 one bf16
+ulp (the same f32 sum, rounded once); probe P1's dots 1e-4 (f32 sums of
+exact bf16 products in another order), its copies exact; deformable conv
 rtol = atol = 1e-4 (9 C f32 products an output, up to 4,608 at the
 served shapes, summed in another order than the plain per-tap GEMMs).
 Exact: the int8 transposed conv (integer sums, the same fused
@@ -36,6 +38,7 @@ from tauv_vision_tpu_torch.ops.transpose_conv import (
     transpose_conv2x_int8,
     transpose_conv2x_int8_cuda,
 )
+from tauv_vision_tpu_torch.scripts import op_probe
 from tauv_vision_tpu_torch.scripts.int8_dot_probe import dot_probe, dot_probe_cuda, inputs
 
 pytestmark = pytest.mark.cuda
@@ -107,6 +110,49 @@ def test_torch_depthwise_upsample_kernel_on_card(cuda, f, h, w, c):
     want = depthwise_upsample(x, weight, f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("f,h,w,c", [(2, 45, 80, 64), (4, 23, 40, 64), (2, 12, 20, 256),
+                                     (2, 5, 7, 8)])
+def test_torch_depthwise_upsample_bf16_kernel_on_card(cuda, f, h, w, c):
+    x = _normal((2, c, h, w), 4).to(torch.bfloat16).to(cuda)
+    weight = _normal((c, 1, 2 * f, 2 * f), 5).to(torch.bfloat16).to(cuda)
+    before = kernels.ENTRY_LAUNCHES["tauv_depthwise_upsample_bf16"]
+    got = depthwise_upsample_cuda(x, weight, f)
+    want = depthwise_upsample(x, weight, f)
+    torch.cuda.synchronize()
+    assert kernels.ENTRY_LAUNCHES["tauv_depthwise_upsample_bf16"] == before + 1
+    assert got.dtype == want.dtype == torch.bfloat16
+    mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert bool(((got.float() - want.float()).abs() <= ulp).all())
+    assert torch.equal(want.cpu(), depthwise_upsample(x.cpu(), weight.cpu(), f))
+
+
+@pytest.mark.parametrize("k,m,n", op_probe.DOT_SHAPES)
+def test_torch_op_probe_dot_on_card(cuda, k, m, n):
+    w, x = op_probe.dot_inputs(m, k, n, cuda)
+    before = kernels.LAUNCHES["op_probe"]
+    for n_iter in (1, 6):
+        got = op_probe.dot_cuda(w, x, n_iter)
+        want = op_probe.dot(w, x, n_iter)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert kernels.LAUNCHES["op_probe"] == before + 2
+
+
+@pytest.mark.parametrize("n_iter", [1, 6, 17])
+def test_torch_op_probe_copies_on_card(cuda, n_iter):
+    xc, xd, xt = (op_probe.copy_input(cuda), op_probe.decimate_input(cuda),
+                  op_probe.transpose_input(cuda))
+    pairs = [(op_probe.slice_copy_cuda(xc, n_iter), op_probe.slice_copy(xc, n_iter)),
+             (op_probe.lane_shift_cuda(xc, n_iter), op_probe.lane_shift(xc, n_iter)),
+             (op_probe.transpose_cuda(xt, n_iter), op_probe.transpose(xt, n_iter))]
+    pairs += [(op_probe.decimate_cuda(xd, n_iter, v), op_probe.decimate(xd, n_iter, v))
+              for v in op_probe.DECIMATE_VARIANTS]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def _dcn_inputs(case, b, c, o, h, w):
@@ -213,6 +259,14 @@ def test_torch_kernel_wrappers_reject_bad_input(cuda):
         peak_decode_cuda(x.transpose(2, 3), 3)
     with pytest.raises(ValueError):
         depthwise_upsample_cuda(x, torch.ones(4, 1, 3, 3, device=cuda), 2)
+    with pytest.raises(TypeError):
+        depthwise_upsample_cuda(x.half(), torch.ones(4, 1, 4, 4, device=cuda).half(), 2)
+    with pytest.raises(TypeError):
+        depthwise_upsample_cuda(x.bfloat16(), torch.ones(4, 1, 4, 4, device=cuda), 2)
+    with pytest.raises(ValueError):
+        op_probe.dot_cuda(*op_probe.dot_inputs(16, 24, 640, cuda), 1)
+    with pytest.raises(ValueError):
+        op_probe.slice_copy_cuda(op_probe.copy_input(cuda)[:, :, :640].contiguous(), 1)
     x, offset, mask, weight, bias = (
         a.to(cuda) for a in _dcn_inputs("block", 1, 4, 3, 6, 7))
     with pytest.raises(TypeError):

@@ -4,8 +4,14 @@ The port's plain ``depthwise_upsample`` (``F.conv_transpose2d``, NCHW,
 torch weight ``[C, 1, 2f, 2f]``) is held to ``DepthwiseUpsample(impl=
 "dilated")`` and to the Pallas kernel in interpret mode (NHWC, kernel
 ``[2f, 2f, 1, C]``) within 1e-5 at f=2 and f=4, on random weights (the
-reference trains them) and on the bilinear init.  The CUDA kernel itself
-is compared on the card by test_torch_kernels_cuda.py.
+reference trains them) and on the bilinear init.  In bf16, the served
+dtype of the bf16 CenterNet, the plain version (the f32 one on the
+upcast values, rounded once) is held to the dilated lowering in bf16
+(input and kernel cast to bf16) and to the Pallas kernel in interpret
+mode on a bf16 input with the kernel's weights rounded to bf16 (the
+Pallas kernel keeps f32 weights; the bilinear init is exact in bf16):
+equal or one bf16 ulp apart, the share that differs recorded.  The CUDA
+kernel itself is compared on the card by test_torch_kernels_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -45,10 +51,22 @@ def _inputs(f, h, w, c, weight, seed=0):
     return x, kern
 
 
-def _port(x, kern, f):
-    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
-    wt = torch.from_numpy(kern).permute(3, 2, 0, 1).contiguous()  # [C,1,k,k]
-    return depthwise_upsample(xt, wt, f).permute(0, 2, 3, 1).numpy()
+def _port(x, kern, f, dtype=torch.float32):
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(dtype)
+    wt = torch.from_numpy(kern).permute(3, 2, 0, 1).contiguous().to(dtype)  # [C,1,k,k]
+    out = depthwise_upsample(xt, wt, f)
+    assert out.dtype == dtype
+    return out.float().permute(0, 2, 3, 1).numpy()
+
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _assert_within_one_bf16_ulp(got, want, record_property):
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126))) - 7)
+    record_property("share_differ", float((got != want).mean()))
+    assert np.all(np.abs(got - want) <= ulp), float(np.max(np.abs(got - want) / ulp))
 
 
 @pytest.mark.parametrize("f,h,w,c,weight", CASES)
@@ -68,6 +86,28 @@ def test_torch_depthwise_upsample_matches_pallas_interpret(f, h, w, c, weight):
                                      interpret=True)
     np.testing.assert_allclose(_port(x, kern, f), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("f,h,w,c,weight", CASES)
+def test_torch_depthwise_upsample_bf16_matches_dilated(f, h, w, c, weight, record_property):
+    x, kern = _inputs(f, h, w, c, weight, seed=2)
+    want = JaxDepthwiseUpsample(f, dtype=jnp.bfloat16).apply(
+        {"params": {"kernel": jnp.asarray(kern)}}, jnp.asarray(x).astype(jnp.bfloat16))
+    assert want.dtype == jnp.bfloat16
+    got = _port(_bf16(x), kern, f, torch.bfloat16)
+    _assert_within_one_bf16_ulp(got, np.asarray(want.astype(jnp.float32)), record_property)
+
+
+@pytest.mark.parametrize("f,h,w,c,weight", CASES)
+def test_torch_depthwise_upsample_bf16_matches_pallas_interpret(f, h, w, c, weight,
+                                                                record_property):
+    x, kern = _inputs(f, h, w, c, weight, seed=3)
+    x, kern = _bf16(x), _bf16(kern)
+    want = depthwise_upsample_pallas(jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(kern), f,
+                                     interpret=True)
+    assert want.dtype == jnp.bfloat16
+    got = _port(x, kern, f, torch.bfloat16)
+    _assert_within_one_bf16_ulp(got, np.asarray(want.astype(jnp.float32)), record_property)
 
 
 @pytest.mark.parametrize("f", [2, 4])

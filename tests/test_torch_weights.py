@@ -163,6 +163,9 @@ def test_torch_port_imports_no_jax():
     sources = sorted(PORT.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "test_torch_kernels_cuda.py"]
     assert len(sources) > 10
+    for module in ("models/layers.py", "models/centerpoint_dla.py", "configs/__init__.py",
+                   "scripts/op_probe.py", "scripts/int8_dot_probe.py", "ops/image.py"):
+        assert PORT / module in sources, module
     for path in sources:
         for name in _imports(path):
             root = name.split(".")[0]
