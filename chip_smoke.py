@@ -49,10 +49,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    the chain's decode against the f32 YOLACT's is printed, not gated
    (random weights), as is the bf16 CenterNet's against the f32 one;
 5. time: each kernel against its plain version (CUDA events, after
-   warm-up), probe P2's rates, the integer core against cuDNN's bf16
-   convolution per calibrated shape, probe P1's rows beside their bounds
-   and the early-trunk convs in cuDNN they are weighed against, each
-   path's frames/s at batch 32, and its stages one by one.
+   warm-up, back to back as a path issues them: ``ms``), and each kernel
+   on the device alone, its calls queued behind a spin of the card so
+   that the host's launch cost is out (``device_ms``; null for the
+   probes, whose own timing is in the kernel); an empty kernel queued the
+   same way, the device's cost of a launch; kernel C per call in GB/s and
+   kernel D per call in TOP/s on the device beside their bounds; probe
+   P2's rates, the integer core against cuDNN's bf16 convolution per
+   calibrated shape, probe P1's rows beside their bounds and the
+   early-trunk convs in cuDNN they are weighed against, each path's
+   frames/s at batch 32, and its stages one by one.
 
 Prints one JSON line describing the kernels, with each kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -92,7 +98,8 @@ from tauv_vision_tpu_torch.ops.transpose_conv import (
     transpose_conv2x_int8,
     transpose_conv2x_int8_cuda,
 )
-from tauv_vision_tpu_torch.scripts import int8_dot_probe, op_probe
+from tauv_vision_tpu_torch.scripts import int8_dot_probe, kernel_times, op_probe
+from tauv_vision_tpu_torch.scripts.kernel_times import queued_ms, time_ms
 from tauv_vision_tpu_torch.serving import quantize_chain
 from tauv_vision_tpu_torch.serving.centernet_decode import decode
 from tauv_vision_tpu_torch.serving.compare import detection_deltas
@@ -785,38 +792,33 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
 
 # ---- phase 5 ------------------------------------------------------------
 
-def time_ms(fn, iters: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def abba(kernel_fn, plain_fn, iters: int, warmup: int = 3):
-    """Mean ms per call of (kernel, plain), timed kernel, plain, plain, kernel."""
+def abba(kernel_fn, plain_fn, iters: int, warmup: int = 3, timer=time_ms):
+    """Mean ms per call of (kernel, plain), timed kernel, plain, plain,
+    kernel, each by ``timer`` (back to back by default)."""
     for _ in range(warmup):
         kernel_fn()
         plain_fn()
     torch.cuda.synchronize()
-    k1 = time_ms(kernel_fn, iters)
-    p1 = time_ms(plain_fn, iters)
-    p2 = time_ms(plain_fn, iters)
-    k2 = time_ms(kernel_fn, iters)
+    k1 = timer(kernel_fn, iters)
+    p1 = timer(plain_fn, iters)
+    p2 = timer(plain_fn, iters)
+    k2 = timer(kernel_fn, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, profile_dir):
     gen = torch.Generator(device="cuda").manual_seed(1)
     b = CHECK_BATCH
-    times, bounds = {}, {}
+    times, bounds, device = {}, {}, {}
+
+    def timed(name, kernel_fn, plain_fn, iters):
+        times[name] = abba(kernel_fn, plain_fn, iters)
+        device[name] = queued_ms(kernel_fn, iters)
+
     logits = torch.randn((b, 4, cn_cfg.out_h, cn_cfg.out_w), generator=gen, device="cuda") * 3
     k = SERVING_DECODE.n_detections
-    times["peak_decode"] = abba(lambda: peak_decode_cuda(logits, k),
-                                lambda: peak_decode(logits, k), 50)
+    timed("peak_decode", lambda: peak_decode_cuda(logits, k),
+          lambda: peak_decode(logits, k), 50)
     # sigmoid (4 flops), 3x3 max (8 compares) and the peak test (1) an element
     bounds["peak_decode"] = bound(nbytes(logits) + b * k * 16, 13 * logits.numel(), PEAK["f32"])
     p, kk = yl_cfg.n_prototype_masks, SERVING_DECODE.top_k
@@ -824,17 +826,24 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
     coeff = torch.tanh(torch.randn((b, kk, p), generator=gen, device="cuda"))
     box = torch.cat([torch.rand((b, kk, 2), generator=gen, device="cuda"),
                      torch.rand((b, kk, 2), generator=gen, device="cuda") * 0.6], -1)
-    times["mask_assembly"] = abba(lambda: assemble_mask_cuda(proto, coeff, box),
-                                  lambda: assemble_mask_batch(proto, coeff, box), 50)
+    timed("mask_assembly", lambda: assemble_mask_cuda(proto, coeff, box),
+          lambda: assemble_mask_batch(proto, coeff, box), 50)
     n_out = b * kk * proto.shape[2] * proto.shape[3]
     # the P-term dot, the sigmoid (4) and the crop's multiply an output
     bounds["mask_assembly"] = bound(nbytes(proto, coeff, box) + 4 * n_out,
                                     (2 * p + 5) * n_out, PEAK["f32"])
     img = torch.randn((b, 3, cn_cfg.in_h, cn_cfg.in_w), generator=gen, device="cuda")
     calls = upsample_calls(nets["plain_ida"][1], img)
-    times["depthwise_upsample"] = abba(
-        lambda: [depthwise_upsample_cuda(x, w, f) for x, w, f in calls],
-        lambda: [depthwise_upsample(x, w, f) for x, w, f in calls], 50)
+    calls16 = upsample_calls(nets["north_star"][1], img)
+    # scripts/kernel_times.py times C and D at these calls' shapes.
+    for cs in (calls, calls16):
+        require([(tuple(x.shape), f) for x, _, f in cs] == kernel_times.C_CALLS,
+                "kernel C's calls are not kernel_times.C_CALLS")
+    require([(*c[0].shape, c[1].shape[-1]) for c in record["transpose"]] == kernel_times.D_CALLS,
+            "kernel D's calls are not kernel_times.D_CALLS")
+    timed("depthwise_upsample",
+          lambda: [depthwise_upsample_cuda(x, w, f) for x, w, f in calls],
+          lambda: [depthwise_upsample(x, w, f) for x, w, f in calls], 50)
     outs = [depthwise_upsample(x, w, f) for x, w, f in calls]
     bounds["depthwise_upsample"] = bound(
         sum(nbytes(x, w) for x, w, _ in calls) + nbytes(*outs),
@@ -843,10 +852,9 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         x, w, stride=f, padding=f // 2, groups=x.shape[1]) for x, w, f in calls], 50)}
     # Kernel C in bf16: the 8 upsamples of a north_star forward; its 4
     # taps are f32 multiply-adds off the tensor cores.
-    calls16 = upsample_calls(nets["north_star"][1], img)
-    times["depthwise_upsample_bf16"] = abba(
-        lambda: [depthwise_upsample_cuda(x, w, f) for x, w, f in calls16],
-        lambda: [depthwise_upsample(x, w, f) for x, w, f in calls16], 50)
+    timed("depthwise_upsample_bf16",
+          lambda: [depthwise_upsample_cuda(x, w, f) for x, w, f in calls16],
+          lambda: [depthwise_upsample(x, w, f) for x, w, f in calls16], 50)
     outs16 = [depthwise_upsample(x, w, f) for x, w, f in calls16]
     bounds["depthwise_upsample_bf16"] = bound(
         sum(nbytes(x, w) for x, w, _ in calls16) + nbytes(*outs16),
@@ -854,16 +862,16 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
     library["depthwise_upsample_bf16"] = time_ms(lambda: [F.conv_transpose2d(
         x, w, stride=f, padding=f // 2, groups=x.shape[1]) for x, w, f in calls16], 50)
     dcns = dcn_calls(nets["dcn_ida"][1], img)
-    times["deform_conv"] = abba(lambda: [deform_conv2d_cuda(*c) for c in dcns],
-                                lambda: [deform_conv2d(*c) for c in dcns], 20)
+    timed("deform_conv", lambda: [deform_conv2d_cuda(*c) for c in dcns],
+          lambda: [deform_conv2d(*c) for c in dcns], 20)
     bounds["deform_conv"] = bound(
         sum(nbytes(*c) + 4 * c[0].shape[0] * c[3].shape[0] * c[0].shape[2] * c[0].shape[3]
             for c in dcns), dcn_flop(dcns), PEAK["f32"])
     d_calls = record["transpose"]
-    times["transpose_conv"] = abba(
-        lambda: [transpose_conv2x_int8_cuda(*c[:5], act=c[5], out_dtype=c[6], taps=c[7])
-                 for c in d_calls],
-        lambda: [transpose_conv2x_int8(*c[:5], act=c[5], out_dtype=c[6]) for c in d_calls], 10)
+    timed("transpose_conv",
+          lambda: [transpose_conv2x_int8_cuda(*c[:5], act=c[5], out_dtype=c[6], taps=c[7])
+                   for c in d_calls],
+          lambda: [transpose_conv2x_int8(*c[:5], act=c[5], out_dtype=c[6]) for c in d_calls], 10)
     d_ops = sum(2 * 9 * c[0].numel() * c[1].shape[-1] for c in d_calls)
     bounds["transpose_conv"] = bound(
         sum(nbytes(c[0], c[1]) + 12 * c[1].shape[-1] + 4 * c[0].numel() // c[0].shape[-1]
@@ -892,11 +900,13 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
     }
     for name, (k_ms, p_ms) in times.items():
         b_ms, by = bounds[name]
-        print(f"time {name} {what[name]}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({by}), library "
+        d_ms = device.get(name)
+        on_device = "" if d_ms is None else f" ({d_ms:.4f} ms on the device)"
+        print(f"time {name} {what[name]}: kernel {k_ms:.4f} ms{on_device}, plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), library "
               f"{library.get(name, float('nan')):.4f} ms ({card})")
-        times[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-                       "library_ms": library.get(name), "timed": what[name]}
+        times[name] = {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": by, "library_ms": library.get(name), "timed": what[name]}
     gflop = dcn_flop(dcns) / 1e9
     print(f"time deform_conv: {gflop:.2f} GFLOP in the products for {b} frames, "
           f"kernel {gflop / times['deform_conv']['ms']:.2f} TFLOP/s, plain "
@@ -906,12 +916,28 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         print(f"time deform_conv {shape[0]} -> O={shape[1]} (x{n_calls} a forward): kernel "
               f"{k_ms:.4f} ms = {dcn_flop([c]) / 1e9 / k_ms:.2f} TFLOP/s, plain "
               f"{p_ms:.4f} ms ({card})")
+    # The device's cost of one launch, queued as the rows' device times are.
+    empty_us = queued_ms(lambda: torch.cuda._sleep(0), 200) * 1e3
+    print(f"time an empty kernel (torch.cuda._sleep(0), one thread) on the device: "
+          f"{empty_us:.2f} us a launch ({card})")
+    for tag, cs in (("", calls), ("_bf16", calls16)):
+        for x, w, f in cs:
+            k_ms, p_ms = abba(lambda: depthwise_upsample_cuda(x, w, f),
+                              lambda: depthwise_upsample(x, w, f), 50, timer=queued_ms)
+            o = depthwise_upsample(x, w, f)
+            n_bytes = nbytes(x, w, o)
+            b_ms, by = bound(n_bytes, 8 * o.numel(), PEAK["f32"])
+            print(f"time depthwise_upsample{tag} f={f} {tuple(x.shape)} -> {tuple(o.shape[2:])}: "
+                  f"kernel {k_ms:.4f} ms on the device = {n_bytes / k_ms / 1e6:.1f} GB/s, "
+                  f"plain {p_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({by}, {PEAK['bytes'] / 1e9:.0f} GB/s) ({card})")
     for c in d_calls:
         k_ms, p_ms = abba(lambda: transpose_conv2x_int8_cuda(*c[:5], act=c[5], out_dtype=c[6],
                                                              taps=c[7]),
-                          lambda: transpose_conv2x_int8(*c[:5], act=c[5], out_dtype=c[6]), 10)
+                          lambda: transpose_conv2x_int8(*c[:5], act=c[5], out_dtype=c[6]), 10,
+                          timer=queued_ms)
         ops = 2 * 9 * c[0].numel() * c[1].shape[-1]
-        print(f"time transpose_conv {tuple(c[0].shape)}: kernel {k_ms:.4f} ms = "
+        print(f"time transpose_conv {tuple(c[0].shape)}: kernel {k_ms:.4f} ms on the device = "
               f"{ops / k_ms / 1e9:.2f} TOP/s, plain {p_ms:.4f} ms, bound "
               f"{ops / PEAK['int8'] * 1e3:.4f} ms at 1979 TOP/s int8 ({card})")
     for tag, r in probe["rows"].items():

@@ -28,6 +28,7 @@ def bilinear_kernel(k: int) -> np.ndarray:
 
 ENTRY_POINTS = {torch.float32: "tauv_depthwise_upsample_f32",
                 torch.bfloat16: "tauv_depthwise_upsample_bf16"}
+CARD_FACTORS = (1, 2, 4, 8)   # the divisors of the kernel's 8-output run
 
 
 def depthwise_upsample(x: torch.Tensor, weight: torch.Tensor, factor: int) -> torch.Tensor:
@@ -49,7 +50,8 @@ def depthwise_upsample_cuda(
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  x [B, C, H, W] and weight [C, 1, 2f, 2f], both f32
-    or both bf16 (the bf16 variant accumulates in f32 and rounds once)."""
+    or both bf16 (the bf16 variant accumulates in f32 and rounds once);
+    on the card f is 1, 2, 4 or 8 (DLA-34 upsamples by 2, 4 and 8)."""
     b, c, h, w = x.shape
     k = 2 * factor
     if factor < 1 or tuple(weight.shape) != (c, 1, k, k):
@@ -59,6 +61,8 @@ def depthwise_upsample_cuda(
         )
     if x.device.type == "cpu":
         return depthwise_upsample(x, weight, factor)
+    if factor not in CARD_FACTORS:
+        raise ValueError(f"factor must be one of {CARD_FACTORS} on the card, got {factor}")
     if x.dtype not in ENTRY_POINTS:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     kernels.check_cuda_tensor(x, "x", x.dtype, 4)

@@ -31,6 +31,10 @@ from tauv_vision_tpu_torch import kernels
 
 ACTS = {"none": 0, "leaky": 1, "relu": 2}
 OUT_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+# The largest C the kernel takes: its block keeps the taps of 64 output
+# channels ([9][64][C] bytes) and two input stages (2 x 81 x C bytes each)
+# in shared memory, 900 C bytes, within a Hopper block's 232,448.
+MAX_C = 256
 
 # k[i, j] of the 3x3 kernel at flat index 3 i + j, in the tap order of
 # phase_tap_matrices: ee, eo (x, x col+1), oe (x, x row+1), oo (x, x col+1,
@@ -96,12 +100,11 @@ def transpose_conv2x_int8(x_q: torch.Tensor, qk: torch.Tensor, deq, bias, out_sc
 
 
 def kernel_taps(qk: torch.Tensor) -> torch.Tensor:
-    """[3, 3, C, O] int8 -> the kernel's tap layout [C/4, 9, O] of int32
-    words, each holding 4 consecutive input channels of one tap and one
-    output channel (the byte order of the NHWC input's words)."""
-    c, o = qk.shape[2:]
-    taps = phase_tap_matrices(qk).reshape(9, c // 4, 4, o)
-    return taps.permute(1, 0, 3, 2).contiguous().view(torch.int32).reshape(c // 4, 9, o)
+    """[3, 3, C, O] int8 -> the kernel's tap layout [9, O, C] of int8:
+    tap t of phase_tap_matrices for output channel o, its C input
+    channels contiguous (the K-contiguous B operand of the kernel's
+    mma.sync, read by ldmatrix)."""
+    return phase_tap_matrices(qk).permute(0, 2, 1).contiguous()
 
 
 def transpose_conv2x_int8_cuda(x_q: torch.Tensor, qk: torch.Tensor, deq, bias, out_scale,
@@ -110,27 +113,29 @@ def transpose_conv2x_int8_cuda(x_q: torch.Tensor, qk: torch.Tensor, deq, bias, o
     """Kernel D: ``transpose_conv2x_int8`` as one CUDA op.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises.  x_q contiguous int8 with C a multiple of 4.
-    ``taps`` is ``kernel_taps(qk)`` from a caller that keeps it across
-    calls (built here when None); ``deq``, ``bias`` and ``out_scale``
-    given as contiguous f32 [O] device vectors are used as they are."""
+    kernel or raises.  x_q contiguous int8 and 16-byte aligned, with C a
+    multiple of 32 (one mma.sync K step) and at most ``MAX_C`` = 256 (the
+    block's shared memory).  ``taps`` is
+    ``kernel_taps(qk)`` from a caller that keeps it across calls (built
+    here when None); ``deq``, ``bias`` and ``out_scale`` given as
+    contiguous f32 [O] device vectors are used as they are."""
     _check(x_q, qk, act, out_dtype)
     if x_q.device.type == "cpu":
         return transpose_conv2x_int8(x_q, qk, deq, bias, out_scale, act=act,
                                      out_dtype=out_dtype)
     b, h, w, c = x_q.shape
     o = qk.shape[-1]
-    if c % 4:
-        raise ValueError(f"C must be a multiple of 4, got {c}")
+    if c % 32 or c > MAX_C:
+        raise ValueError(f"C must be a multiple of 32 and at most {MAX_C}, got {c}")
     kernels.check_cuda_tensor(x_q, "x_q", torch.int8, 4)
-    if x_q.data_ptr() % 4:
-        raise ValueError("x_q must be 4-byte aligned")
     if taps is None:
         kernels.check_cuda_tensor(qk.contiguous(), "qk", torch.int8, 4)
         taps = kernel_taps(qk)
-    kernels.check_cuda_tensor(taps, "taps", torch.int32, 3)
-    if tuple(taps.shape) != (c // 4, 9, o):
-        raise ValueError(f"taps must be [{c // 4}, 9, {o}], got {tuple(taps.shape)}")
+    kernels.check_cuda_tensor(taps, "taps", torch.int8, 3)
+    if tuple(taps.shape) != (9, o, c):
+        raise ValueError(f"taps must be [9, {o}, {c}], got {tuple(taps.shape)}")
+    if x_q.data_ptr() % 16 or taps.data_ptr() % 16:
+        raise ValueError("x_q and taps must be 16-byte aligned")
     deq, bias, out_scale = (_vector(v, o, x_q.device) for v in (deq, bias, out_scale))
     out = torch.empty((b, 2 * h, 2 * w, o), dtype=out_dtype, device=x_q.device)
     if out.numel() == 0:

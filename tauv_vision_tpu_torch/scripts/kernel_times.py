@@ -1,0 +1,107 @@
+"""Time kernels C and D on the device at the shapes a batch-8 request gives them.
+
+    python3 -m tauv_vision_tpu_torch.scripts.kernel_times
+
+Kernel C: the 8 depthwise upsamples of one CenterNet forward (f = 2 at
+[8,256,12,20], twice [8,128,23,40] and four times [8,64,45,80]; f = 4 at
+[8,64,23,40]), in f32 and in bf16, with the bilinear weights.  Kernel D:
+the int8 chain's two protonet upsamples ([8,45,80,256] and
+[8,90,160,256] to 256 channels, int8 in and out, leaky).  ``chip_smoke.py``
+fails if these shapes are not the ones its nets give the kernels.  Inputs
+are seeded random tensors of those shapes.  Each call is timed on the
+device: the calls are queued behind a spin of the card, so the host's
+cost of a launch is not in the time (``queued_ms``).
+
+Prints one JSON line: the card, its power limit, and each call's ms with
+its bytes (C) or operations (D).  The script uses only the wrappers'
+public signatures and ``kernel_taps``, so a copy of it run from the root
+of an older checkout times that checkout's kernels: run old, new, new,
+old on one card, one after another, to compare two versions.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from tauv_vision_tpu_torch.ops.conv_transpose import bilinear_kernel, depthwise_upsample_cuda
+from tauv_vision_tpu_torch.ops.transpose_conv import kernel_taps, transpose_conv2x_int8_cuda
+
+C_CALLS = [((8, 256, 12, 20), 2), ((8, 128, 23, 40), 2), ((8, 128, 23, 40), 2),
+           ((8, 64, 45, 80), 2), ((8, 64, 45, 80), 2), ((8, 64, 45, 80), 2),
+           ((8, 64, 45, 80), 2), ((8, 64, 23, 40), 4)]
+D_CALLS = [(8, 45, 80, 256, 256), (8, 90, 160, 256, 256)]
+ITERS = 50        # calls a timing of C; D, ~20x longer a call, takes a fifth
+SPIN_HZ = 2.0e9   # cycles a second of torch.cuda._sleep's spin, >= the SM clock
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean ms a call between CUDA events around ``iters`` calls."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device ms a call: the calls are queued behind a spin of the card
+    (``torch.cuda._sleep``) twice as long as the host took to issue and
+    run them, so all are issued before the first starts and the host's
+    cost of a launch (tens of us for a wrapper through ctypes) is not in
+    the time, as it is not where the card has work queued."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2 * (time.perf_counter() - t0) * SPIN_HZ))
+    return time_ms(fn, iters)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    rows = {"c_f32": [], "c_bf16": [], "d": []}
+    for shape, f in C_CALLS:
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        w = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+            bilinear_kernel(2 * f), (shape[1], 1, 2 * f, 2 * f)))).to(dev)
+        for key, dtype in (("c_f32", torch.float32), ("c_bf16", torch.bfloat16)):
+            xd, wd = x.to(dtype), w.to(dtype)
+            out = depthwise_upsample_cuda(xd, wd, f)
+            n_bytes = (xd.numel() + wd.numel() + out.numel()) * xd.element_size()
+            rows[key].append({"x": list(shape), "f": f, "bytes": n_bytes,
+                              "ms": queued_ms(lambda: depthwise_upsample_cuda(xd, wd, f),
+                                              ITERS)})
+    for b, h, w_, c, o in D_CALLS:
+        q = torch.from_numpy(rng.integers(-127, 128, (b, h, w_, c)).astype(np.int8)).to(dev)
+        qk = torch.from_numpy(rng.integers(-127, 128, (3, 3, c, o)).astype(np.int8)).to(dev)
+        deq = torch.from_numpy(rng.uniform(1e-6, 1e-5, o).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.standard_normal(o).astype(np.float32)).to(dev)
+        scale = torch.from_numpy(rng.uniform(0.01, 0.1, o).astype(np.float32)).to(dev)
+        taps = kernel_taps(qk)
+        fn = lambda: transpose_conv2x_int8_cuda(q, qk, deq, bias, scale, act="leaky",  # noqa: E731
+                                                out_dtype=torch.int8, taps=taps)
+        fn()
+        rows["d"].append({"x": [b, h, w_, c], "o": o, "ops": 2 * 9 * q.numel() * o,
+                          "ms": queued_ms(fn, ITERS // 5)})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    totals = {f"{key}_ms": sum(r["ms"] for r in calls) for key, calls in rows.items()}
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                      **totals, **rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

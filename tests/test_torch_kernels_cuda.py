@@ -14,7 +14,8 @@ exact bf16 products in another order), its copies exact; deformable conv
 rtol = atol = 1e-4 (9 C f32 products an output, up to 4,608 at the
 served shapes, summed in another order than the plain per-tap GEMMs).
 Exact: the int8 transposed conv (integer sums, the same fused
-multiply-add epilogue), the chain's integer conv core against the
+multiply-add epilogue; at the served shapes and at ragged column and
+channel tiles), the chain's integer conv core against the
 float64 conv, and probe P2 (small integers).
 """
 
@@ -99,10 +100,16 @@ def test_torch_assemble_mask_kernel_on_card(cuda, crop):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("f,h,w,c", [
-    (2, 45, 80, 64), (4, 23, 40, 64), (2, 12, 20, 256), (2, 23, 40, 128),
-    (2, 5, 7, 8), (4, 3, 5, 16),
-])
+# Served shapes (f = 2 and 4 at batch 2) and f = 8, ragged row ends (Wo =
+# 14, 20 and 26: not a multiple of an 8-output run), rows wider than one
+# 256-column band (Wo = 300), and f = 1.
+UPSAMPLE_CASES = [
+    (2, 45, 80, 64), (4, 23, 40, 64), (8, 12, 20, 64), (2, 12, 20, 256), (2, 23, 40, 128),
+    (2, 5, 7, 8), (4, 3, 5, 16), (2, 5, 13, 8), (8, 3, 5, 16), (2, 4, 150, 8), (1, 5, 7, 8),
+]
+
+
+@pytest.mark.parametrize("f,h,w,c", UPSAMPLE_CASES)
 def test_torch_depthwise_upsample_kernel_on_card(cuda, f, h, w, c):
     x = _normal((2, c, h, w), 4).to(cuda)
     weight = _normal((c, 1, 2 * f, 2 * f), 5).to(cuda)
@@ -112,8 +119,7 @@ def test_torch_depthwise_upsample_kernel_on_card(cuda, f, h, w, c):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("f,h,w,c", [(2, 45, 80, 64), (4, 23, 40, 64), (2, 12, 20, 256),
-                                     (2, 5, 7, 8)])
+@pytest.mark.parametrize("f,h,w,c", UPSAMPLE_CASES)
 def test_torch_depthwise_upsample_bf16_kernel_on_card(cuda, f, h, w, c):
     x = _normal((2, c, h, w), 4).to(torch.bfloat16).to(cuda)
     weight = _normal((c, 1, 2 * f, 2 * f), 5).to(torch.bfloat16).to(cuda)
@@ -203,8 +209,10 @@ def _codes(shape, seed):
 @pytest.mark.parametrize("act", ["leaky", "relu", "none"])
 @pytest.mark.parametrize("b,h,w,c,o", [
     (2, 45, 80, 256, 256),   # the first protonet upsample of the served net
+    (8, 90, 160, 256, 256),  # the second, at the served batch
     (1, 5, 7, 32, 32),       # ragged column and channel tiles
     (2, 9, 33, 64, 40),      # O not a multiple of the 64-channel tile
+    (2, 6, 100, 96, 72),     # W = 80 + 20: a whole and a ragged column tile
 ])
 def test_torch_transpose_conv_kernel_on_card(cuda, b, h, w, c, o, act, out_dtype):
     rng = np.random.default_rng(12)
@@ -220,8 +228,9 @@ def test_torch_transpose_conv_kernel_on_card(cuda, b, h, w, c, o, act, out_dtype
     assert kernels.LAUNCHES["transpose_conv"] == before + 1
     assert got.shape == (b, 2 * h, 2 * w, o) and got.dtype == out_dtype
     assert torch.equal(got, want)
-    assert torch.equal(got.cpu(), transpose_conv2x_int8(x, qk, deq, bias, scale, act=act,
-                                                        out_dtype=out_dtype))
+    if x.numel() <= 2 * 45 * 80 * 256:   # the float64 conv on the CPU is slow past that
+        assert torch.equal(got.cpu(), transpose_conv2x_int8(x, qk, deq, bias, scale, act=act,
+                                                            out_dtype=out_dtype))
     prebuilt = transpose_conv2x_int8_cuda(*args, act=act, out_dtype=out_dtype,
                                           taps=kernel_taps(args[1]))
     assert torch.equal(prebuilt, want)
@@ -278,13 +287,21 @@ def test_torch_kernel_wrappers_reject_bad_input(cuda):
         deform_conv2d_cuda(x, offset, mask.cpu(), weight, bias)
     with pytest.raises(ValueError):
         deform_conv2d_cuda(x, offset, mask, weight[:, :, :2, :2].contiguous(), bias)
-    q, qk = _codes((1, 4, 5, 8), 18).to(cuda), _codes((3, 3, 8, 8), 19).to(cuda)
+    with pytest.raises(ValueError):   # f = 3 does not divide the kernel's 8-output run
+        depthwise_upsample_cuda(x, torch.ones(4, 1, 6, 6, device=cuda), 3)
+    q, qk = _codes((1, 4, 5, 32), 18).to(cuda), _codes((3, 3, 32, 8), 19).to(cuda)
     ones = torch.ones(8, device=cuda)
     with pytest.raises(TypeError):
         transpose_conv2x_int8_cuda(q.float(), qk, ones, ones, ones)
-    with pytest.raises(ValueError):
-        transpose_conv2x_int8_cuda(q[..., :6].contiguous(), qk[:, :, :6], ones, ones, ones)
-    with pytest.raises(ValueError):
-        transpose_conv2x_int8_cuda(q, qk, ones, ones, ones, taps=kernel_taps(qk)[:, :8].contiguous())
+    with pytest.raises(ValueError):   # C not a multiple of 32
+        transpose_conv2x_int8_cuda(q[..., :16].contiguous(), qk[:, :, :16], ones, ones, ones)
+    with pytest.raises(ValueError):   # C = 288: taps and stages exceed shared memory
+        transpose_conv2x_int8_cuda(_codes((1, 4, 5, 288), 20).to(cuda),
+                                   _codes((3, 3, 288, 8), 21).to(cuda), ones, ones, ones)
+    with pytest.raises(TypeError):    # taps as the [C/4, 9, O] int32 words of a dp4a layout
+        transpose_conv2x_int8_cuda(q, qk, ones, ones, ones,
+                                   taps=kernel_taps(qk).view(torch.int32).reshape(8, 9, 8))
+    with pytest.raises(ValueError):   # [9, O, C] taps of too few output channels
+        transpose_conv2x_int8_cuda(q, qk, ones, ones, ones, taps=kernel_taps(qk)[:, :4].contiguous())
     with pytest.raises(ValueError):
         conv2d_int8(q[:, :1, :1], qk, 1, 1)   # 1 row: torch._int_mm needs more than 16

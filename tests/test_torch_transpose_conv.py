@@ -28,6 +28,7 @@ from tauv_vision_tpu.ops.pallas.transpose_conv import (
 )
 from tauv_vision_tpu_torch import kernels
 from tauv_vision_tpu_torch.ops.transpose_conv import (
+    _epilogue,
     kernel_taps,
     phase_tap_matrices,
     transpose_conv2x_int8,
@@ -83,16 +84,57 @@ def test_torch_phase_tap_matrices_match_jax():
 
 
 def test_torch_kernel_taps_layout():
-    """Word [k, t, o] of the kernel's tap layout holds input channels
-    4k..4k+3 of tap t for output o, lowest channel in the lowest byte."""
-    qk = torch.from_numpy(np.random.default_rng(2).integers(-127, 128, (3, 3, 16, 12)).astype(np.int8))
-    words = kernel_taps(qk)
-    assert words.shape == (4, 9, 12) and words.dtype == torch.int32
-    taps = phase_tap_matrices(qk)
-    as_bytes = words.contiguous().view(torch.int8).reshape(4, 9, 12, 4)
-    for k in range(4):
-        for t in range(9):
-            np.testing.assert_array_equal(as_bytes[k, t].numpy(), taps[t, 4 * k:4 * k + 4].T.numpy())
+    """Byte [t, o, c] of the kernel's tap layout is input channel c of
+    tap t (phase_tap_matrices' order) for output channel o: K contiguous
+    for each output channel, the B operand the kernel's ldmatrix reads."""
+    qk = torch.from_numpy(np.random.default_rng(2).integers(-127, 128, (3, 3, 32, 12)).astype(np.int8))
+    taps = kernel_taps(qk)
+    assert taps.shape == (9, 12, 32) and taps.dtype == torch.int8 and taps.is_contiguous()
+    phase = phase_tap_matrices(qk)
+    for t in range(9):
+        np.testing.assert_array_equal(taps[t].numpy(), phase[t].T.numpy())
+
+
+# The kernel's phases: (output row parity, column parity) -> the (tap,
+# row shift, column shift) it sums, in phase_tap_matrices' tap order.
+PHASE_TAPS = {(0, 0): ((0, 0, 0),),
+              (0, 1): ((1, 0, 0), (2, 0, 1)),
+              (1, 0): ((3, 0, 0), (4, 1, 0)),
+              (1, 1): ((5, 0, 0), (6, 0, 1), (7, 1, 0), (8, 1, 1))}
+
+
+def _phase_gemm(x, taps):
+    """The kernel's sums from its tap bytes: for each phase, the input
+    shifted by each tap's (dy, dx) with zeros past the edge, times that
+    tap's [O, C] matrix, as int32 products."""
+    b, h, w, c = x.shape
+    o = taps.shape[1]
+    padded = torch.zeros((b, h + 1, w + 1, c), dtype=torch.int32)
+    padded[:, :h, :w] = x.to(torch.int32)
+    acc = torch.zeros((b, 2 * h, 2 * w, o), dtype=torch.int32)
+    for (py, px), phase in PHASE_TAPS.items():
+        for t, dy, dx in phase:
+            acc[:, py::2, px::2] += torch.matmul(padded[:, dy:dy + h, dx:dx + w],
+                                                 taps[t].to(torch.int32).T)
+    return acc
+
+
+@pytest.mark.parametrize("h,w,c", SHAPES + [(3, 100, 32)])  # + two segments, one ragged
+def test_torch_kernel_taps_phase_gemm_matches_jax(h, w, c):
+    """The phase GEMMs the kernel runs, rebuilt on the CPU from
+    ``kernel_taps``'s bytes and passed through the plain epilogue, equal
+    the compiled JAX op bit for bit: a wrong tap order or shift shows
+    here before any card run."""
+    args = _case(7 * h + w + c, 2, h, w, c)
+    x, qk, deq, bias, scale = (torch.from_numpy(a) for a in args)
+    acc = _phase_gemm(x, kernel_taps(qk)).to(torch.float32)
+    for act, out in zip(ACTS, OUT_DTYPES):
+        jax_dtype, torch_dtype = OUT_DTYPES[out]
+        want = np.asarray(jax.jit(lambda *a: transpose_conv2x_int8_xla(
+            *a, act=act, out_dtype=jax_dtype))(*args)).astype(np.float32)
+        got = _epilogue(acc, deq, bias, scale, act, torch_dtype)
+        assert got.dtype == torch_dtype
+        np.testing.assert_array_equal(got.float().numpy(), want, err_msg=f"{act} {out}")
 
 
 def test_torch_transpose_conv_wrapper_takes_plain_on_cpu():
