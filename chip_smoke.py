@@ -15,11 +15,12 @@ Four served paths, each a CenterNet beside a YOLACT through
   YOLACT (per-channel scales calibrated on 2 frames, the prediction head
   and ``protonet/output`` in bf16, bf16 joins and float convs), with the
   protonet's two upsamples' scales added so both run int8 through kernel
-  D;
+  D (``configs.INT8_CHAIN_YOLACT``);
 - ``north_star``: what ``bench.py`` serves with no flags
   (``configs.NORTH_STAR``): the plain-IDA CenterNet in bf16 with bf16
   BatchNorm outputs and an f32 stem (kernel C in bf16), on the same
-  weights, beside the same int8-chain YOLACT, normalised in f32.
+  weights, beside the int8-chain YOLACT with its protonet upsamples in
+  bf16 (cuDNN transposed convs, no kernel D), normalised in f32.
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -30,6 +31,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    each kernel's registers and spills;
 3. check: each kernel against its plain PyTorch version on the card at
    the served shapes (batch 8), tolerances printed beside each result:
+   kernel A on random, planted-tie (across tile bands), sparse (fewer
+   than K peaks), flat and the net's own heatmaps, K = 1, 10 and 128,
+   and a map two column tiles wide; kernel B with the crop and without,
+   on NCHW and NHWC-view prototypes, P = 8 and 32, and a ragged width;
    kernel C in f32 and in bf16 at the 8 upsamples of a forward;
    kernel E at each distinct shape of the 16 DCN calls of one forward;
    kernel D bit-equal at both protonet upsamples (int8 and bf16 out,
@@ -44,8 +49,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    before the path) must show every kernel of the path on every
    request, and the same frames through the plain versions must decode
    the same (for ``int8_chain`` the int8 protonet maps bit-equal too,
-   and ``make_yolact_chain_pipeline``, YOLACT alone on its defaults,
-   launches kernel D twice a request and decodes as the pair's YOLACT);
+   and on ``north_star`` ``make_yolact_chain_pipeline``, YOLACT alone on
+   its defaults, the served recipe, launches what the pair's YOLACT does
+   and decodes as it); then one batch-1 request (one camera frame, as a
+   vehicle's node serves it) on ``north_star`` and ``int8_chain``,
+   through every kernel of the path and decoded as the plain path does;
    the chain's decode against the f32 YOLACT's is printed, not gated
    (random weights), as is the bf16 CenterNet's against the f32 one;
 5. time: each kernel against its plain version (CUDA events, after
@@ -82,7 +90,12 @@ import torch
 import torch.nn.functional as F
 
 from tauv_vision_tpu_torch import kernels
-from tauv_vision_tpu_torch.configs import NORTH_STAR, centernet_config, yolact_config
+from tauv_vision_tpu_torch.configs import (
+    INT8_CHAIN_YOLACT,
+    NORTH_STAR,
+    centernet_config,
+    yolact_config,
+)
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
 from tauv_vision_tpu_torch.models.yolact import Yolact
 from tauv_vision_tpu_torch.ops.conv_transpose import (
@@ -200,7 +213,8 @@ P1_ROWS = {
     "op_probe/transpose": (309, "transpose [32,320]->[320,32]+bf16"),
 }
 PATHS = ("plain_ida", "dcn_ida", "int8_chain", "north_star")
-CHAIN_PATHS = ("int8_chain", "north_star")   # beside the int8-chain YOLACT
+# The paths beside an int8-chain YOLACT, and its recipe on each.
+CHAIN_RECIPES = {"int8_chain": INT8_CHAIN_YOLACT, "north_star": NORTH_STAR.yolact}
 
 
 def fail(msg: str) -> None:
@@ -284,7 +298,8 @@ def upsample_scales(yl, img):
 def build_models(device):
     """{path: (CenterNet on the kernels, the same weights on the plain
     versions)}, the CenterNet config, YOLACT, its config and the int8
-    chains of that YOLACT: {"kernel", "plain", "cudnn_transposes"}."""
+    chains of that YOLACT: {chain path: {"kernel": (ctx, forward),
+    "plain": (ctx, forward)}}."""
     oc, cn_cfg = centernet_config()
     yl_cfg = yolact_config()
     nets = {}
@@ -307,22 +322,24 @@ def build_models(device):
     nets["north_star"] = tuple(bf16)
     yl = Yolact(yl_cfg, generator=torch.Generator().manual_seed(1), device=device).eval()
 
-    # bench.py's int8 YOLACT rung (NORTH_STAR.yolact): per-channel scales
-    # on the first 2 frames, head and protonet output stripped, bf16 with
-    # bf16 joins (ChainCtx's defaults).
-    recipe = NORTH_STAR.yolact
+    # bench.py's int8 YOLACT rung (CHAIN_RECIPES): per-channel scales on
+    # the first 2 frames, head and protonet output stripped, bf16 with
+    # bf16 joins (ChainCtx's defaults); on int8_chain the two upsample
+    # scales added.
     cal = request_frames(0, (N_CALIBRATION, FRAME_H, FRAME_W, 3)).to(device)
     img = preprocess(cal, (yl_cfg.in_h, yl_cfg.in_w), yl_cfg.img_mean, yl_cfg.img_stddev)
-    scales = strip_scales(calibrate(yl, [img], per_channel=recipe.per_channel),
-                          recipe.float_paths)
-    served = {**scales, **(upsample_scales(yl, img) if recipe.int8_transposes else {})}
     chains = {}
-    for name, s, impl in (("kernel", served, "kernel"), ("plain", served, "plain"),
-                          ("cudnn_transposes", scales, "kernel")):
-        ctx = ChainCtx(yl, s, impl=impl)
-        chains[name] = (ctx, yolact_chain_forward(ctx))
-    print(f"int8 chain: {len(served)} calibrated convs ({len(scales)} by calibrate, "
-          f"{sorted(set(served) - set(scales))} added), bf16 head and joins")
+    for path, recipe in CHAIN_RECIPES.items():
+        scales = strip_scales(calibrate(yl, [img], per_channel=recipe.per_channel),
+                              recipe.float_paths)
+        served = {**scales, **(upsample_scales(yl, img) if recipe.int8_transposes else {})}
+        chains[path] = {}
+        for impl in ("kernel", "plain"):
+            ctx = ChainCtx(yl, served, dtype=recipe.dtype, join_dtype=recipe.join_dtype,
+                           impl=impl)
+            chains[path][impl] = (ctx, yolact_chain_forward(ctx))
+        print(f"int8 chain of {path}: {len(served)} calibrated convs ({len(scales)} by "
+              f"calibrate, {sorted(set(served) - set(scales))} added), bf16 head and joins")
     return nets, cn_cfg, yl, yl_cfg, chains
 
 
@@ -400,13 +417,51 @@ def chain_calls(ctx, forward, img):
 # ---- phase 3 ------------------------------------------------------------
 
 def planted_ties(shape, gen):
+    """Saturated cells (sigmoid == 1.0 exactly in f32) and plateaus on
+    both sides of kernel A's band edges (rows 16, 48, 80) and in several
+    channels, so equal scores meet in the merge from different tiles."""
     x = torch.randn(shape, generator=gen, device="cuda") * 3 - 6
-    for b in range(shape[0]):
-        x[b, 2, 3, 4] = 20.0          # sigmoid == 1.0 exactly in f32
-        x[b, 0, 40, 100] = 25.0
-        x[b, 1, 70, 7] = 30.0
-        x[b, 3, 50, 60] = x[b, 3, 50, 61] = 12.0   # 2-cell plateau
+    x[:, 2, 15, 4] = 20.0
+    x[:, 0, 16, 100] = 25.0
+    x[:, 1, 79, 7] = 30.0
+    x[:, 3, 80, 60] = 40.0
+    x[:, 3, 47:49, 120] = 12.0    # a 2-cell plateau across a band edge
+    x[:, 1, 63, 30:32] = 12.0     # and one along a row
     return x
+
+
+def sparse_peaks(shape):
+    """Fewer than K positive cells: sigmoid(-200) is 0 in f32, so all but
+    3 cells are zeros, which tie and go to the smallest flat index."""
+    x = torch.full(shape, -200.0, device="cuda")
+    x[:, 1, 0, 0] = 2.0
+    x[:, 2, 16, 159] = 3.0
+    x[:, 0, 89, 80] = 1.0
+    return x
+
+
+def peak_cases(b, hh, ww, gen, net_heatmap):
+    """(name, logits, K) of kernel A's checks."""
+    shape = (b, 4, hh, ww)
+    random = torch.randn(shape, generator=gen, device="cuda") * 3
+    ties = planted_ties(shape, gen)
+    wide = torch.randn((2, 3, 37, 300), generator=gen, device="cuda") * 3
+    return [("random", random, 10), ("random", random, 1), ("random", random, 128),
+            ("planted_ties", ties, 10), ("planted_ties", ties, 128),
+            ("sparse", sparse_peaks(shape), 10), ("sparse", sparse_peaks(shape), 128),
+            ("flat", torch.zeros(shape, device="cuda"), 128),
+            ("net_heatmap", net_heatmap, 10),
+            ("two_column_tiles", wide, 10), ("two_column_tiles", wide, 128)]
+
+
+def mask_cases(gen, net_proto):
+    """(name, prototypes [B, P, H, W]) of kernel B's checks: the chain's own
+    NHWC-view prototypes and their NCHW copy, P = 32, a ragged width."""
+    cases = [("net_nhwc", net_proto), ("net_nchw", net_proto.contiguous())]
+    for name, (b, p, h, w) in (("p32", (2, 32, 45, 80)), ("ragged_w78", (2, 8, 45, 78))):
+        proto = torch.randn((b, h, w, p), generator=gen, device="cuda").permute(0, 3, 1, 2)
+        cases += [(f"{name}_nhwc", proto), (f"{name}_nchw", proto.contiguous())]
+    return cases
 
 
 def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img):
@@ -419,40 +474,43 @@ def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img):
     img = torch.randn((b, 3, cn_cfg.in_h, cn_cfg.in_w), generator=gen, device="cuda")
     with torch.inference_mode():
         real_heatmap = cn_plain(img).heatmap_nchw().contiguous()
-    cases = {
-        "random": torch.randn((b, 4, hh, ww), generator=gen, device="cuda") * 3,
-        "planted_ties": planted_ties((b, 4, hh, ww), gen),
-        "net_heatmap": real_heatmap,
-    }
+    # scripts/kernel_times.py times A and B at the nets' shapes.
+    require((tuple(real_heatmap.shape), k) == kernel_times.A_CALL,
+            "kernel A's call is not kernel_times.A_CALL")
     err = 0.0
-    for name, x in cases.items():
-        got, want = peak_decode_cuda(x, k), peak_decode(x, k)
+    for name, x, kk in peak_cases(b, hh, ww, gen, real_heatmap):
+        got, want = peak_decode_cuda(x, kk), peak_decode(x, kk)
         torch.cuda.synchronize()
-        require(torch.equal(got[0], want[0]), f"peak_decode {name}: index differs")
-        require(torch.equal(got[1], want[1]), f"peak_decode {name}: label differs")
+        require(torch.equal(got[0], want[0]), f"peak_decode {name} K={kk}: index differs")
+        require(torch.equal(got[1], want[1]), f"peak_decode {name} K={kk}: label differs")
         e = (got[2] - want[2]).abs().max().item()
-        require(e <= PEAK_ATOL, f"peak_decode {name}: score err {e}")
+        require(e <= PEAK_ATOL, f"peak_decode {name} K={kk}: score err {e}")
         err = max(err, e)
-        print(f"check peak_decode {name} {tuple(x.shape)} K={k}: index/label "
-              f"exact, score max_abs_err {e:.3g} (atol {PEAK_ATOL})")
+        print(f"check peak_decode {name} {tuple(x.shape)} K={kk}: index/label "
+              f"exact, score max_abs_err {e:.3g} (atol {PEAK_ATOL}), "
+              f"{int((want[2] > 0).sum())} of {want[2].numel()} slots positive")
     errs["peak_decode"] = err
 
-    p, kk = yl_cfg.n_prototype_masks, SERVING_DECODE.top_k
-    ph, pw = yl_cfg.in_h // 2, yl_cfg.in_w // 2
-    proto = torch.randn((b, p, ph, pw), generator=gen, device="cuda")
-    coeff = torch.tanh(torch.randn((b, kk, p), generator=gen, device="cuda"))
-    box = torch.cat([torch.rand((b, kk, 2), generator=gen, device="cuda"),
-                     torch.rand((b, kk, 2), generator=gen, device="cuda") * 0.6], -1)
+    kk = SERVING_DECODE.top_k
+    with torch.inference_mode():
+        net_proto = chains["north_star"]["kernel"][1](yl_img).mask_prototype.permute(0, 3, 1, 2)
+    require((tuple(net_proto.shape), kk) == kernel_times.B_CALL,
+            "kernel B's call is not kernel_times.B_CALL")
     err = 0.0
-    for crop in (True, False):
-        bx = box if crop else None
-        got, want = assemble_mask_cuda(proto, coeff, bx), assemble_mask_batch(proto, coeff, bx)
-        torch.cuda.synchronize()
-        e = (got - want).abs().max().item()
-        require(e <= MASK_ATOL, f"mask_assembly crop={crop}: err {e}")
-        err = max(err, e)
-        print(f"check mask_assembly crop={crop} proto {tuple(proto.shape)} K={kk}: "
-              f"max_abs_err {e:.3g} (atol {MASK_ATOL})")
+    for name, proto in mask_cases(gen, net_proto):
+        bb, p = proto.shape[:2]
+        coeff = torch.tanh(torch.randn((bb, kk, p), generator=gen, device="cuda"))
+        box = torch.cat([torch.rand((bb, kk, 2), generator=gen, device="cuda"),
+                         torch.rand((bb, kk, 2), generator=gen, device="cuda") * 0.6], -1)
+        for crop in (True, False):
+            bx = box if crop else None
+            got, want = assemble_mask_cuda(proto, coeff, bx), assemble_mask_batch(proto, coeff, bx)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            require(e <= MASK_ATOL, f"mask_assembly {name} crop={crop}: err {e}")
+            err = max(err, e)
+            print(f"check mask_assembly {name} proto {tuple(proto.shape)} strides "
+                  f"{proto.stride()} K={kk} crop={crop}: max_abs_err {e:.3g} (atol {MASK_ATOL})")
     errs["mask_assembly"] = err
 
     err = 0.0
@@ -531,7 +589,7 @@ def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img):
 
     # Kernel D: bit-equal, at both served shapes with the net's codes,
     # weights and epilogue, each activation, int8 and bf16 out.
-    ctx, forward = chains["kernel"]
+    ctx, forward = chains["int8_chain"]["kernel"]
     record = chain_calls(ctx, forward, yl_img)
     require(len(record["transpose"]) == 2, f"{len(record['transpose'])} kernel D calls")
     cases = []
@@ -628,48 +686,32 @@ def finite(*ts):
 def pipelines(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains):
     """(the path's pair on the kernels, the same on the plain versions)."""
     device = torch.device("cuda")
-    chain = path in CHAIN_PATHS
-    yl_fwd, yl_plain = (chains["kernel"][1], chains["plain"][1]) if chain else (yl, yl)
+    if path in CHAIN_RECIPES:
+        yl_fwd, yl_plain = chains[path]["kernel"][1], chains[path]["plain"][1]
+    else:
+        yl_fwd = yl_plain = yl
     dtype = NORTH_STAR.input_dtype if path == "north_star" else torch.float32
     return (make_combined_pipeline(cn, cn_cfg, yl_fwd, yl_cfg, device, dtype=dtype),
             make_combined_pipeline(cn_plain, cn_cfg, yl_plain, yl_cfg, device, impl="plain",
                                    dtype=dtype))
 
 
-def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
-    """Serve the path's 4 requests and check them; returns (launches by
-    kernel, launches by entry point) of the served run.  ``f32_cn`` is the
-    f32 CenterNet on the same weights, which the bf16 one is reported
-    against."""
-    device = torch.device("cuda")
-    requests = [request_frames(0, (N_REQUESTS, CHECK_BATCH, FRAME_H, FRAME_W, 3))[i].pin_memory()
-                for i in range(N_REQUESTS)]
-    chain = path in CHAIN_PATHS
+def expected_launches(path, cn):
+    """Each kernel's launches in one request of ``path``."""
+    recipe = CHAIN_RECIPES.get(path)
+    return {"peak_decode": 1, "mask_assembly": 1,
+            "depthwise_upsample": len(cn.depthwise_upsamples()),
+            "deform_conv": len(cn.deform_convs()),
+            "transpose_conv": 2 if recipe is not None and recipe.int8_transposes else 0,
+            "int8_dot_probe": 0, "op_probe": 0}
+
+
+def check_answers(path, answers, plain_answers, batch):
+    """Hold a path's decoded requests on the kernels to the same requests
+    on the plain versions; returns (CenterNet slots swapped at ties, worst
+    CenterNet p95s, worst mask difference)."""
+    b, k, kk = batch, SERVING_DECODE.n_detections, SERVING_DECODE.top_k
     bf16 = path == "north_star"
-    pipe, plain = pipelines(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains)
-    n_up, n_dcn = len(cn.depthwise_upsamples()), len(cn.deform_convs())
-    require(n_dcn == (N_DCN if path == "dcn_ida" else 0),
-            f"{path}: {n_dcn} DeformConv2d modules")
-
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    answers = [pipe(r) for r in requests]
-    torch.cuda.synchronize()
-    launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
-    up_entry = "tauv_depthwise_upsample_" + ("bf16" if bf16 else "f32")
-    print(f"serve {path}: {N_REQUESTS} requests x {CHECK_BATCH} frames, launches "
-          f"{launches} (kernel C: {entries[up_entry]} by {up_entry}), {n_up} "
-          f"DepthwiseUpsample and {n_dcn} DeformConv2d modules")
-    want = {"peak_decode": N_REQUESTS, "mask_assembly": N_REQUESTS,
-            "depthwise_upsample": N_REQUESTS * n_up, "deform_conv": N_REQUESTS * n_dcn,
-            "transpose_conv": N_REQUESTS * 2 if chain else 0, "int8_dot_probe": 0,
-            "op_probe": 0}
-    require(launches == want, f"{path}: launch counts {launches}, expected {want}")
-    require(entries[up_entry] == N_REQUESTS * n_up,
-            f"{path}: kernel C launched {entries[up_entry]} times by {up_entry}")
-
-    b, k, kk = CHECK_BATCH, SERVING_DECODE.n_detections, SERVING_DECODE.top_k
-    mask_hw = (yl_cfg.in_h // 2, yl_cfg.in_w // 2)
     for cn_d, yl_d in answers:
         require(all(t.shape == (b, k) for t in
                     (cn_d.valid, cn_d.score, cn_d.label, cn_d.y, cn_d.x, cn_d.h, cn_d.w)),
@@ -677,40 +719,12 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
         require(finite(cn_d.score, cn_d.y, cn_d.x, cn_d.h, cn_d.w), "CenterNet non-finite")
         require(bool(((cn_d.label >= 0) & (cn_d.label < 4)).all()), "CenterNet labels")
         require(yl_d.box.shape == (b, kk, 4) and yl_d.score.shape == (b, kk)
-                and yl_d.mask.shape == (b, kk) + mask_hw, "YOLACT shapes")
+                and yl_d.mask.shape[:2] == (b, kk), "YOLACT shapes")
         require(finite(yl_d.score, yl_d.box, yl_d.mask), "YOLACT non-finite")
         require(bool(((yl_d.mask >= 0) & (yl_d.mask <= 1)).all()), "YOLACT mask range")
 
-    head_err, head_max = 0.0, 0.0
-    for r in requests:
-        with torch.inference_mode():
-            img = resize_frames(r.to(device), (cn_cfg.in_h, cn_cfg.in_w))
-            cn_in = normalize_image(img, IMAGENET_MEAN, IMAGENET_STDDEV)
-            got, ref = cn(cn_in), cn_plain(cn_in)
-        for name in ("heatmap", "size", "offset"):
-            head_err = max(head_err, (getattr(got, name) - getattr(ref, name)).abs().max().item())
-            head_max = max(head_max, getattr(ref, name).abs().max().item())
-    atol = NS_HEAD_ULPS * bf16_ulp(head_max).item() if bf16 else HEAD_ATOL[path]
-    print(f"serve {path}: CenterNet raw heads kernel vs plain max_abs_err "
-          f"{head_err:.3g} (atol {atol:.3g}, max |head| {head_max:.3g})")
-    require(head_err <= atol, f"{path}: raw heads differ by {head_err}")
-
-    if path == "int8_chain":
-        with torch.inference_mode():
-            yl_in = preprocess(requests[0].to(device), (yl_cfg.in_h, yl_cfg.in_w),
-                               yl_cfg.img_mean, yl_cfg.img_stddev)
-        maps = {name: chain_calls(*chains[name], yl_in)["maps"] for name in ("kernel", "plain")}
-        require(maps["kernel"].keys() == maps["plain"].keys(), "protonet layers differ")
-        for layer, y in maps["kernel"].items():
-            require(torch.equal(y, maps["plain"][layer]),
-                    f"int8_chain: protonet {layer} differs between kernel D and plain D")
-        layers = ", ".join(f"{name} {y.dtype}" for name, y in maps["kernel"].items())
-        print(f"serve {path}: protonet maps bit-equal with kernel D and with its plain "
-              f"version ({layers})")
-
     mask_err, cn_p95, swaps = 0.0, {}, 0
-    for r, (cn_d, yl_d) in zip(requests, answers):
-        cn_p, yl_p = plain(r)
+    for (cn_d, yl_d), (cn_p, yl_p) in zip(answers, plain_answers):
         for name, got, ref in (("CenterNet", cn_d, cn_p), ("YOLACT", yl_d, yl_p)):
             stats = detection_deltas(ref, got, score_threshold=0.0)
             if bf16 and name == "CenterNet":
@@ -735,6 +749,70 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
         require(torch.equal(yl_d.valid, yl_p.valid), "YOLACT keep masks differ")
         mask_err = max(mask_err, (yl_d.mask - yl_p.mask).abs().max().item())
     require(mask_err <= MASK_ATOL, f"served masks differ by {mask_err}")
+    return swaps, cn_p95, mask_err
+
+
+def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
+    """Serve the path's 4 requests and check them; returns (launches by
+    kernel, launches by entry point) of the served run.  ``f32_cn`` is the
+    f32 CenterNet on the same weights, which the bf16 one is reported
+    against."""
+    device = torch.device("cuda")
+    requests = [request_frames(0, (N_REQUESTS, CHECK_BATCH, FRAME_H, FRAME_W, 3))[i].pin_memory()
+                for i in range(N_REQUESTS)]
+    bf16 = path == "north_star"
+    pipe, plain = pipelines(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains)
+    n_up, n_dcn = len(cn.depthwise_upsamples()), len(cn.deform_convs())
+    require(n_dcn == (N_DCN if path == "dcn_ida" else 0),
+            f"{path}: {n_dcn} DeformConv2d modules")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    answers = [pipe(r) for r in requests]
+    torch.cuda.synchronize()
+    launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+    up_entry = "tauv_depthwise_upsample_" + ("bf16" if bf16 else "f32")
+    print(f"serve {path}: {N_REQUESTS} requests x {CHECK_BATCH} frames, launches "
+          f"{launches} (kernel C: {entries[up_entry]} by {up_entry}), {n_up} "
+          f"DepthwiseUpsample and {n_dcn} DeformConv2d modules")
+    per_request = expected_launches(path, cn)
+    want = {name: N_REQUESTS * n for name, n in per_request.items()}
+    require(launches == want, f"{path}: launch counts {launches}, expected {want}")
+    require(entries[up_entry] == N_REQUESTS * n_up,
+            f"{path}: kernel C launched {entries[up_entry]} times by {up_entry}")
+    mask_hw = (yl_cfg.in_h // 2, yl_cfg.in_w // 2)
+    require(all(a[1].mask.shape[2:] == mask_hw for a in answers), "YOLACT mask size")
+
+    head_err, head_max = 0.0, 0.0
+    for r in requests:
+        with torch.inference_mode():
+            img = resize_frames(r.to(device), (cn_cfg.in_h, cn_cfg.in_w))
+            cn_in = normalize_image(img, IMAGENET_MEAN, IMAGENET_STDDEV)
+            got, ref = cn(cn_in), cn_plain(cn_in)
+        for name in ("heatmap", "size", "offset"):
+            head_err = max(head_err, (getattr(got, name) - getattr(ref, name)).abs().max().item())
+            head_max = max(head_max, getattr(ref, name).abs().max().item())
+    atol = NS_HEAD_ULPS * bf16_ulp(head_max).item() if bf16 else HEAD_ATOL[path]
+    print(f"serve {path}: CenterNet raw heads kernel vs plain max_abs_err "
+          f"{head_err:.3g} (atol {atol:.3g}, max |head| {head_max:.3g})")
+    require(head_err <= atol, f"{path}: raw heads differ by {head_err}")
+
+    if path == "int8_chain":
+        with torch.inference_mode():
+            yl_in = preprocess(requests[0].to(device), (yl_cfg.in_h, yl_cfg.in_w),
+                               yl_cfg.img_mean, yl_cfg.img_stddev)
+        maps = {impl: chain_calls(*chains[path][impl], yl_in)["maps"]
+                for impl in ("kernel", "plain")}
+        require(maps["kernel"].keys() == maps["plain"].keys(), "protonet layers differ")
+        for layer, y in maps["kernel"].items():
+            require(torch.equal(y, maps["plain"][layer]),
+                    f"int8_chain: protonet {layer} differs between kernel D and plain D")
+        layers = ", ".join(f"{name} {y.dtype}" for name, y in maps["kernel"].items())
+        print(f"serve {path}: protonet maps bit-equal with kernel D and with its plain "
+              f"version ({layers})")
+
+    swaps, cn_p95, mask_err = check_answers(path, answers, [plain(r) for r in requests],
+                                            CHECK_BATCH)
     matched = (f"CenterNet {swaps} top-K slots swapped at ties of "
                f"{N_REQUESTS * CHECK_BATCH * SERVING_DECODE.n_detections}, YOLACT 100%"
                if bf16 else "100%")
@@ -743,6 +821,22 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
           f"{sum(int(a[0].valid.sum()) for a in answers)} CenterNet and "
           f"{sum(int(a[1].valid.sum()) for a in answers)} YOLACT detections valid "
           f"at the served thresholds")
+
+    if path in CHAIN_RECIPES:
+        # One camera frame, the batch a vehicle's node serves: the int8
+        # chain's last FPN levels then have 16 or fewer pixels, so its
+        # integer convs pad their rows for torch._int_mm.
+        frame = request_frames(3, (1, FRAME_H, FRAME_W, 3)).pin_memory()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        one = pipe(frame)
+        torch.cuda.synchronize()
+        require(kernels.LAUNCHES == per_request,
+                f"{path} batch 1: launch counts {dict(kernels.LAUNCHES)}, expected {per_request}")
+        swaps1, p95_1, mask_err1 = check_answers(path, [one], [plain(frame)], 1)
+        print(f"serve {path} batch 1: launches {dict(kernels.LAUNCHES)}, decoded kernel vs "
+              f"plain: YOLACT valid equal and 100% matched, CenterNet {swaps1} slots swapped "
+              f"of {SERVING_DECODE.n_detections}, p95 {p95_1}, mask max_abs_err {mask_err1:.3g}")
 
     if bf16:
         f32 = make_centernet_pipeline(f32_cn, cn_cfg, device)
@@ -756,17 +850,16 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
               f"{sum(s['matched_fraction'] * s['total'] for s in stats) / max(total, 1):.4f} "
               f"of {total} matched at score threshold 0, worst request p95 {worst}")
 
-    if path == "int8_chain":
-        # The slice's own entry point, YOLACT alone, on its defaults (the
+        # The chain's own entry point, YOLACT alone, on its defaults (the
         # served recipe on the kernels): the same launches a request and
         # the same decode as the pair's YOLACT.
-        alone = make_yolact_chain_pipeline(yl, chains["kernel"][0].scales, device)
+        alone = make_yolact_chain_pipeline(yl, chains[path]["kernel"][0].scales, device)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         alone_answers = [alone(r) for r in requests]
         torch.cuda.synchronize()
         alone_want = {**{name: 0 for name in KERNELS}, "mask_assembly": N_REQUESTS,
-                      "transpose_conv": 2 * N_REQUESTS}
+                      "transpose_conv": N_REQUESTS * per_request["transpose_conv"]}
         require(kernels.LAUNCHES == alone_want,
                 f"make_yolact_chain_pipeline: launch counts {dict(kernels.LAUNCHES)}, "
                 f"expected {alone_want}")
@@ -777,6 +870,7 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
         print(f"serve {path}: make_yolact_chain_pipeline (YOLACT alone, served defaults) "
               f"launches {dict(kernels.LAUNCHES)}, decode 100% matched with the pair's YOLACT")
 
+    if path in CHAIN_RECIPES:
         f32 = make_yolact_pipeline(yl, yl_cfg, device)
         stats = [detection_deltas(f32(r), a[1], score_threshold=0.0)
                  for r, a in zip(requests, answers)]
@@ -821,8 +915,11 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
           lambda: peak_decode(logits, k), 50)
     # sigmoid (4 flops), 3x3 max (8 compares) and the peak test (1) an element
     bounds["peak_decode"] = bound(nbytes(logits) + b * k * 16, 13 * logits.numel(), PEAK["f32"])
+    # Kernel B on the prototypes as the int8 chain (north_star) makes them:
+    # the NHWC view, read in place.
     p, kk = yl_cfg.n_prototype_masks, SERVING_DECODE.top_k
-    proto = torch.randn((b, p, yl_cfg.in_h // 2, yl_cfg.in_w // 2), generator=gen, device="cuda")
+    proto = torch.randn((b, yl_cfg.in_h // 2, yl_cfg.in_w // 2, p), generator=gen,
+                        device="cuda").permute(0, 3, 1, 2)
     coeff = torch.tanh(torch.randn((b, kk, p), generator=gen, device="cuda"))
     box = torch.cat([torch.rand((b, kk, 2), generator=gen, device="cuda"),
                      torch.rand((b, kk, 2), generator=gen, device="cuda") * 0.6], -1)
@@ -889,7 +986,8 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         bounds[name] = (r["bound_ns"] / 1e6, r["bound_by"])
     what = {
         "peak_decode": f"[{b},4,{cn_cfg.out_h},{cn_cfg.out_w}] K={k}",
-        "mask_assembly": f"proto [{b},{p},{yl_cfg.in_h // 2},{yl_cfg.in_w // 2}] K={kk} crop",
+        "mask_assembly": f"proto [{b},{p},{yl_cfg.in_h // 2},{yl_cfg.in_w // 2}] (NHWC view) "
+                         f"K={kk} crop",
         "depthwise_upsample": f"all {len(calls)} calls of one batch-{b} forward",
         "deform_conv": f"all {len(dcns)} calls of one batch-{b} DCN-IDA forward",
         "transpose_conv": f"both calls of one batch-{b} int8-chain forward, int8 in and out",
@@ -990,7 +1088,7 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         cn_in = normalize_image(img, IMAGENET_MEAN, IMAGENET_STDDEV)
         yl_in = normalize_image(img, yl_cfg.img_mean, yl_cfg.img_stddev)
         cn_pred, yl_pred = cn(cn_in), yl(yl_in)
-        chain_pred = chains["kernel"][1](yl_in)
+        chain_pred = chains["int8_chain"]["kernel"][1](yl_in)
 
         def preprocess_both():
             x = resize_frames(on_card, (cn_cfg.in_h, cn_cfg.in_w))
@@ -1005,10 +1103,11 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
             "CenterNet DCN-IDA forward": lambda: dcn(cn_in),
             "CenterNet DCN-IDA forward, plain DCN": lambda: dcn_plain(cn_in),
             "YOLACT forward, f32": lambda: yl(yl_in),
-            "YOLACT int8 chain forward, kernel D": lambda: chains["kernel"][1](yl_in),
-            "YOLACT int8 chain forward, plain D": lambda: chains["plain"][1](yl_in),
-            "YOLACT int8 chain forward, bf16 cuDNN transposes":
-                lambda: chains["cudnn_transposes"][1](yl_in),
+            "YOLACT int8 chain forward, kernel D (int8_chain)":
+                lambda: chains["int8_chain"]["kernel"][1](yl_in),
+            "YOLACT int8 chain forward, plain D": lambda: chains["int8_chain"]["plain"][1](yl_in),
+            "YOLACT int8 chain forward, bf16 cuDNN transposes (north_star)":
+                lambda: chains["north_star"]["kernel"][1](yl_in),
             "CenterNet decode": lambda: decode(cn_pred, cn_cfg, knobs.n_detections,
                                                knobs.score_threshold),
             "YOLACT decode": lambda: decode_yolact(yl_pred, yl_cfg, knobs.top_k,

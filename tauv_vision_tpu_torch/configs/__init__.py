@@ -6,12 +6,14 @@ package's dataclasses) and the served configurations built from them.
 classes, heatmap/size/offset heads) and the production YOLACT (ResNet-18,
 256-wide FPN, 8 prototypes, 7 classes), both at their native 640x360
 input.  ``NORTH_STAR`` is the precision recipe it serves them in, and
-the only place that recipe is written.
+the only place that recipe is written; ``INT8_CHAIN_YOLACT`` is its
+YOLACT with the int8 protonet upsamples of ``bench.py --int8-transpose
+pallas`` (kernel D).
 """
 
 from __future__ import annotations
 
-from dataclasses import asdict, dataclass
+from dataclasses import asdict, dataclass, replace
 from math import pi
 from typing import Tuple
 
@@ -29,6 +31,7 @@ from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig
 __all__ = [
     "AngleConfig",
     "CenternetModelConfig",
+    "INT8_CHAIN_YOLACT",
     "ObjectConfig",
     "NORTH_STAR",
     "ObjectConfigSet",
@@ -104,10 +107,12 @@ class YolactChainRecipe:
 @dataclass(frozen=True)
 class ServedRecipe:
     """What ``bench.py`` serves with no flags (its ``north-star`` profile,
-    ``bench.py:1276-1305,1410-1454,1578-1610``): the float CenterNet in
+    ``bench.py:1276-1305,1391-1454,1578-1610``): the float CenterNet in
     bf16 with bf16 BatchNorm outputs and an f32 stem, plain-conv IDA,
-    beside the int8-chain YOLACT, both behind one combined pipeline whose
-    normalised input is ``input_dtype`` (see
+    beside the int8-chain YOLACT whose protonet upsamples stay bf16
+    transposed convs (``bench.py`` leaves ``int8_transpose`` None, and
+    ``calibrate`` records no scale for them), both behind one combined
+    pipeline whose normalised input is ``input_dtype`` (see
     ``serving.pipeline.make_combined_pipeline``)."""
 
     centernet: CenternetRecipe
@@ -124,6 +129,11 @@ NORTH_STAR = ServedRecipe(
     yolact=YolactChainRecipe(per_channel=True,
                              float_paths=("prediction_head", "protonet/output"),
                              dtype=torch.bfloat16, join_dtype=torch.bfloat16,
-                             int8_transposes=True),
+                             int8_transposes=False),
     input_dtype=torch.float32,
 )
+
+# The int8 chain with the two protonet upsamples int8 in and out through
+# kernel D, their scales added to the calibrated ones: the rung of
+# ``bench.py --int8-transpose pallas``, served by the ``int8_chain`` path.
+INT8_CHAIN_YOLACT = replace(NORTH_STAR.yolact, int8_transposes=True)

@@ -43,8 +43,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (pointers, then ints, then device and stream).
-    "tauv_peak_decode_f32": [_P] * 5 + [_I] * 7 + [_P],
-    "tauv_mask_assembly_f32": [_P] * 4 + [_I] * 6 + [_P],
+    "tauv_peak_decode_f32": [_P] * 5 + [_I] * 9 + [_P],
+    "tauv_mask_assembly_f32": [_P] * 4 + [_I] * 7 + [_P],
     "tauv_depthwise_upsample_f32": [_P] * 3 + [_I] * 6 + [_P],
     "tauv_depthwise_upsample_bf16": [_P] * 3 + [_I] * 6 + [_P],
     "tauv_deform_conv_f32": [_P] * 6 + [_I] * 6 + [_P],

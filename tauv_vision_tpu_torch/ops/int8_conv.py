@@ -8,8 +8,9 @@ convolution on CUDA, so:
 
 - on the card: im2col of the padded int8 map (a strided view made
   contiguous: [B*Ho*Wo, kh*kw*C]) times the kernel as [kh*kw*C, O]
-  through ``torch._int_mm`` (cuBLASLt int8 x int8 -> int32).  Its shape
-  conditions are checked here and raise; there is no quiet fallback;
+  through ``torch._int_mm`` (cuBLASLt int8 x int8 -> int32), with zero
+  rows added where a conv has 16 or fewer.  Its other shape conditions
+  are checked here and raise; there is no quiet fallback;
 - on the CPU: a float64 ``F.conv2d`` of the codes rounded to int32,
   exact because 127^2 * kh * kw * C < 2^53.
 
@@ -22,6 +23,10 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+MIN_INT_MM_ROWS = 16   # torch._int_mm takes more rows than this
+PADDED_ROWS = 32
 
 
 def _pairs(v) -> Tuple[int, int]:
@@ -37,11 +42,39 @@ def conv2d_int8_f64(q: torch.Tensor, qk: torch.Tensor, stride=1, padding=0) -> t
     return acc.round().to(torch.int32).permute(0, 2, 3, 1).contiguous()
 
 
+def conv2d_int8_im2col(q: torch.Tensor, qk: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
+    """The card's route: im2col of the padded map times the kernel through
+    ``torch._int_mm``, which needs more than 16 rows: a conv with fewer
+    (a batch-1 frame's last FPN levels) runs with zero rows up to 32,
+    sliced off after, which is exact.  K and N must be multiples of 8."""
+    sh, sw = _pairs(stride)
+    ph, pw = _pairs(padding)
+    b, h, w, c = q.shape
+    kh, kw, _, o = qk.shape
+    ho = (h + 2 * ph - kh) // sh + 1
+    wo = (w + 2 * pw - kw) // sw + 1
+    rows, k = b * ho * wo, kh * kw * c
+    if k % 8 or o % 8:
+        raise ValueError(
+            f"torch._int_mm needs K and N multiples of 8; this conv gives K {k}, N {o}"
+        )
+    x = F.pad(q.contiguous(), (0, 0, pw, pw, ph, ph)) if ph or pw else q.contiguous()
+    s = x.stride()
+    cols = x.as_strided((b, ho, wo, kh, kw, c),
+                        (s[0], sh * s[1], sw * s[2], s[1], s[2], s[3]))
+    cols = cols.reshape(rows, k)
+    if rows <= MIN_INT_MM_ROWS:
+        cols = torch.cat((cols, cols.new_zeros(PADDED_ROWS - rows, k)))
+    weight = qk.reshape(k, o).t().contiguous().t()  # column-major [K, O]
+    return torch._int_mm(cols, weight)[:rows].reshape(b, ho, wo, o)
+
+
 def conv2d_int8(q: torch.Tensor, qk: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
     """q [B, H, W, C] int8, qk [kh, kw, C, O] int8 -> [B, Ho, Wo, O] int32.
 
     ``stride`` and ``padding`` are ints or (h, w) pairs; the padding is
-    symmetric."""
+    symmetric.  A CPU tensor takes ``conv2d_int8_f64``, a CUDA tensor
+    ``conv2d_int8_im2col``."""
     if q.dtype != torch.int8 or qk.dtype != torch.int8:
         raise TypeError(f"q and qk must be int8, got {q.dtype} and {qk.dtype}")
     if q.dim() != 4 or qk.dim() != 4 or qk.shape[2] != q.shape[3]:
@@ -51,22 +84,4 @@ def conv2d_int8(q: torch.Tensor, qk: torch.Tensor, stride=1, padding=0) -> torch
         )
     if q.device.type == "cpu":
         return conv2d_int8_f64(q, qk, stride, padding)
-    sh, sw = _pairs(stride)
-    ph, pw = _pairs(padding)
-    b, h, w, c = q.shape
-    kh, kw, _, o = qk.shape
-    ho = (h + 2 * ph - kh) // sh + 1
-    wo = (w + 2 * pw - kw) // sw + 1
-    rows, k = b * ho * wo, kh * kw * c
-    if rows <= 16 or k % 8 or o % 8:
-        raise ValueError(
-            f"torch._int_mm needs more than 16 rows and K, N multiples of 8; "
-            f"this conv gives rows {rows}, K {k}, N {o}"
-        )
-    x = F.pad(q.contiguous(), (0, 0, pw, pw, ph, ph)) if ph or pw else q.contiguous()
-    s = x.stride()
-    cols = x.as_strided((b, ho, wo, kh, kw, c),
-                        (s[0], sh * s[1], sw * s[2], s[1], s[2], s[3]))
-    cols = cols.reshape(rows, k)
-    weight = qk.reshape(k, o).t().contiguous().t()  # column-major [K, O]
-    return torch._int_mm(cols, weight).reshape(b, ho, wo, o)
+    return conv2d_int8_im2col(q, qk, stride, padding)

@@ -25,7 +25,7 @@ def assemble_mask_batch(
     """Plain version.
 
     Args:
-      mask_prototype: [B, P, H, W]
+      mask_prototype: [B, P, H, W], any strides
       mask_coeff: [B, K, P]
       box: optional [B, K, 4] normalised (y, x, h, w) crop boxes.
     Returns:
@@ -47,7 +47,10 @@ def assemble_mask_cuda(
     """Kernel B: ``assemble_mask_batch`` as one CUDA op.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises.  All inputs f32; ``box=None`` skips the crop."""
+    kernel or raises.  All inputs f32; ``box=None`` skips the crop.  The
+    prototypes are [B, P, H, W] NCHW-contiguous, or the NHWC view
+    ``x.permute(0, 3, 1, 2)`` of a contiguous [B, H, W, P] ``x``, which
+    the kernel reads in place."""
     b, p, h, w = mask_prototype.shape
     k = mask_coeff.shape[1]
     if tuple(mask_coeff.shape) != (b, k, p):
@@ -61,7 +64,9 @@ def assemble_mask_cuda(
         return assemble_mask_batch(mask_prototype, mask_coeff, box)
     if p > MAX_PROTOTYPES:
         raise ValueError(f"at most {MAX_PROTOTYPES} prototypes, got {p}")
-    kernels.check_cuda_tensor(mask_prototype, "mask_prototype", torch.float32, 4)
+    nhwc = not mask_prototype.is_contiguous()
+    kernels.check_cuda_tensor(mask_prototype.permute(0, 2, 3, 1) if nhwc else mask_prototype,
+                              "mask_prototype (NCHW, or the NHWC view)", torch.float32, 4)
     kernels.check_cuda_tensor(mask_coeff, "mask_coeff", torch.float32, 3)
     if box is not None:
         kernels.check_cuda_tensor(box, "box", torch.float32, 3)
@@ -71,6 +76,6 @@ def assemble_mask_cuda(
         "tauv_mask_assembly_f32", "mask_assembly",
         mask_prototype.data_ptr(), mask_coeff.data_ptr(),
         None if box is None else box.data_ptr(), out.data_ptr(),
-        b, p, k, h, w,
+        b, p, k, h, w, int(nhwc),
     )
     return out

@@ -22,6 +22,17 @@ import torch.nn.functional as F
 from tauv_vision_tpu_torch import kernels
 
 MAX_DETECTIONS = 128
+MAX_KERNEL_SIZE = 31   # kernel A stages a tile's halo of (k - 1) / 2 cells
+TILE_ROWS = 16         # kernel A's tile: 16 rows x at most 256 columns
+TILE_COLS = 256
+
+
+def peak_tiles(c: int, h: int, w: int) -> Tuple[int, int, int]:
+    """Kernel A's tiling of a [C, H, W] map: (tile rows, tile columns,
+    tiles), a tile per channel, band of ``TILE_ROWS`` rows and run of at
+    most ``TILE_COLS`` columns (the whole row where it fits)."""
+    tile_w = min(w, TILE_COLS)
+    return TILE_ROWS, tile_w, c * -(-h // TILE_ROWS) * -(-w // tile_w)
 
 
 def heatmap_nms(heatmap: torch.Tensor, kernel_size: int = 3) -> torch.Tensor:
@@ -65,7 +76,8 @@ def peak_decode(
 def peak_decode_cuda(
     heatmap_logits: torch.Tensor, n_detections: int, kernel_size: int = 3
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel A: ``peak_decode`` as one CUDA op.
+    """Kernel A: ``peak_decode`` as CUDA ops (a top-K a tile, then a
+    merge an image; see ``csrc/peak_decode.cu``).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  heatmap_logits: [B, C, H, W] f32."""
@@ -79,16 +91,21 @@ def peak_decode_cuda(
         raise ValueError(f"kernel_size must be odd, got {kernel_size}")
     if heatmap_logits.device.type == "cpu":
         return peak_decode(heatmap_logits, n_detections, kernel_size)
+    if kernel_size > MAX_KERNEL_SIZE:
+        raise ValueError(f"kernel_size at most {MAX_KERNEL_SIZE} on the card, "
+                         f"got {kernel_size}")
     kernels.check_cuda_tensor(heatmap_logits, "heatmap_logits", torch.float32, 4)
     dev = heatmap_logits.device
-    scratch = torch.empty_like(heatmap_logits)
+    tile_h, tile_w, tiles = peak_tiles(c, h, w)
+    # Each tile's best K as 64-bit keys; the suppressed map is never stored.
+    candidates = torch.empty((b, tiles, n_detections), dtype=torch.int64, device=dev)
     index = torch.empty((b, n_detections, 2), dtype=torch.int32, device=dev)
     label = torch.empty((b, n_detections), dtype=torch.int32, device=dev)
     score = torch.empty((b, n_detections), dtype=torch.float32, device=dev)
     kernels.launch(
         "tauv_peak_decode_f32", "peak_decode",
-        heatmap_logits.data_ptr(), scratch.data_ptr(), index.data_ptr(),
+        heatmap_logits.data_ptr(), candidates.data_ptr(), index.data_ptr(),
         label.data_ptr(), score.data_ptr(), b, c, h, w, n_detections,
-        kernel_size,
+        kernel_size, tile_h, tile_w,
     )
     return index, label, score

@@ -1,8 +1,14 @@
-"""Time kernels C and D on the device at the shapes a batch-8 request gives them.
+"""Time kernels A-D on the device at the shapes a batch-8 request gives them.
 
     python3 -m tauv_vision_tpu_torch.scripts.kernel_times
 
-Kernel C: the 8 depthwise upsamples of one CenterNet forward (f = 2 at
+Kernel A: the CenterNet's peak decode, [8,4,90,160] logits, K = 10, and
+the same on a map with no peaks, which leaves its selection no work.
+Kernel B: the YOLACT's mask assembly, prototypes [8,8,180,320], K = 20,
+with the crop, once NCHW-contiguous and once as the NHWC view the int8
+chain makes (where an older checkout's kernel refuses the view, the row
+times the ``.contiguous()`` copy its decode made, and says so).  Kernel
+C: the 8 depthwise upsamples of one CenterNet forward (f = 2 at
 [8,256,12,20], twice [8,128,23,40] and four times [8,64,45,80]; f = 4 at
 [8,64,23,40]), in f32 and in bf16, with the bilinear weights.  Kernel D:
 the int8 chain's two protonet upsamples ([8,45,80,256] and
@@ -10,10 +16,11 @@ the int8 chain's two protonet upsamples ([8,45,80,256] and
 fails if these shapes are not the ones its nets give the kernels.  Inputs
 are seeded random tensors of those shapes.  Each call is timed on the
 device: the calls are queued behind a spin of the card, so the host's
-cost of a launch is not in the time (``queued_ms``).
+cost of a launch is not in the time (``queued_ms``); A and B also back to
+back (``time_ms``), the host's cost in.
 
 Prints one JSON line: the card, its power limit, and each call's ms with
-its bytes (C) or operations (D).  The script uses only the wrappers'
+its bytes (B, C) or operations (D).  The script uses only the wrappers'
 public signatures and ``kernel_taps``, so a copy of it run from the root
 of an older checkout times that checkout's kernels: run old, new, new,
 old on one card, one after another, to compare two versions.
@@ -29,13 +36,17 @@ import numpy as np
 import torch
 
 from tauv_vision_tpu_torch.ops.conv_transpose import bilinear_kernel, depthwise_upsample_cuda
+from tauv_vision_tpu_torch.ops.masks import assemble_mask_cuda
+from tauv_vision_tpu_torch.ops.peaks import peak_decode_cuda
 from tauv_vision_tpu_torch.ops.transpose_conv import kernel_taps, transpose_conv2x_int8_cuda
 
+A_CALL = ((8, 4, 90, 160), 10)      # (logits shape, K)
+B_CALL = ((8, 8, 180, 320), 20)     # (prototypes [B, P, H, W], K)
 C_CALLS = [((8, 256, 12, 20), 2), ((8, 128, 23, 40), 2), ((8, 128, 23, 40), 2),
            ((8, 64, 45, 80), 2), ((8, 64, 45, 80), 2), ((8, 64, 45, 80), 2),
            ((8, 64, 45, 80), 2), ((8, 64, 23, 40), 4)]
 D_CALLS = [(8, 45, 80, 256, 256), (8, 90, 160, 256, 256)]
-ITERS = 50        # calls a timing of C; D, ~20x longer a call, takes a fifth
+ITERS = 50        # calls a timing of A, B and C; D, ~20x longer a call, a fifth
 SPIN_HZ = 2.0e9   # cycles a second of torch.cuda._sleep's spin, >= the SM clock
 
 
@@ -66,12 +77,45 @@ def queued_ms(fn, iters: int) -> float:
     return time_ms(fn, iters)
 
 
+def _row(fn, **info) -> dict:
+    """A kernel row: ``info`` with the call's device ms and back-to-back ms."""
+    fn()
+    return {**info, "ms": queued_ms(fn, ITERS), "back_to_back_ms": time_ms(fn, ITERS)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    rows = {"c_f32": [], "c_bf16": [], "d": []}
+    rows = {"a": [], "a_no_peaks": [], "b_nchw": [], "b_nhwc": [], "c_f32": [], "c_bf16": [], "d": []}
+    shape, k = A_CALL
+    logits = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3).to(dev)
+    rows["a"].append(_row(lambda: peak_decode_cuda(logits, k), x=list(shape), k=k,
+                          bytes=logits.numel() * 4))
+    # The same call on a map without peaks (sigmoid(-200) is 0 in f32): no
+    # key to select, so launches, loads and the NMS alone.
+    empty = torch.full(shape, -200.0, device=dev)
+    rows["a_no_peaks"].append(_row(lambda: peak_decode_cuda(empty, k), x=list(shape), k=k,
+                                   bytes=empty.numel() * 4))
+    (b, p, h, w), k = B_CALL
+    nhwc = torch.from_numpy(rng.standard_normal((b, h, w, p)).astype(np.float32)).to(dev)
+    coeff = torch.from_numpy(np.tanh(rng.standard_normal((b, k, p))).astype(np.float32)).to(dev)
+    box = torch.from_numpy(np.concatenate([rng.uniform(0, 1, (b, k, 2)),
+                                           rng.uniform(0, 0.6, (b, k, 2))], -1)
+                           .astype(np.float32)).to(dev)
+    n_bytes = (nhwc.numel() + coeff.numel() + box.numel() + b * k * h * w) * 4
+    for key, proto in (("b_nchw", nhwc.permute(0, 3, 1, 2).contiguous()),
+                       ("b_nhwc", nhwc.permute(0, 3, 1, 2))):
+        copy = False
+        try:
+            assemble_mask_cuda(proto, coeff, box)
+        except ValueError:   # an older kernel B: NCHW-contiguous only
+            copy = True
+        fn = ((lambda: assemble_mask_cuda(proto.contiguous(), coeff, box)) if copy  # noqa: E731
+              else (lambda: assemble_mask_cuda(proto, coeff, box)))
+        rows[key].append(_row(fn, x=list(proto.shape), k=k, crop=True, bytes=n_bytes,
+                              with_copy=copy))
     for shape, f in C_CALLS:
         x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
         w = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(

@@ -59,9 +59,9 @@ def decode_yolact(
     score = confidence.amax(dim=-1)
     label = confidence.argmax(dim=-1).to(torch.int32) + 1  # first maximum
 
-    # [B, P, h, w]; a copy only where the prototypes were made NHWC (the
-    # int8 chain), which kernel B does not take.
-    proto = prediction.mask_prototype.permute(0, 3, 1, 2).contiguous()
+    # [B, P, h, w]: the NHWC view where the prototypes were made NHWC (the
+    # int8 chain), which kernel B reads in place.
+    proto = prediction.mask_prototype.permute(0, 3, 1, 2)
     assemble = assemble_mask_cuda if impl == "kernel" else assemble_mask_batch
     masks = assemble(proto, sel_coeff, sel_box)
     return YolactDetections(

@@ -1,0 +1,59 @@
+"""The int8 chain's integer conv core on the CPU, at the few rows a
+batch-1 frame gives its last FPN levels.
+
+``conv2d_int8_im2col`` is the card's route (im2col + ``torch._int_mm``),
+which needs more than 16 rows: below that it adds zero rows up to 32 and
+slices them off.  ``torch._int_mm`` also runs on the CPU, so the route is
+held here to the float64 convolution ``conv2d_int8_f64`` (the CPU path and
+the reference on the card) at 1-17 rows, kernel sizes 1 and 3, strides 1
+and 2: exactly, since integer sums are exact in any order.  The card
+repeats the check on ``conv2d_int8`` (``test_torch_kernels_cuda.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tauv_vision_tpu_torch.ops.int8_conv import (
+    conv2d_int8,
+    conv2d_int8_f64,
+    conv2d_int8_im2col,
+)
+
+
+def _codes(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(-127, 128, shape).astype(np.int8))
+
+
+@pytest.mark.parametrize("k,stride", [(1, 1), (3, 1), (1, 2), (3, 2)])
+@pytest.mark.parametrize("rows", range(1, 18))
+def test_torch_conv2d_int8_im2col_few_rows_matches_f64(rows, k, stride):
+    # One output row of `rows` pixels: input width (rows - 1) * stride + 1,
+    # padding (k - 1) / 2.
+    q = _codes((1, 1, (rows - 1) * stride + 1, 8), rows)
+    qk = _codes((k, k, 8, 16), 100 + rows)
+    got = conv2d_int8_im2col(q, qk, stride, (k - 1) // 2)
+    want = conv2d_int8_f64(q, qk, stride, (k - 1) // 2)
+    assert got.shape == want.shape == (1, 1, rows, 16) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+def test_torch_conv2d_int8_im2col_batch_and_rows_above_padding():
+    """Rows spread over a batch (3 frames of 5 pixels), and a conv of more
+    than 32 rows, where nothing is padded."""
+    for q, qk, stride in ((_codes((3, 2, 5, 16), 1), _codes((3, 3, 16, 8), 2), (2, 1)),
+                          (_codes((2, 6, 7, 24), 3), _codes((3, 3, 24, 8), 4), 1)):
+        assert torch.equal(conv2d_int8_im2col(q, qk, stride, 1), conv2d_int8_f64(q, qk, stride, 1))
+
+
+def test_torch_conv2d_int8_im2col_rejects_unaligned_depth():
+    """torch._int_mm on the card needs K and N multiples of 8; the route
+    raises on the CPU too, as it would there."""
+    q = _codes((1, 4, 4, 4), 5)
+    with pytest.raises(ValueError):
+        conv2d_int8_im2col(q, _codes((3, 3, 4, 8), 6), 1, 1)     # K = 36
+    with pytest.raises(ValueError):
+        conv2d_int8_im2col(q, _codes((1, 1, 4, 8), 7)[..., :4], 1, 0)   # K 4, N 4
+    # conv2d_int8 on a CPU tensor takes the float64 route, which has no such rule.
+    assert torch.equal(conv2d_int8(q, _codes((3, 3, 4, 8), 6), 1, 1),
+                       conv2d_int8_f64(q, _codes((3, 3, 4, 8), 6), 1, 1))

@@ -7,7 +7,7 @@ that has only PyTorch:
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: peak decode index/label exact and score 1e-6; mask assembly
-1e-5 (an 8-term dot summed in another order); depthwise upsample rtol =
+1e-5 (an 8- or 32-term dot summed in another order); depthwise upsample rtol =
 atol = 1e-5 (4 f32 taps in another order than cuDNN), in bf16 one bf16
 ulp (the same f32 sum, rounded once); probe P1's dots 1e-4 (f32 sums of
 exact bf16 products in another order), its copies exact; deformable conv
@@ -16,7 +16,8 @@ served shapes, summed in another order than the plain per-tap GEMMs).
 Exact: the int8 transposed conv (integer sums, the same fused
 multiply-add epilogue; at the served shapes and at ragged column and
 channel tiles), the chain's integer conv core against the
-float64 conv, and probe P2 (small integers).
+float64 conv (also at 1-17 rows, where ``torch._int_mm`` takes zero
+rows added), and probe P2 (small integers).
 """
 
 import numpy as np
@@ -24,7 +25,8 @@ import pytest
 import torch
 
 from tauv_vision_tpu_torch import kernels
-from tauv_vision_tpu_torch.models.centerpoint_dla import DeformConvBlock
+from tauv_vision_tpu_torch.configs import centernet_config
+from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34, DeformConvBlock
 from tauv_vision_tpu_torch.models.layers import init_parameters
 from tauv_vision_tpu_torch.ops.conv_transpose import (
     depthwise_upsample,
@@ -68,35 +70,93 @@ def _planted_ties(shape):
     return x
 
 
-@pytest.mark.parametrize("name,shape,k", [
-    ("random", (2, 3, 24, 32), 7),
-    ("main_path", (8, 4, 90, 160), 10),
-    ("ties", (2, 3, 24, 32), 12),
-    ("k_max", (1, 4, 90, 160), 128),
+def _band_ties(shape):
+    """Saturated cells and plateaus on both sides of kernel A's 16-row band
+    edges, in several channels: equal scores from different tiles."""
+    x = _normal(shape, 8, 3.0) - 6.0
+    x[:, 2, 15, 4] = 20.0
+    x[:, 0, 16, 100] = 25.0
+    x[:, 1, 31, 7] = 30.0
+    x[:, 3, 32, 60] = 40.0
+    x[:, 3, 47:49, 120] = 12.0   # a plateau across a band edge
+    x[:, 1, 63, 30:32] = 12.0
+    return x
+
+
+def _sparse(shape):
+    """3 positive cells (sigmoid(-200) is 0 in f32): fewer than K peaks, so
+    the zeros tie and go to the smallest flat index."""
+    x = torch.full(shape, -200.0)
+    x[:, 1, 0, 0] = 2.0
+    x[:, 2, 16, shape[3] - 1] = 3.0
+    x[:, 0, shape[2] - 1, 80] = 1.0
+    return x
+
+
+def _net_heatmap():
+    oc, cfg = centernet_config(72, 104)
+    net = CenterpointDLA34(oc, generator=torch.Generator().manual_seed(0), device="cpu").eval()
+    with torch.inference_mode():
+        return net(_normal((2, 3, cfg.in_h, cfg.in_w), 9)).heatmap_nchw().contiguous()
+
+
+PEAK_CASES = {
+    "random": lambda shape: _normal(shape, 0, 3.0),
+    "ties": _planted_ties,
+    "band_ties": _band_ties,
+    "sparse": _sparse,
+    "flat": torch.zeros,           # every cell 0.5 and a peak: the full tile sort
+    "net_heatmap": lambda shape: _net_heatmap(),
+}
+
+
+@pytest.mark.parametrize("name,shape,k,kernel_size", [
+    ("random", (2, 3, 24, 32), 7, 3),
+    ("random", (8, 4, 90, 160), 10, 3),     # the main path
+    ("random", (8, 4, 90, 160), 1, 3),
+    ("random", (1, 4, 90, 160), 128, 3),
+    ("random", (2, 3, 37, 300), 10, 3),     # H not a multiple of 16, two column tiles
+    ("random", (2, 3, 37, 300), 128, 3),
+    ("random", (2, 4, 90, 160), 10, 5),     # a 5x5 window
+    ("random", (2, 4, 90, 160), 10, 1),     # no suppression
+    ("ties", (2, 3, 24, 32), 12, 3),
+    ("band_ties", (2, 4, 90, 160), 10, 3),
+    ("band_ties", (2, 4, 90, 160), 128, 3),
+    ("sparse", (2, 4, 90, 160), 10, 3),
+    ("sparse", (2, 4, 90, 160), 128, 3),
+    ("flat", (2, 4, 90, 160), 128, 3),
+    ("net_heatmap", None, 10, 3),
+    ("net_heatmap", None, 128, 3),
 ])
-def test_torch_peak_decode_kernel_on_card(cuda, name, shape, k):
-    x = (_planted_ties(shape) if name == "ties" else _normal(shape, 0, 3.0)).to(cuda)
+def test_torch_peak_decode_kernel_on_card(cuda, name, shape, k, kernel_size):
+    x = PEAK_CASES[name](shape).to(cuda)
     before = kernels.LAUNCHES["peak_decode"]
-    got = peak_decode_cuda(x, k)
-    want = peak_decode(x, k)
+    got = peak_decode_cuda(x, k, kernel_size)
+    want = peak_decode(x, k, kernel_size)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["peak_decode"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("p,w", [(8, 320), (32, 320), (8, 78)], ids=["p8", "p32", "w78"])
 @pytest.mark.parametrize("crop", [True, False])
-def test_torch_assemble_mask_kernel_on_card(cuda, crop):
-    b, p, k, h, w = 2, 8, 20, 180, 320
+def test_torch_assemble_mask_kernel_on_card(cuda, crop, p, w, layout):
+    b, k, h = 2, 20, 180
     rng = np.random.default_rng(1)
-    proto = _normal((b, p, h, w), 2).to(cuda)
+    proto = _normal((b, h, w, p), 2).to(cuda).permute(0, 3, 1, 2)   # the NHWC view
+    if layout == "nchw":
+        proto = proto.contiguous()
     coeff = torch.tanh(_normal((b, k, p), 3)).to(cuda)
     box = torch.from_numpy(np.concatenate(
         [rng.uniform(0.0, 1.0, (b, k, 2)), rng.uniform(0.0, 0.6, (b, k, 2))], -1
     ).astype(np.float32)).to(cuda) if crop else None
+    before = kernels.LAUNCHES["mask_assembly"]
     got = assemble_mask_cuda(proto, coeff, box)
     want = assemble_mask_batch(proto, coeff, box)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mask_assembly"] == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
@@ -250,6 +310,21 @@ def test_torch_conv2d_int8_on_card(cuda, b, h, w, c, o, k, stride, padding):
     assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("b,h,w,c,k,stride,padding", [
+    (1, 1, 1, 64, 1, 1, 0),      # 1 row
+    (1, 3, 5, 256, 1, 1, 0),     # 15 rows: a batch-1 frame's last FPN level
+    (1, 6, 10, 256, 3, 2, 1),    # 15 rows from a 3x3 stride-2 conv
+    (1, 4, 4, 128, 3, 1, 1),     # 16 rows
+    (1, 1, 17, 32, 1, 1, 0),     # 17 rows: torch._int_mm's own minimum
+])
+def test_torch_conv2d_int8_few_rows_on_card(cuda, b, h, w, c, k, stride, padding):
+    q, qk = _codes((b, h, w, c), 22).to(cuda), _codes((k, k, c, 64), 23).to(cuda)
+    got = conv2d_int8(q, qk, stride, padding)
+    want = conv2d_int8_f64(q, qk, stride, padding)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 def test_torch_int8_dot_probe_on_card(cuda, dtype):
     a, b = inputs(dtype, cuda)
@@ -303,5 +378,9 @@ def test_torch_kernel_wrappers_reject_bad_input(cuda):
                                    taps=kernel_taps(qk).view(torch.int32).reshape(8, 9, 8))
     with pytest.raises(ValueError):   # [9, O, C] taps of too few output channels
         transpose_conv2x_int8_cuda(q, qk, ones, ones, ones, taps=kernel_taps(qk)[:, :4].contiguous())
-    with pytest.raises(ValueError):
-        conv2d_int8(q[:, :1, :1], qk, 1, 1)   # 1 row: torch._int_mm needs more than 16
+    with pytest.raises(ValueError):   # K = 9 x 4 not a multiple of 8
+        conv2d_int8(q[..., :4].contiguous(), qk[:, :, :4].contiguous(), 1, 1)
+    proto = _normal((1, 8, 6, 12), 24).to(cuda)
+    coeff = torch.ones(1, 3, 8, device=cuda)
+    with pytest.raises(ValueError):   # neither NCHW nor the NHWC view
+        assemble_mask_cuda(proto.transpose(2, 3), coeff)

@@ -3,8 +3,10 @@
 The port's plain ``assemble_mask_batch`` (and its ``box_to_mask`` crop)
 is held to the XLA ``ops/masks.assemble_mask_batch`` and to the Pallas
 kernel in interpret mode, within 1e-5 (f32 matmul accumulation order),
-with the crop and without.  The crop edges are inclusive and must agree
-to the bit. The CUDA kernel itself is compared on the card by
+with the crop and without, also fed the NHWC view of the prototypes
+that the int8 chain makes (kernel B reads it in place), and through
+``decode_yolact``.  The crop edges are inclusive and must agree to the
+bit. The CUDA kernel itself is compared on the card by
 test_torch_kernels_cuda.py.
 """
 
@@ -18,10 +20,16 @@ from jax.experimental import pallas as pl
 
 from tauv_vision_tpu.ops.boxes import box_to_mask as box_to_mask_jax
 from tauv_vision_tpu.ops.masks import assemble_mask_batch as assemble_xla
+from tauv_vision_tpu.models.yolact import YolactPrediction as JaxYolactPrediction
 from tauv_vision_tpu.ops.pallas.mask_assembly import assemble_mask_pallas
+from tauv_vision_tpu.serving.yolact_decode import decode_yolact as jax_decode_yolact
 from tauv_vision_tpu_torch import kernels
+from tauv_vision_tpu_torch.configs import yolact_config
+from tauv_vision_tpu_torch.models.yolact import YolactPrediction
 from tauv_vision_tpu_torch.ops.boxes import box_to_mask
 from tauv_vision_tpu_torch.ops.masks import assemble_mask_batch, assemble_mask_cuda
+from tauv_vision_tpu_torch.serving.yolact_decode import decode_yolact
+from torch_parity import jax_yolact_config
 
 
 @pytest.fixture
@@ -92,3 +100,49 @@ def test_torch_assemble_mask_wrapper_takes_plain_on_cpu():
     with pytest.raises(ValueError):
         assemble_mask_cuda(proto, coeff[:, :, :3], box)
 
+
+
+@pytest.mark.parametrize("crop", [True, False])
+def test_torch_assemble_mask_wrapper_nhwc_view_matches_jax(interpret_pallas, crop):
+    """The wrapper fed the NHWC view (as the int8 chain's decode feeds it)
+    equals the XLA function and the Pallas kernel on the NCHW array."""
+    proto, coeff, box = _inputs(b=2, p=8, k=5, h=18, w=30, seed=4)
+    box = box if crop else None
+    view = torch.from_numpy(np.ascontiguousarray(proto.transpose(0, 2, 3, 1))).permute(0, 3, 1, 2)
+    assert not view.is_contiguous() and view.permute(0, 2, 3, 1).is_contiguous()
+    before = dict(kernels.LAUNCHES)
+    got = assemble_mask_cuda(view, torch.from_numpy(coeff),
+                             None if box is None else torch.from_numpy(box)).numpy()
+    assert kernels.LAUNCHES == before
+    jax_box = None if box is None else jnp.asarray(box)
+    for want in (assemble_xla(jnp.asarray(proto), jnp.asarray(coeff), jax_box),
+                 assemble_mask_pallas(jnp.asarray(proto), jnp.asarray(coeff), jax_box, crop)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_torch_decode_yolact_nhwc_prototypes_matches_jax():
+    """``decode_yolact`` on a prediction whose prototypes are a contiguous
+    NHWC array (the int8 chain's), which it hands to mask assembly as a
+    view: the JAX decode's detections, masks within 1e-5."""
+    cfg = yolact_config(72, 104, feature_depth=32)
+    rng = np.random.default_rng(5)
+    b, n, p, c = 2, 60, cfg.n_prototype_masks, cfg.n_classes + 1
+    arrays = dict(
+        classification=rng.normal(size=(b, n, c)).astype(np.float32) * 2,
+        box_encoding=rng.normal(size=(b, n, 4)).astype(np.float32),
+        mask_coeff=np.tanh(rng.normal(size=(b, n, p))).astype(np.float32),
+        anchor=np.concatenate([rng.uniform(0.2, 0.8, (n, 2)), rng.uniform(0.05, 0.4, (n, 2))],
+                              -1).astype(np.float32),
+        mask_prototype=rng.normal(size=(b, 36, 52, p)).astype(np.float32),
+    )
+    got = decode_yolact(YolactPrediction(**{k: torch.from_numpy(v) for k, v in arrays.items()}),
+                        cfg, 8, 0.5, 0.2)
+    want = jax_decode_yolact(JaxYolactPrediction(**{k: jnp.asarray(v) for k, v in arrays.items()}),
+                             jax_yolact_config(cfg), 8, 0.5, 0.2)
+    assert got.valid.any()
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.label.numpy(), np.asarray(want.label))
+    for name in ("score", "box"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.mask.numpy(), np.asarray(want.mask), rtol=0, atol=1e-5)

@@ -7,7 +7,9 @@ both stacks run it on the same weights and uint8 frames (80x96, resized
 to 72x104): the full-width CenterNet, and ``test_torch_slice.py``'s narrow
 YOLACT (feature depth 32) as the int8 chain on shared scales (per-channel
 ``calibrate`` of the port's f32 forward with ``NORTH_STAR``'s float paths
-stripped, plus the two protonet upsample scales).
+stripped: 30 convs, and no scale for the two protonet upsamples, which
+``calibrate`` never records, so both chains run them as bf16 transposed
+convs: ``int8_transpose=None``, ``bench.py``'s no-flag graph).
 
 The JAX pipeline is ``make_combined_pipeline(..., dtype=jnp.float32,
 jit=False)``: f32 is the input the f32 stem was certified on (the port
@@ -50,7 +52,7 @@ from tauv_vision_tpu_torch.serving.pipeline import DecodeKnobs, make_combined_pi
 from tauv_vision_tpu_torch.serving.quantize import calibrate, strip_scales
 from tauv_vision_tpu_torch.serving.quantize_chain import ChainCtx, yolact_chain_forward
 from tauv_vision_tpu_torch.weights import centerpoint_state_dict_from_flax
-from torch_parity import random_variables, upsample_scales, yolact_pair
+from torch_parity import random_variables, yolact_pair
 
 H, W = 72, 104
 ALL_SLOTS = DecodeKnobs(score_threshold=0.0, confidence_threshold=0.0)
@@ -72,10 +74,9 @@ def pair():
     frames = np.random.default_rng(0).integers(0, 256, (2, 80, 96, 3), np.uint8)
     img = preprocess(torch.from_numpy(frames), (H, W), yl_cfg.img_mean, yl_cfg.img_stddev)
     recipe = NORTH_STAR.yolact
+    assert not recipe.int8_transposes   # bench.py leaves int8_transpose None
     scales = strip_scales(calibrate(yl_port, [img], per_channel=recipe.per_channel),
                           recipe.float_paths)
-    if recipe.int8_transposes:
-        scales.update(upsample_scales(yl_port, [img]))
     return (cn_jax, cn_vars, cn_port, cn_cfg), (jax_yl_cfg, yl_vars, yl_port, yl_cfg), \
         frames, scales
 
@@ -87,15 +88,14 @@ def _jax_pipeline(pair, dtype, cn_forward=None, jit=False):
         cn_forward or (lambda img: cn_jax.apply(cn_vars, img, train=False)), cn_cfg,
         jax_chain.yolact_chain_forward(
             jax_yl_cfg, yl_vars, scales, dtype=JAX_DTYPE[recipe.dtype],
-            join_dtype=JAX_DTYPE[recipe.join_dtype],
-            int8_transpose="xla" if recipe.int8_transposes else None),
+            join_dtype=JAX_DTYPE[recipe.join_dtype], int8_transpose=None),
         jax_yl_cfg, ALL_SLOTS.n_detections, ALL_SLOTS.score_threshold, ALL_SLOTS.top_k,
         ALL_SLOTS.iou_threshold, ALL_SLOTS.confidence_threshold, dtype=dtype, jit=jit)
 
 
 def test_torch_north_star_pair_matches_jax(pair, record_property):
     (_, _, cn_port, cn_cfg), (_, _, yl_port, yl_cfg), frames, scales = pair
-    assert len(scales) == 32 and "protonet/upsample_2" in scales
+    assert len(scales) == 30 and "protonet/upsample_2" not in scales
     want_cn, want_yl = _jax_pipeline(pair, jnp.float32)(jnp.asarray(frames))
     # The yardstick: JAX's compiled graph against its own op-by-op one.
     jit_cn, _ = _jax_pipeline(pair, jnp.float32, jit=True)(jnp.asarray(frames))

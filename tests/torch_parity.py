@@ -25,10 +25,15 @@ SMALL_YOLACT = dict(
 )
 
 
+def jax_yolact_config(cfg: YolactModelConfig) -> JaxYolactModelConfig:
+    """The JAX package's copy of a port YOLACT config."""
+    return JaxYolactModelConfig(**dataclasses.asdict(cfg))
+
+
 def yolact_pair(cfg: YolactModelConfig, seed: int):
     """(JAX config, JAX model, numpy variables, port Yolact on the CPU
     holding the same weights, eval mode)."""
-    jax_cfg = JaxYolactModelConfig(**dataclasses.asdict(cfg))
+    jax_cfg = jax_yolact_config(cfg)
     jax_model = JaxYolact(jax_cfg)
     variables = random_variables(jax_model, (1, cfg.in_h, cfg.in_w, 3), seed)
     port = Yolact(cfg, device="cpu").eval()
