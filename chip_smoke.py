@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Four served paths, each a CenterNet beside a YOLACT through
+Five served paths, each a CenterNet beside a YOLACT through
 ``make_combined_pipeline``:
 
 - ``plain_ida``: the CenterpointDLA34 with plain-conv IDA (the IDA that
@@ -20,7 +20,11 @@ Four served paths, each a CenterNet beside a YOLACT through
   (``configs.NORTH_STAR``): the plain-IDA CenterNet in bf16 with bf16
   BatchNorm outputs and an f32 stem (kernel C in bf16), on the same
   weights, beside the int8-chain YOLACT with its protonet upsamples in
-  bf16 (cuDNN transposed convs, no kernel D), normalised in f32.
+  bf16 (cuDNN transposed convs, no kernel D), normalised in f32;
+- ``dcn_north_star``: ``bench.py --deform --north-star``
+  (``configs.DCN_NORTH_STAR``): the same pair with DCNv2 in the
+  CenterNet's 16 IDA blocks, on ``dcn_ida``'s weights, its offset and
+  mask convs and kernel E in bf16 (E's bf16 entry point).
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -36,7 +40,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and a map two column tiles wide; kernel B with the crop and without,
    on NCHW and NHWC-view prototypes, P = 8 and 32, and a ragged width;
    kernel C in f32 and in bf16 at the 8 upsamples of a forward;
-   kernel E at each distinct shape of the 16 DCN calls of one forward;
+   kernel E, f32 on ``dcn_ida``'s and bf16 on ``dcn_north_star``'s
+   calls, at each distinct shape of the 16 DCN calls of one forward, with
+   the net's offsets, offsets planted in +-40 cells, no mask, and the
+   first 7 images (a pixel count no tile divides);
    kernel D bit-equal at both protonet upsamples (int8 and bf16 out,
    leaky/relu/none, and one odd width); the chain's integer convolution
    core (im2col + ``torch._int_mm``) bit-equal to the float64 cuDNN
@@ -52,7 +59,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and on ``north_star`` ``make_yolact_chain_pipeline``, YOLACT alone on
    its defaults, the served recipe, launches what the pair's YOLACT does
    and decodes as it); then one batch-1 request (one camera frame, as a
-   vehicle's node serves it) on ``north_star`` and ``int8_chain``,
+   vehicle's node serves it) on ``north_star``, ``dcn_north_star`` and
+   ``int8_chain``,
    through every kernel of the path and decoded as the plain path does;
    the chain's decode against the f32 YOLACT's is printed, not gated
    (random weights), as is the bf16 CenterNet's against the f32 one;
@@ -61,8 +69,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    on the device alone, its calls queued behind a spin of the card so
    that the host's launch cost is out (``device_ms``; null for the
    probes, whose own timing is in the kernel); an empty kernel queued the
-   same way, the device's cost of a launch; kernel C per call in GB/s and
-   kernel D per call in TOP/s on the device beside their bounds; probe
+   same way, the device's cost of a launch; kernel C per call in GB/s,
+   kernel D per call in TOP/s and kernel E per shape in TFLOP/s (f32 and
+   bf16) on the device beside their bounds; probe
    P2's rates, the integer core against cuDNN's bf16 convolution per
    calibrated shape, probe P1's rows beside their bounds and the
    early-trunk convs in cuDNN they are weighed against, each path's
@@ -91,6 +100,7 @@ import torch.nn.functional as F
 
 from tauv_vision_tpu_torch import kernels
 from tauv_vision_tpu_torch.configs import (
+    DCN_NORTH_STAR,
     INT8_CHAIN_YOLACT,
     NORTH_STAR,
     centernet_config,
@@ -102,6 +112,7 @@ from tauv_vision_tpu_torch.ops.conv_transpose import (
     depthwise_upsample,
     depthwise_upsample_cuda,
 )
+from tauv_vision_tpu_torch.ops import deform_conv
 from tauv_vision_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_cuda
 from tauv_vision_tpu_torch.ops.image import normalize_image, preprocess, resize_frames
 from tauv_vision_tpu_torch.ops.int8_conv import conv2d_int8_f64
@@ -159,17 +170,22 @@ NS_SIZE_ULPS = 2
 P1_ITERS = (1, 6, 17)  # iterations of probe P1's copy checks (17: j wraps)
 P1_DOT_ITERS = (1, 6)  # of its dots: 2 sums into bank 0, each |.| < ~30
 P1_DOT_ATOL = 1e-4    # f32 sums of exact bf16 products in another order
-DCN_TOL = 1e-4        # rtol and atol: 9 C (up to 4,608) f32 products an
-                      # output, summed in another order than the plain
-                      # version's per-tap GEMMs, weight x mask folded first
+DCN_TOL = 1e-4        # f32 rtol and atol: 9 C (up to 4,608) 3xTF32
+                      # products an output, summed in another order than
+                      # the plain version's per-tap GEMMs
+# bf16: the samples round as the plain version's do, so outputs differ by
+# the f32 sums of the same exact bf16 products taken in another order,
+# then rounded once: one bf16 ulp of the larger output plus 9 C 2^-24
+# max|plain| (the accumulation-order term).
 PLANTED_OFFSET = 40.0  # cells: past the map edge, as torch-trained offsets go
 N_DCN = 16            # DeformConv2d calls of one DCN-IDA forward
 N_DCN_SHAPES = 7      # distinct (x shape, O) among them
 UPSAMPLES = ("protonet/upsample_1", "protonet/upsample_2")
 D_NEXT = {"protonet/upsample_1": "protonet/mid_0", "protonet/upsample_2": "protonet/post_0"}
 
-# H100 SXM data sheet, dense, at the 700 W power limit.
-PEAK = {"bytes": 3.35e12, "f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# H100 SXM data sheet, dense, at the 700 W power limit; "tf32" is the
+# tensor cores' TF32 rate, which kernel E's 3xTF32 f32 products run at.
+PEAK = {"bytes": 3.35e12, "f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 
 KERNELS = {
     "peak_decode": ("tauv_vision_tpu_torch/csrc/peak_decode.cu",
@@ -195,7 +211,8 @@ ROWS = {
     "mask_assembly": ("mask_assembly", None),
     "depthwise_upsample": ("depthwise_upsample", "tauv_depthwise_upsample_f32"),
     "depthwise_upsample_bf16": ("depthwise_upsample", "tauv_depthwise_upsample_bf16"),
-    "deform_conv": ("deform_conv", None),
+    "deform_conv": ("deform_conv", "tauv_deform_conv_f32"),
+    "deform_conv_bf16": ("deform_conv", "tauv_deform_conv_bf16"),
     "transpose_conv": ("transpose_conv", None),
     "int8_dot_probe": ("int8_dot_probe", None),
     "op_probe/dot": ("op_probe", "tauv_op_probe_dot"),
@@ -212,9 +229,14 @@ P1_ROWS = {
     "op_probe/decimate": (269, "decimate/strided [32,640]->[32,320]"),
     "op_probe/transpose": (309, "transpose [32,320]->[320,32]+bf16"),
 }
-PATHS = ("plain_ida", "dcn_ida", "int8_chain", "north_star")
+PATHS = ("plain_ida", "dcn_ida", "int8_chain", "north_star", "dcn_north_star")
 # The paths beside an int8-chain YOLACT, and its recipe on each.
-CHAIN_RECIPES = {"int8_chain": INT8_CHAIN_YOLACT, "north_star": NORTH_STAR.yolact}
+CHAIN_RECIPES = {"int8_chain": INT8_CHAIN_YOLACT, "north_star": NORTH_STAR.yolact,
+                 "dcn_north_star": DCN_NORTH_STAR.yolact}
+BF16_PATHS = ("north_star", "dcn_north_star")   # the bf16 CenterNet's
+DCN_PATHS = ("dcn_ida", "dcn_north_star")
+# The bf16 CenterNets: {path: (recipe, the f32 path whose weights it serves)}.
+BF16_NETS = {"north_star": (NORTH_STAR, "plain_ida"), "dcn_north_star": (DCN_NORTH_STAR, "dcn_ida")}
 
 
 def fail(msg: str) -> None:
@@ -311,15 +333,16 @@ def build_models(device):
         cn_plain.load_state_dict(cn.state_dict())
         nets[path] = (cn, cn_plain)
     nets["int8_chain"] = nets["plain_ida"]
-    # The served recipe's bf16 CenterNet, on plain_ida's weights.
-    state = nets["plain_ida"][0].state_dict()
-    bf16 = []
-    for up_impl in ("kernel", "plain"):
-        cn = CenterpointDLA34(oc, up_impl=up_impl, device=device,
-                              **NORTH_STAR.centernet_kwargs()).eval()
-        cn.load_state_dict(state)
-        bf16.append(cn)
-    nets["north_star"] = tuple(bf16)
+    # The served recipes' bf16 CenterNets, on the f32 paths' weights.
+    for path, (recipe, f32_path) in BF16_NETS.items():
+        state = nets[f32_path][0].state_dict()
+        bf16 = []
+        for impl in ("kernel", "plain"):
+            cn = CenterpointDLA34(oc, up_impl=impl, dcn_impl=impl, device=device,
+                                  **recipe.centernet_kwargs()).eval()
+            cn.load_state_dict(state)
+            bf16.append(cn)
+        nets[path] = tuple(bf16)
     yl = Yolact(yl_cfg, generator=torch.Generator().manual_seed(1), device=device).eval()
 
     # bench.py's int8 YOLACT rung (CHAIN_RECIPES): per-channel scales on
@@ -330,6 +353,10 @@ def build_models(device):
     img = preprocess(cal, (yl_cfg.in_h, yl_cfg.in_w), yl_cfg.img_mean, yl_cfg.img_stddev)
     chains = {}
     for path, recipe in CHAIN_RECIPES.items():
+        same = [p for p in chains if CHAIN_RECIPES[p] == recipe]
+        if same:   # dcn_north_star's YOLACT is north_star's
+            chains[path] = chains[same[0]]
+            continue
         scales = strip_scales(calibrate(yl, [img], per_channel=recipe.per_channel),
                               recipe.float_paths)
         served = {**scales, **(upsample_scales(yl, img) if recipe.int8_transposes else {})}
@@ -364,9 +391,9 @@ def upsample_calls(cn_plain, img):
 
 def dcn_calls(cn_plain, img):
     """(x, offset, mask, weight, bias) of every DeformConv2d call of one
-    forward: the net's own offsets and masks."""
+    forward: the net's own offsets and masks, the weight in x's dtype."""
     return hooked_calls(cn_plain, cn_plain.deform_convs(), img, lambda m, args: (
-        *(a.clone() for a in args), m.weight.detach(), m.bias.detach()))
+        *(a.clone() for a in args), m.weight.detach().to(args[0].dtype), m.bias.detach()))
 
 
 def dcn_shapes(calls):
@@ -382,6 +409,27 @@ def dcn_shapes(calls):
 def dcn_flop(calls) -> int:
     """Multiply-adds x 2 of the DCN products (the sampling not counted)."""
     return sum(2 * 9 * x.numel() * w.shape[0] for x, _, _, w, _ in calls)
+
+
+def dcn_bound(calls):
+    """(least ms, by) of kernel E's calls: each input read once, each
+    output written once, and the products at the card's fastest rate for
+    their type.  bf16 runs on the tensor cores; f32 takes the lesser of
+    its two routes, the CUDA cores' f32 rate and the tensor cores' TF32
+    rate at 3 products each (the 3xTF32 split kernel E uses)."""
+    x = calls[0][0]
+    n_bytes = sum(nbytes(*c) + x.element_size() * c[0].shape[0] * c[3].shape[0]
+                  * c[0].shape[2] * c[0].shape[3] for c in calls)
+    flop = dcn_flop(calls)
+    if x.dtype == torch.bfloat16:
+        return bound(n_bytes, flop, PEAK["bf16"])
+    return min(bound(n_bytes, flop, PEAK["f32"]), bound(n_bytes, 3 * flop, PEAK["tf32"]))
+
+
+def dcn_plan(shape, o, dtype):
+    """Kernel E's launch plan for a call on this card."""
+    return deform_conv.plan(*shape, o, dtype,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def chain_calls(ctx, forward, img):
@@ -559,33 +607,49 @@ def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img):
     print(f"check depthwise_upsample_bf16: {differ / total:.3g} of all elements differ")
     errs["depthwise_upsample_bf16"] = err
 
-    calls = dcn_calls(nets["dcn_ida"][1], img)
-    require(len(calls) == N_DCN, f"{len(calls)} DCN calls a forward, expected {N_DCN}")
-    by_shape = dcn_shapes(calls)
-    require(len(by_shape) == N_DCN_SHAPES,
-            f"{len(by_shape)} distinct DCN shapes, expected {N_DCN_SHAPES}")
-    err = 0.0
-    for (shape, o), ((x, offset, mask, w, bias), _) in by_shape.items():
-        planted = (torch.rand(offset.shape, generator=gen, device="cuda") * 2 - 1
-                   ) * PLANTED_OFFSET
-        reach = offset.abs().max().item()
-        for case, args in (("net", (x, offset, mask, w, bias)),
-                           ("planted_40", (x, planted, mask, w, bias)),
-                           ("no_mask", (x, offset, None, w, bias))):
-            got, want = deform_conv2d_cuda(*args), deform_conv2d(*args)
-            torch.cuda.synchronize()
-            require(got.shape == want.shape == (shape[0], o) + shape[2:],
-                    f"deform_conv shape {tuple(got.shape)}")
-            require(bool(torch.isfinite(got).all()), f"deform_conv {shape} {case}: non-finite")
-            e = (got - want).abs().max().item()
-            bad = (got - want).abs() > DCN_TOL + DCN_TOL * want.abs()
-            require(not bad.any().item(), f"deform_conv {shape}->{o} {case}: err {e}")
-            err = max(err, e)
-            print(f"check deform_conv {shape} -> O={o} {case}"
-                  f"{f' (net |offset| <= {reach:.2f})' if case == 'net' else ''}: "
-                  f"max_abs_err {e:.3g}, max |plain| {want.abs().max().item():.3g} "
-                  f"(rtol=atol={DCN_TOL})")
-    errs["deform_conv"] = err
+    # Kernel E: f32 at dcn_ida's calls, bf16 at dcn_north_star's (the
+    # net's own bf16 offsets and masks), each distinct shape once.
+    for row, path in (("deform_conv", "dcn_ida"), ("deform_conv_bf16", "dcn_north_star")):
+        calls = dcn_calls(nets[path][1], img)
+        require(len(calls) == N_DCN, f"{path}: {len(calls)} DCN calls a forward, expected {N_DCN}")
+        by_shape = dcn_shapes(calls)
+        require(len(by_shape) == N_DCN_SHAPES,
+                f"{path}: {len(by_shape)} distinct DCN shapes, expected {N_DCN_SHAPES}")
+        err, differ, total = 0.0, 0, 0
+        for (shape, o), ((x, offset, mask, w, bias), _) in by_shape.items():
+            planted = (torch.rand(offset.shape, generator=gen, device="cuda") * 2 - 1
+                       ) * PLANTED_OFFSET
+            reach = offset.abs().max().item()
+            for case, args in (("net", (x, offset, mask, w, bias)),
+                               ("planted_40", (x, planted, mask, w, bias)),
+                               ("no_mask", (x, offset, None, w, bias)),
+                               ("batch_7", (x[:7], offset[:7], mask[:7], w, bias))):
+                got, want = deform_conv2d_cuda(*args), deform_conv2d(*args)
+                torch.cuda.synchronize()
+                require(got.dtype == want.dtype == x.dtype and
+                        got.shape == want.shape == (args[0].shape[0], o) + shape[2:],
+                        f"deform_conv {got.dtype} shape {tuple(got.shape)}")
+                require(bool(torch.isfinite(got).all()), f"deform_conv {shape} {case}: non-finite")
+                diff = (got.float() - want.float()).abs()
+                if x.dtype == torch.float32:
+                    bar = DCN_TOL + DCN_TOL * want.abs()
+                    tol = f"rtol=atol={DCN_TOL}"
+                else:
+                    big = torch.maximum(got.float().abs(), want.float().abs())
+                    bar = bf16_ulp(big) + 9 * shape[1] * 2.0 ** -24 * want.float().abs().max()
+                    tol = "one bf16 ulp + 9 C 2^-24 max|plain|"
+                e = diff.max().item()
+                require(not (diff > bar).any().item(), f"{row} {shape}->{o} {case}: err {e}")
+                n = int((got != want).sum().item())
+                differ, total = differ + n, total + got.numel()
+                err = max(err, e)
+                print(f"check {row} {shape} -> O={o} {case}"
+                      f"{f' (net |offset| <= {reach:.2f})' if case == 'net' else ''}: "
+                      f"max_abs_err {e:.3g}, {n} of {got.numel()} outputs differ, "
+                      f"max |plain| {want.abs().max().item():.3g} ({tol}), "
+                      f"plan {dcn_plan(args[0].shape, o, x.dtype)}")
+        print(f"check {row}: {differ / total:.3g} of all outputs differ from the plain version")
+        errs[row] = err
 
     # Kernel D: bit-equal, at both served shapes with the net's codes,
     # weights and epilogue, each activation, int8 and bf16 out.
@@ -690,7 +754,7 @@ def pipelines(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains):
         yl_fwd, yl_plain = chains[path]["kernel"][1], chains[path]["plain"][1]
     else:
         yl_fwd = yl_plain = yl
-    dtype = NORTH_STAR.input_dtype if path == "north_star" else torch.float32
+    dtype = BF16_NETS[path][0].input_dtype if path in BF16_NETS else torch.float32
     return (make_combined_pipeline(cn, cn_cfg, yl_fwd, yl_cfg, device, dtype=dtype),
             make_combined_pipeline(cn_plain, cn_cfg, yl_plain, yl_cfg, device, impl="plain",
                                    dtype=dtype))
@@ -711,7 +775,7 @@ def check_answers(path, answers, plain_answers, batch):
     on the plain versions; returns (CenterNet slots swapped at ties, worst
     CenterNet p95s, worst mask difference)."""
     b, k, kk = batch, SERVING_DECODE.n_detections, SERVING_DECODE.top_k
-    bf16 = path == "north_star"
+    bf16 = path in BF16_PATHS
     for cn_d, yl_d in answers:
         require(all(t.shape == (b, k) for t in
                     (cn_d.valid, cn_d.score, cn_d.label, cn_d.y, cn_d.x, cn_d.h, cn_d.w)),
@@ -760,10 +824,10 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
     device = torch.device("cuda")
     requests = [request_frames(0, (N_REQUESTS, CHECK_BATCH, FRAME_H, FRAME_W, 3))[i].pin_memory()
                 for i in range(N_REQUESTS)]
-    bf16 = path == "north_star"
+    bf16 = path in BF16_PATHS
     pipe, plain = pipelines(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains)
     n_up, n_dcn = len(cn.depthwise_upsamples()), len(cn.deform_convs())
-    require(n_dcn == (N_DCN if path == "dcn_ida" else 0),
+    require(n_dcn == (N_DCN if path in DCN_PATHS else 0),
             f"{path}: {n_dcn} DeformConv2d modules")
 
     torch.cuda.synchronize()
@@ -772,14 +836,18 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
     torch.cuda.synchronize()
     launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
     up_entry = "tauv_depthwise_upsample_" + ("bf16" if bf16 else "f32")
+    dcn_entry = "tauv_deform_conv_" + ("bf16" if bf16 else "f32")
     print(f"serve {path}: {N_REQUESTS} requests x {CHECK_BATCH} frames, launches "
-          f"{launches} (kernel C: {entries[up_entry]} by {up_entry}), {n_up} "
+          f"{launches} (kernel C: {entries[up_entry]} by {up_entry}, kernel E: "
+          f"{entries[dcn_entry]} by {dcn_entry}), {n_up} "
           f"DepthwiseUpsample and {n_dcn} DeformConv2d modules")
     per_request = expected_launches(path, cn)
     want = {name: N_REQUESTS * n for name, n in per_request.items()}
     require(launches == want, f"{path}: launch counts {launches}, expected {want}")
     require(entries[up_entry] == N_REQUESTS * n_up,
             f"{path}: kernel C launched {entries[up_entry]} times by {up_entry}")
+    require(entries[dcn_entry] == N_REQUESTS * n_dcn,
+            f"{path}: kernel E launched {entries[dcn_entry]} times by {dcn_entry}")
     mask_hw = (yl_cfg.in_h // 2, yl_cfg.in_w // 2)
     require(all(a[1].mask.shape[2:] == mask_hw for a in answers), "YOLACT mask size")
 
@@ -850,6 +918,7 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
               f"{sum(s['matched_fraction'] * s['total'] for s in stats) / max(total, 1):.4f} "
               f"of {total} matched at score threshold 0, worst request p95 {worst}")
 
+    if path == "north_star":
         # The chain's own entry point, YOLACT alone, on its defaults (the
         # served recipe on the kernels): the same launches a request and
         # the same decode as the pair's YOLACT.
@@ -870,7 +939,7 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
         print(f"serve {path}: make_yolact_chain_pipeline (YOLACT alone, served defaults) "
               f"launches {dict(kernels.LAUNCHES)}, decode 100% matched with the pair's YOLACT")
 
-    if path in CHAIN_RECIPES:
+    if path in ("int8_chain", "north_star"):
         f32 = make_yolact_pipeline(yl, yl_cfg, device)
         stats = [detection_deltas(f32(r), a[1], score_threshold=0.0)
                  for r, a in zip(requests, answers)]
@@ -958,12 +1027,20 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         sum(8 * o.numel() for o in outs16), PEAK["f32"])
     library["depthwise_upsample_bf16"] = time_ms(lambda: [F.conv_transpose2d(
         x, w, stride=f, padding=f // 2, groups=x.shape[1]) for x, w, f in calls16], 50)
-    dcns = dcn_calls(nets["dcn_ida"][1], img)
-    timed("deform_conv", lambda: [deform_conv2d_cuda(*c) for c in dcns],
-          lambda: [deform_conv2d(*c) for c in dcns], 20)
-    bounds["deform_conv"] = bound(
-        sum(nbytes(*c) + 4 * c[0].shape[0] * c[3].shape[0] * c[0].shape[2] * c[0].shape[3]
-            for c in dcns), dcn_flop(dcns), PEAK["f32"])
+    # Kernel E: f32 at dcn_ida's 16 calls, bf16 at dcn_north_star's, the
+    # weights laid out once as DeformConv2d keeps them; the NCHW input's
+    # NHWC copy is in the time.
+    dcn_rows = {}
+    for row, path in (("deform_conv", "dcn_ida"), ("deform_conv_bf16", "dcn_north_star")):
+        dcns = dcn_calls(nets[path][1], img)
+        require([(tuple(x.shape), o, n) for (x_shape, o), ((x, *_), n)
+                 in dcn_shapes(dcns).items()] == kernel_times.E_CALLS,
+                f"{path}: kernel E's calls are not kernel_times.E_CALLS")
+        taps = [deform_conv.kernel_weights(c[3]) for c in dcns]
+        timed(row, lambda: [deform_conv2d_cuda(*c, taps=t) for c, t in zip(dcns, taps)],
+              lambda: [deform_conv2d(*c) for c in dcns], 20)
+        bounds[row] = dcn_bound(dcns)
+        dcn_rows[row] = (dcns, taps)
     d_calls = record["transpose"]
     timed("transpose_conv",
           lambda: [transpose_conv2x_int8_cuda(*c[:5], act=c[5], out_dtype=c[6], taps=c[7])
@@ -989,7 +1066,8 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         "mask_assembly": f"proto [{b},{p},{yl_cfg.in_h // 2},{yl_cfg.in_w // 2}] (NHWC view) "
                          f"K={kk} crop",
         "depthwise_upsample": f"all {len(calls)} calls of one batch-{b} forward",
-        "deform_conv": f"all {len(dcns)} calls of one batch-{b} DCN-IDA forward",
+        "deform_conv": f"all {N_DCN} calls of one batch-{b} DCN-IDA forward, f32",
+        "deform_conv_bf16": f"all {N_DCN} calls of one batch-{b} dcn_north_star forward, bf16",
         "transpose_conv": f"both calls of one batch-{b} int8-chain forward, int8 in and out",
         "int8_dot_probe": f"[{m},{kd}]@[{kd},{n}] x{probe['reps']} int8->int32",
         "depthwise_upsample_bf16": f"all {len(calls16)} calls of one batch-{b} north_star "
@@ -1005,15 +1083,19 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
               f"{library.get(name, float('nan')):.4f} ms ({card})")
         times[name] = {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                        "bound_by": by, "library_ms": library.get(name), "timed": what[name]}
-    gflop = dcn_flop(dcns) / 1e9
-    print(f"time deform_conv: {gflop:.2f} GFLOP in the products for {b} frames, "
-          f"kernel {gflop / times['deform_conv']['ms']:.2f} TFLOP/s, plain "
-          f"{gflop / times['deform_conv']['plain_ms']:.2f} TFLOP/s (f32 peak 67 off the tensor cores)")
-    for shape, (c, n_calls) in dcn_shapes(dcns).items():
-        k_ms, p_ms = abba(lambda: deform_conv2d_cuda(*c), lambda: deform_conv2d(*c), 20)
-        print(f"time deform_conv {shape[0]} -> O={shape[1]} (x{n_calls} a forward): kernel "
-              f"{k_ms:.4f} ms = {dcn_flop([c]) / 1e9 / k_ms:.2f} TFLOP/s, plain "
-              f"{p_ms:.4f} ms ({card})")
+    for row, (dcns, _) in dcn_rows.items():
+        gflop = dcn_flop(dcns) / 1e9
+        print(f"time {row}: {gflop:.2f} GFLOP in the products for {b} frames, kernel "
+              f"{gflop / times[row]['device_ms']:.2f} TFLOP/s on the device, plain "
+              f"{gflop / times[row]['plain_ms']:.2f} TFLOP/s ({card})")
+        for (shape, o), (c, n_calls) in dcn_shapes(dcns).items():
+            t = deform_conv.kernel_weights(c[3])
+            k_ms, p_ms = abba(lambda: deform_conv2d_cuda(*c, taps=t),
+                              lambda: deform_conv2d(*c), 10, timer=queued_ms)
+            print(f"time {row} {shape} -> O={o} (x{n_calls} a forward, plan "
+                  f"{dcn_plan(shape, o, c[0].dtype)}): kernel {k_ms:.4f} ms on the "
+                  f"device = {dcn_flop([c]) / 1e9 / k_ms:.2f} TFLOP/s, plain {p_ms:.4f} ms "
+                  f"({card})")
     # The device's cost of one launch, queued as the rows' device times are.
     empty_us = queued_ms(lambda: torch.cuda._sleep(0), 200) * 1e3
     print(f"time an empty kernel (torch.cuda._sleep(0), one thread) on the device: "
@@ -1102,6 +1184,8 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
             "CenterNet forward, bf16 (north_star)": lambda: nets["north_star"][0](cn_in),
             "CenterNet DCN-IDA forward": lambda: dcn(cn_in),
             "CenterNet DCN-IDA forward, plain DCN": lambda: dcn_plain(cn_in),
+            "CenterNet DCN-IDA forward, bf16 (dcn_north_star)":
+                lambda: nets["dcn_north_star"][0](cn_in),
             "YOLACT forward, f32": lambda: yl(yl_in),
             "YOLACT int8 chain forward, kernel D (int8_chain)":
                 lambda: chains["int8_chain"]["kernel"][1](yl_in),
@@ -1236,10 +1320,14 @@ def main(argv=None) -> int:
                         .cuda(), (yl_cfg.in_h, yl_cfg.in_w), yl_cfg.img_mean, yl_cfg.img_stddev)
     errs, record, int8_shapes = check_phase(nets, cn_cfg, yl_cfg, chains, yl_img)
     served = {path: serve_phase(path, *nets[path], cn_cfg, yl, yl_cfg, chains,
-                                nets["plain_ida"][0]) for path in PATHS}
+                                nets[BF16_NETS.get(path, (None, "plain_ida"))[1]][0])
+              for path in PATHS}
     for name in ("peak_decode", "mask_assembly", "depthwise_upsample", "deform_conv",
                  "transpose_conv"):
         require(any(served[path][0][name] for path in PATHS), f"{name} never launched")
+    for path, entry in (("dcn_ida", "tauv_deform_conv_f32"),
+                        ("dcn_north_star", "tauv_deform_conv_bf16")):
+        require(served[path][1][entry] == N_REQUESTS * N_DCN, f"{path}: {entry} launches")
     times = time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card,
                        args.profile)
 

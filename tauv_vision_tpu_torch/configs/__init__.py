@@ -6,9 +6,10 @@ package's dataclasses) and the served configurations built from them.
 classes, heatmap/size/offset heads) and the production YOLACT (ResNet-18,
 256-wide FPN, 8 prototypes, 7 classes), both at their native 640x360
 input.  ``NORTH_STAR`` is the precision recipe it serves them in, and
-the only place that recipe is written; ``INT8_CHAIN_YOLACT`` is its
-YOLACT with the int8 protonet upsamples of ``bench.py --int8-transpose
-pallas`` (kernel D).
+the only place that recipe is written; ``DCN_NORTH_STAR`` is the same
+recipe with DCNv2 in the CenterNet's 16 IDA blocks (``bench.py --deform
+--north-star``); ``INT8_CHAIN_YOLACT`` is its YOLACT with the int8
+protonet upsamples of ``bench.py --int8-transpose pallas`` (kernel D).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig
 __all__ = [
     "AngleConfig",
     "CenternetModelConfig",
+    "DCN_NORTH_STAR",
     "INT8_CHAIN_YOLACT",
     "ObjectConfig",
     "NORTH_STAR",
@@ -137,3 +139,12 @@ NORTH_STAR = ServedRecipe(
 # kernel D, their scales added to the calibrated ones: the rung of
 # ``bench.py --int8-transpose pallas``, served by the ``int8_chain`` path.
 INT8_CHAIN_YOLACT = replace(NORTH_STAR.yolact, int8_transposes=True)
+
+# ``bench.py --deform --north-star`` (``bench.py:1350,1358,1578-1596``):
+# the north-star pair with the CenterNet's IDA blocks deformable, served
+# in bf16 through kernel E's bf16 entry point, which rounds as the JAX
+# graph's Pallas kernel (``dcn_max_offset=3``, variant "full") does.  That
+# kernel drops the samples past its 3-cell window; kernel E keeps them
+# (torchvision's unbounded offsets), so the two graphs are equal only
+# where every |offset| <= 3 cells.
+DCN_NORTH_STAR = replace(NORTH_STAR, centernet=replace(NORTH_STAR.centernet, deform=True))

@@ -12,7 +12,7 @@ the CPU test suite imports every module of the port on machines with no
 where it launches its kernel and nowhere else, so a run can show that the
 served path went through the kernels (``chip_smoke.py``);
 ``ENTRY_LAUNCHES`` counts the same launches by C entry point, which tells
-a kernel's variants apart (kernel C's f32 and bf16).
+a kernel's variants apart (kernels C's and E's f32 and bf16).
 """
 
 from __future__ import annotations
@@ -47,7 +47,8 @@ _SIGNATURES = {
     "tauv_mask_assembly_f32": [_P] * 4 + [_I] * 7 + [_P],
     "tauv_depthwise_upsample_f32": [_P] * 3 + [_I] * 6 + [_P],
     "tauv_depthwise_upsample_bf16": [_P] * 3 + [_I] * 6 + [_P],
-    "tauv_deform_conv_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "tauv_deform_conv_f32": [_P] * 8 + [_I] * 9 + [_P],
+    "tauv_deform_conv_bf16": [_P] * 8 + [_I] * 9 + [_P],
     "tauv_transpose_conv2x_int8": [_P] * 6 + [_I] * 8 + [_P],
     "tauv_int8_dot_probe": [_P] * 3 + [_I] * 7 + [_P],
     "tauv_op_probe_dot": [_P] * 3 + [_I] * 5 + [_P],

@@ -242,9 +242,15 @@ class DeformConvBlock(nn.Module):
     and sigmoid, ``conv`` the ``DeformConv2d``); ``offset_bound`` squashes
     the offsets through ``bound * tanh(offset / bound)`` as the JAX
     block's option does, and ``dcn_impl`` picks kernel E or the plain
-    version (see ``DeformConv2d``).  The plain conv computes in ``dtype``
-    and the BatchNorm rounds to ``bn_out``; the DCN is f32 only (kernel
-    E), so ``deform=True`` with another ``dtype`` raises."""
+    version (see ``DeformConv2d``).  Every conv computes in ``dtype`` and
+    the BatchNorm rounds to ``bn_out``.  In bf16 the block computes as the
+    JAX block (``tauv_vision_tpu/models/centerpoint_dla.py:447-537``): the
+    offset and mask convs in bf16 with the bias added after the conv's
+    rounding (JAX merges them into one 27-channel conv, bit-identical,
+    its comment says), the tanh bound and the sigmoid in bf16 (the
+    sigmoid op by op, as XLA expands it), and the
+    DCN with x, weight and mask in bf16 and the offsets in f32 (kernel
+    E's bf16 entry point)."""
 
     def __init__(self, in_channels: int, out_channels: int, deform: bool = False,
                  offset_bound: Optional[float] = None, dcn_impl: str = "kernel",
@@ -252,12 +258,10 @@ class DeformConvBlock(nn.Module):
         super().__init__()
         self.deform = deform
         self.offset_bound = offset_bound
+        self.dtype = dtype
         if deform:
-            if dtype != torch.float32:
-                raise NotImplementedError(
-                    f"deform=True computes in f32 only (kernel E), got dtype={dtype}")
-            self.offset = nn.Conv2d(in_channels, 18, 3, padding=1)
-            self.mask = nn.Conv2d(in_channels, 9, 3, padding=1)
+            self.offset = Conv2d(in_channels, 18, 3, padding=1, compute_dtype=dtype)
+            self.mask = Conv2d(in_channels, 9, 3, padding=1, compute_dtype=dtype)
             self.conv = DeformConv2d(in_channels, out_channels, dcn_impl)
         else:
             self.conv = Conv2d(in_channels, out_channels, 3, padding=1, compute_dtype=dtype)
@@ -269,8 +273,14 @@ class DeformConvBlock(nn.Module):
         offset = self.offset(x)
         if self.offset_bound is not None:
             offset = self.offset_bound * torch.tanh(offset / self.offset_bound)
-        mask = torch.sigmoid(self.mask(x))
-        return self.actf(self.conv(x, offset, mask))
+        mask = self.mask(x)
+        if mask.dtype == torch.float32:
+            mask = torch.sigmoid(mask)
+        else:
+            # XLA expands a bf16 logistic into bf16 exp, add and divide,
+            # each rounded; torch.sigmoid would round once.
+            mask = torch.reciprocal(1.0 + torch.exp(-mask))
+        return self.actf(self.conv(x.to(self.dtype), offset.float(), mask))
 
 
 class DepthwiseUpsample(nn.Module):
@@ -409,7 +419,8 @@ class CenterpointDLA34(nn.Module):
     is moved to ``device`` (the card unless the caller passes "cpu"); call
     ``.eval()`` to serve.  ``deform``, ``offset_bound``, ``dtype``,
     ``bn_out`` and ``f32_stages`` mean what they mean in the JAX package,
-    whose ``dcn_impl="gather"`` the port's DCN matches; ``up_impl`` and
+    whose ``dcn_impl="gather"`` the port's f32 DCN matches (in bf16 it
+    rounds as the Pallas kernel does); ``up_impl`` and
     ``dcn_impl`` pick kernels C and E or their plain versions.  The served
     recipe is ``configs.NORTH_STAR``."""
 

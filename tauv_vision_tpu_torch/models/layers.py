@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tauv_vision_tpu_torch.ops.deform_conv import DeformConv2d
+from tauv_vision_tpu_torch.params import cast_parameter, derived
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; the JAX package's 0.9
@@ -35,17 +36,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _affine(self):
         """(mean, mul, bias) as [C, 1, 1] f32, kept until a statistic or
         parameter changes."""
-        ts = (self.running_mean, self.running_var, self.weight, self.bias)
-        key = tuple((t.data_ptr(), t._version) for t in ts)
-        cached = self.__dict__.get("_affine_cache")
-        if cached is None or cached[0] != key:
-            with torch.no_grad():
-                var_eps = self.running_var.float() + self.eps
-                mul = (1.0 / torch.sqrt(var_eps.double())).float() * self.weight.float()
-                cached = (key, tuple(t.reshape(-1, 1, 1) for t in (
-                    self.running_mean.float(), mul, self.bias.detach().float())))
-            self.__dict__["_affine_cache"] = cached
-        return cached[1]
+        def build():
+            var_eps = self.running_var.float() + self.eps
+            mul = (1.0 / torch.sqrt(var_eps.double())).float() * self.weight.float()
+            return tuple(t.reshape(-1, 1, 1) for t in (
+                self.running_mean.float(), mul, self.bias.detach().float()))
+        return derived(self, "affine", (self.running_mean, self.running_var, self.weight,
+                                        self.bias), build)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
@@ -60,23 +57,6 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 def batch_norm(channels: int, out_dtype=torch.float32) -> BatchNorm2d:
     return BatchNorm2d(channels, out_dtype)
-
-
-def cast_parameter(module: nn.Module, name: str, dtype) -> torch.Tensor:
-    """``module``'s parameter ``name`` in ``dtype``, cast once and kept
-    until the parameter changes: a move to another device or an in-place
-    update (``load_state_dict``) gives it a new address or version, and
-    the next call casts again.  The parameter itself stays f32, as flax's
-    do."""
-    p = getattr(module, name)
-    if p.dtype == dtype:
-        return p
-    key = (p.data_ptr(), p._version, dtype)
-    cache = module.__dict__.setdefault("_cast_cache", {})
-    if cache.get(name, (None,))[0] != key:
-        with torch.no_grad():
-            cache[name] = (key, p.detach().to(dtype))
-    return cache[name][1]
 
 
 class Conv2d(nn.Conv2d):

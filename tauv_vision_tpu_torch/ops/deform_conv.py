@@ -4,16 +4,29 @@ torchvision's semantics: the sample of output pixel (y, x) at tap
 k = 3 ky + kx sits at (y - 1 + ky + dy_k, x - 1 + kx + dx_k), offsets are
 unbounded, each bilinear corner outside the map reads zero, and the mask
 multiplies the sample.  NCHW throughout: x [B, C, H, W], offset
-[B, 18, H, W] with channel 2k = dy and 2k + 1 = dx of tap k (taps
-row-major), mask [B, 9, H, W] (already sigmoided) or None, weight
-[O, C, 3, 3], bias [O] or None.
+[B, 18, H, W] f32 with channel 2k = dy and 2k + 1 = dx of tap k (taps
+row-major), mask [B, 9, H, W] (already sigmoided, x's dtype) or None,
+weight [O, C, 3, 3] in x's dtype, bias [O] f32 or None.
 
-``deform_conv2d`` is the plain version, the gather formulation of
-``tauv_vision_tpu/ops/deform_conv.deform_conv2d``; ``deform_conv2d_cuda``
-wraps ``csrc/deform_conv.cu`` (kernel E), the counterpart of
-``tauv_vision_tpu/ops/pallas/deform_conv.deform_conv2d_pallas`` without
-its offset window.  ``DeformConv2d`` holds the weight and bias under the
-reference's ``DeformConv2d`` names.
+Two dtypes, as the JAX package serves them:
+
+- f32: the gather formulation of
+  ``tauv_vision_tpu/ops/deform_conv.deform_conv2d``;
+- bf16: the rounding of the Pallas kernel's body
+  (``tauv_vision_tpu/ops/pallas/deform_conv._dcn_kernel``, variant
+  "full"): the hat weights max(0, 1 - |d - s|) of the offset d at the
+  shifts s = floor(d) and floor(d) + 1, each row's column pair summed
+  first, then the rows, then x mask, every step an f32 op; the sample
+  rounded to bf16, its product with the bf16 weight summed in f32, + the
+  f32 bias, rounded to bf16.  The Pallas kernel drops samples past its
+  window (|offset| > its ``max_offset``); this one does not.
+
+``deform_conv2d`` is the plain version; ``deform_conv2d_cuda`` wraps
+``csrc/deform_conv.cu`` (kernel E, entry points ``tauv_deform_conv_f32``
+and ``tauv_deform_conv_bf16``), the counterpart of
+``tauv_vision_tpu/ops/pallas/deform_conv.deform_conv2d_pallas``.
+``DeformConv2d`` holds the weight and bias under the reference's
+``DeformConv2d`` names.
 """
 
 from __future__ import annotations
@@ -25,9 +38,16 @@ import torch
 from torch import nn
 
 from tauv_vision_tpu_torch import kernels
+from tauv_vision_tpu_torch.params import cast_parameter
 
 N_TAPS = 9
 IMPLS = ("kernel", "plain")
+DTYPES = {torch.float32: "tauv_deform_conv_f32", torch.bfloat16: "tauv_deform_conv_bf16"}
+MAX_O = 256
+# The kernel's block tiles: BN output channels (O padded up to the next),
+# and BM pixels, 128 where O fits in 64 and the call has pixels enough.
+TILE_N = (64, 128, 256)
+MIN_SPLIT_STEPS = 8     # K steps a split keeps at least
 
 
 def _check_shapes(x, offset, mask, weight, bias) -> None:
@@ -49,33 +69,71 @@ def _check_shapes(x, offset, mask, weight, bias) -> None:
         raise ValueError(f"bias must be [{weight.shape[0]}], got {tuple(bias.shape)}")
 
 
+def _gather(flat: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor,
+            h: int, w: int) -> torch.Tensor:
+    """flat [B, C, H*W] at integer-valued float positions yi, xi [B, P],
+    zero outside the map, as f32 [B, C, P]."""
+    valid = (yi >= 0) & (yi <= h - 1) & (xi >= 0) & (xi <= w - 1)
+    idx = yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
+    vals = torch.gather(flat, 2, idx[:, None, :].expand(-1, flat.shape[1], -1))
+    return vals.float() * valid[:, None, :]
+
+
 def _bilinear_sample(flat: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
                      h: int, w: int) -> torch.Tensor:
-    """Sample flat [B, C, H*W] at float positions y, x [B, P] with zero
+    """Sample flat [B, C, H*W] f32 at float positions y, x [B, P] with zero
     outside the map; returns [B, C, P]."""
     y0, x0 = torch.floor(y), torch.floor(x)
     wy1, wx1 = y - y0, x - x0
     wy0, wx0 = 1.0 - wy1, 1.0 - wx1
-    channels = flat.shape[1]
+    return (_gather(flat, y0, x0, h, w) * (wy0 * wx0)[:, None]
+            + _gather(flat, y0, x0 + 1, h, w) * (wy0 * wx1)[:, None]
+            + _gather(flat, y0 + 1, x0, h, w) * (wy1 * wx0)[:, None]
+            + _gather(flat, y0 + 1, x0 + 1, h, w) * (wy1 * wx1)[:, None])
 
-    def corner(yi, xi):
-        valid = (yi >= 0) & (yi <= h - 1) & (xi >= 0) & (xi <= w - 1)
-        idx = yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
-        vals = torch.gather(flat, 2, idx[:, None, :].expand(-1, channels, -1))
-        return vals * valid[:, None, :].to(flat.dtype)
 
-    return (corner(y0, x0) * (wy0 * wx0)[:, None]
-            + corner(y0, x0 + 1) * (wy0 * wx1)[:, None]
-            + corner(y0 + 1, x0) * (wy1 * wx0)[:, None]
-            + corner(y0 + 1, x0 + 1) * (wy1 * wx1)[:, None])
+def _hats(d: torch.Tensor):
+    """floor(d) and the Pallas body's hat weights of d at floor(d) and
+    floor(d) + 1."""
+    f = torch.floor(d)
+    return f, 1.0 - (d - f), torch.clamp_min(1.0 - torch.abs(d - (f + 1.0)), 0.0)
+
+
+def _deform_conv2d_bf16(x, offset, mask, weight, bias):
+    b, c, h, w = x.shape
+    flat = x.reshape(b, c, h * w)
+    grid_y = torch.arange(h, dtype=torch.float32, device=x.device) - 1
+    grid_x = torch.arange(w, dtype=torch.float32, device=x.device) - 1
+    base_y = grid_y[:, None].expand(h, w).reshape(1, h * w)
+    base_x = grid_x[None, :].expand(h, w).reshape(1, h * w)
+    weight = weight.float()
+    out = torch.zeros((b, weight.shape[0], h * w), dtype=torch.float32, device=x.device)
+    for tap in range(N_TAPS):
+        ky, kx = divmod(tap, 3)
+        fy, wy0, wy1 = _hats(offset[:, 2 * tap].reshape(b, h * w).float())
+        fx, wx0, wx1 = _hats(offset[:, 2 * tap + 1].reshape(b, h * w).float())
+        ry, rx = base_y + ky + fy, base_x + kx + fx
+        rows = [_gather(flat, ry + i, rx, h, w) * wx0[:, None]
+                + _gather(flat, ry + i, rx + 1, h, w) * wx1[:, None] for i in (0, 1)]
+        sampled = rows[0] * wy0[:, None] + rows[1] * wy1[:, None]
+        if mask is not None:
+            sampled = sampled * mask[:, tap].reshape(b, 1, h * w).float()
+        sampled = sampled.to(torch.bfloat16).float()
+        out = out + torch.einsum("bcp,oc->bop", sampled, weight[:, :, ky, kx])
+    if bias is not None:
+        out = out + bias.float()[:, None]
+    return out.to(torch.bfloat16).reshape(b, -1, h, w)
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
                   mask: Optional[torch.Tensor], weight: torch.Tensor,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version: per tap, 4 corner gathers, x mask, then a GEMM with
-    ``weight[:, :, ky, kx]`` accumulated in f32.  Returns [B, O, H, W]."""
+    ``weight[:, :, ky, kx]`` accumulated in f32.  Returns [B, O, H, W] in
+    x's dtype; bf16 rounds as the module docstring says."""
     _check_shapes(x, offset, mask, weight, bias)
+    if x.dtype == torch.bfloat16:
+        return _deform_conv2d_bf16(x, offset, mask, weight, bias)
     b, c, h, w = x.shape
     flat = x.reshape(b, c, h * w)
     grid_y = torch.arange(h, dtype=x.dtype, device=x.device) - 1
@@ -97,43 +155,108 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
     return out.reshape(b, -1, h, w)
 
 
+def kernel_weights(weight: torch.Tensor, dtype=None) -> torch.Tensor:
+    """[O, C, 3, 3] -> kernel E's weight layout [9, BN, C] in ``dtype``
+    (the weight's when None): tap t = 3 ky + kx of output channel o, its C
+    input channels contiguous (the K-contiguous B operand of the kernel's
+    mma.sync, read by ldmatrix), and zero rows from O up to the block's
+    BN output channels."""
+    o = weight.shape[0]
+    bn = next((n for n in TILE_N if o <= n), o)
+    taps = weight.detach().to(dtype or weight.dtype).permute(2, 3, 0, 1).reshape(
+        N_TAPS, o, -1)
+    return torch.nn.functional.pad(taps, (0, 0, 0, bn - o)).contiguous()
+
+
+def plan(b: int, c: int, h: int, w: int, o: int, dtype, sms: int) -> tuple:
+    """Kernel E's launch for a call on a card of ``sms`` streaming
+    multiprocessors: (BM, BN, splits).  BN covers O; BM is 128 pixels for
+    O <= 64 where that still gives a block an SM, else 64.  A grid of few
+    pixel tiles splits K in two, four or eight while the grid stays within
+    the blocks the SMs hold at once (one an SM at BN = 256, two at
+    BN <= 128), keeping at least MIN_SPLIT_STEPS K steps a split.
+    ``scripts/kernel_times.py --e-plans`` times the others."""
+    bn = next(n for n in TILE_N if o <= n)
+    m = b * h * w
+    bm = 128 if bn == 64 and -(-m // 128) >= sms else 64
+    tiles = -(-m // bm)
+    resident = sms * (1 if bn == 256 else 2)
+    steps = N_TAPS * c * (2 if dtype == torch.bfloat16 else 4) // 64
+    split = 1
+    while tiles * split * 2 <= resident and steps >= 2 * split * MIN_SPLIT_STEPS:
+        split *= 2
+    return bm, bn, split
+
+
 def deform_conv2d_cuda(x: torch.Tensor, offset: torch.Tensor,
                        mask: Optional[torch.Tensor], weight: torch.Tensor,
-                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       bias: Optional[torch.Tensor] = None, *,
+                       taps: Optional[torch.Tensor] = None,
+                       launch_plan: Optional[tuple] = None) -> torch.Tensor:
     """Kernel E: ``deform_conv2d`` as one CUDA op.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises.  Every tensor f32, contiguous, on the current
-    device."""
+    kernel or raises.  x, weight and mask f32 or bf16 alike (the entry
+    point follows x), offset and bias f32, all contiguous on the current
+    device; C a multiple of 32, O a multiple of 8 and at most 256.  The
+    kernel reads x as NHWC: the entry point first transposes the NCHW x
+    into a scratch copy.  ``taps`` is ``kernel_weights(weight)`` from a
+    caller that keeps it across calls (built here when None);
+    ``launch_plan`` is a (BM, BN, splits) other than ``plan``'s, for
+    timing."""
     _check_shapes(x, offset, mask, weight, bias)
     if x.device.type == "cpu":
         return deform_conv2d(x, offset, mask, weight, bias)
-    kernels.check_cuda_tensor(x, "x", torch.float32, 4)
-    kernels.check_cuda_tensor(offset, "offset", torch.float32, 4)
-    kernels.check_cuda_tensor(weight, "weight", torch.float32, 4)
-    if mask is not None:
-        kernels.check_cuda_tensor(mask, "mask", torch.float32, 4)
-    if bias is not None:
-        kernels.check_cuda_tensor(bias, "bias", torch.float32, 1)
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
     b, c, h, w = x.shape
     o = weight.shape[0]
-    out = torch.empty((b, o, h, w), dtype=torch.float32, device=x.device)
+    if c % 32:
+        raise ValueError(f"C must be a multiple of 32, got {c}")
+    if o % 8 or o > MAX_O:
+        raise ValueError(f"O must be a multiple of 8 and at most {MAX_O}, got {o}")
+    kernels.check_cuda_tensor(x, "x", x.dtype, 4)
+    kernels.check_cuda_tensor(offset, "offset", torch.float32, 4)
+    kernels.check_cuda_tensor(weight, "weight", x.dtype, 4)
+    if mask is not None:
+        kernels.check_cuda_tensor(mask, "mask", x.dtype, 4)
+    if bias is not None:
+        kernels.check_cuda_tensor(bias, "bias", torch.float32, 1)
+    bm, bn, split = launch_plan or plan(
+        b, c, h, w, o, x.dtype, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if taps is None:
+        taps = kernel_weights(weight)
+    kernels.check_cuda_tensor(taps, "taps", x.dtype, 3)
+    if tuple(taps.shape) != (N_TAPS, bn, c):
+        raise ValueError(f"taps must be [9, {bn}, {c}], got {tuple(taps.shape)}")
+    if taps.data_ptr() % 16:
+        raise ValueError("taps must be 16-byte aligned")
+    if max(x.numel(), offset.numel(), split * b * o * h * w) >= 2**31:
+        raise ValueError("tensors of 2^31 elements or more are not supported")
+    out = torch.empty((b, o, h, w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    nhwc = torch.empty((b, h, w, c), dtype=x.dtype, device=x.device)
+    partial = (torch.empty((split, b, o, h, w), dtype=torch.float32, device=x.device)
+               if split > 1 else None)
     kernels.launch(
-        "tauv_deform_conv_f32", "deform_conv",
-        x.data_ptr(), offset.data_ptr(),
-        None if mask is None else mask.data_ptr(), weight.data_ptr(),
+        DTYPES[x.dtype], "deform_conv",
+        x.data_ptr(), nhwc.data_ptr(), offset.data_ptr(),
+        None if mask is None else mask.data_ptr(), taps.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        b, c, h, w, o,
+        None if partial is None else partial.data_ptr(),
+        b, c, h, w, o, bm, bn, split,
     )
     return out
 
 
 class DeformConv2d(nn.Module):
     """The deformable 3x3 conv of a DCN block: ``weight`` [O, C, 3, 3] and
-    ``bias`` [O], the reference's ``DeformConv2d`` parameters.
+    ``bias`` [O], the reference's ``DeformConv2d`` parameters, kept f32.
 
+    It computes in its input's dtype (f32 or bf16), with the weight cast
+    to it; the cast, and kernel E's layout of it, are made once and kept
+    until the weight changes (``params.cast_parameter``).
     ``impl="kernel"`` runs ``deform_conv2d_cuda`` (kernel E on a CUDA
     tensor, the plain version on a CPU one); ``impl="plain"`` always runs
     the plain version, for comparisons on the card."""
@@ -148,5 +271,8 @@ class DeformConv2d(nn.Module):
         nn.init.normal_(self.weight, 0.0, 1.0 / math.sqrt(9 * in_channels))
 
     def forward(self, x, offset, mask):
-        fn = deform_conv2d_cuda if self.impl == "kernel" else deform_conv2d
-        return fn(x, offset, mask, self.weight, self.bias)
+        weight = cast_parameter(self, "weight", x.dtype)
+        if self.impl == "plain" or x.device.type == "cpu":
+            return deform_conv2d(x, offset, mask, weight, self.bias)
+        taps = cast_parameter(self, "weight", x.dtype, layout=kernel_weights)
+        return deform_conv2d_cuda(x, offset, mask, weight, self.bias, taps=taps)

@@ -1,4 +1,4 @@
-"""Time kernels A-D on the device at the shapes a batch-8 request gives them.
+"""Time kernels A-E on the device at the shapes a batch-8 request gives them.
 
     python3 -m tauv_vision_tpu_torch.scripts.kernel_times
 
@@ -12,7 +12,12 @@ C: the 8 depthwise upsamples of one CenterNet forward (f = 2 at
 [8,256,12,20], twice [8,128,23,40] and four times [8,64,45,80]; f = 4 at
 [8,64,23,40]), in f32 and in bf16, with the bilinear weights.  Kernel D:
 the int8 chain's two protonet upsamples ([8,45,80,256] and
-[8,90,160,256] to 256 channels, int8 in and out, leaky).  ``chip_smoke.py``
+[8,90,160,256] to 256 channels, int8 in and out, leaky).  Kernel E: the
+16 DCN calls of one DCN-IDA forward, 7 distinct shapes with their counts
+(``E_CALLS``), in f32 and in bf16 (x, weight and mask; offsets f32,
+uniform in +-3 cells, the mask uniform in (0, 1)), the NCHW input's NHWC
+copy in the time; where an older checkout's kernel takes f32 only, its
+bf16 row is null.  ``chip_smoke.py``
 fails if these shapes are not the ones its nets give the kernels.  Inputs
 are seeded random tensors of those shapes.  Each call is timed on the
 device: the calls are queued behind a spin of the card, so the host's
@@ -21,20 +26,30 @@ back (``time_ms``), the host's cost in.
 
 Prints one JSON line: the card, its power limit, and each call's ms with
 its bytes (B, C) or operations (D).  The script uses only the wrappers'
-public signatures and ``kernel_taps``, so a copy of it run from the root
+public signatures, ``kernel_taps`` and (where the checkout has it)
+``kernel_weights``, so a copy of it run from the root
 of an older checkout times that checkout's kernels: run old, new, new,
 old on one card, one after another, to compare two versions.
+
+    python3 -m tauv_vision_tpu_torch.scripts.kernel_times --e-plans
+
+instead times kernel E alone at each of ``E_CALLS`` under every launch
+plan it takes (pixel tile, output tile, K splits; ``ops/deform_conv.plan``
+picks one), in both dtypes, one JSON line: the measurements behind
+``plan``'s choices.
 """
 
 from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 
+from tauv_vision_tpu_torch.ops import deform_conv
 from tauv_vision_tpu_torch.ops.conv_transpose import bilinear_kernel, depthwise_upsample_cuda
 from tauv_vision_tpu_torch.ops.masks import assemble_mask_cuda
 from tauv_vision_tpu_torch.ops.peaks import peak_decode_cuda
@@ -46,7 +61,11 @@ C_CALLS = [((8, 256, 12, 20), 2), ((8, 128, 23, 40), 2), ((8, 128, 23, 40), 2),
            ((8, 64, 45, 80), 2), ((8, 64, 45, 80), 2), ((8, 64, 45, 80), 2),
            ((8, 64, 45, 80), 2), ((8, 64, 23, 40), 4)]
 D_CALLS = [(8, 45, 80, 256, 256), (8, 90, 160, 256, 256)]
-ITERS = 50        # calls a timing of A, B and C; D, ~20x longer a call, a fifth
+# (x [B, C, H, W], O, calls a forward), in the order a forward first meets them.
+E_CALLS = [((8, 512, 12, 20), 256, 1), ((8, 256, 23, 40), 256, 1),
+           ((8, 256, 23, 40), 128, 2), ((8, 128, 45, 80), 128, 2),
+           ((8, 128, 45, 80), 64, 4), ((8, 64, 90, 160), 64, 5), ((8, 256, 23, 40), 64, 1)]
+ITERS = 50        # calls a timing of A, B and C; D and E, ~20x longer a call, a fifth
 SPIN_HZ = 2.0e9   # cycles a second of torch.cuda._sleep's spin, >= the SM clock
 
 
@@ -83,12 +102,57 @@ def _row(fn, **info) -> dict:
     return {**info, "ms": queued_ms(fn, ITERS), "back_to_back_ms": time_ms(fn, ITERS)}
 
 
+def _e_inputs(rng, shape, o, dev):
+    b, c, h, w = shape
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    offset = torch.from_numpy(rng.uniform(-3, 3, (b, 18, h, w)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.uniform(0, 1, (b, 9, h, w)).astype(np.float32)).to(dev)
+    weight = torch.from_numpy((rng.standard_normal((o, c, 3, 3)) / np.sqrt(9 * c))
+                              .astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(o).astype(np.float32) * 0.1).to(dev)
+    return x, offset, mask, weight, bias
+
+
+def e_plans(dev) -> dict:
+    """{dtype: [{shape, o, plan, ms}]} of kernel E at each E_CALLS shape
+    under each plan (BM in 64, 128 where BN = 64; splits 1-8), with the
+    plan ``deform_conv.plan`` picks marked, and the time of torch's NHWC
+    copy of the call's input beside the chosen plan."""
+    rng = np.random.default_rng(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {"f32": [], "bf16": []}
+    for shape, o, _ in E_CALLS:
+        x, offset, mask, weight, bias = _e_inputs(rng, shape, o, dev)
+        bn = next(n for n in deform_conv.TILE_N if o <= n)
+        for key, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            xd, md, wd = x.to(dtype), mask.to(dtype), weight.to(dtype)
+            taps = deform_conv.kernel_weights(wd)
+            pick = deform_conv.plan(*shape, o, dtype, sms)
+            for bm in ((64, 128) if bn == 64 else (64,)):
+                for split in (1, 2, 4, 8):
+                    fn = lambda p=(bm, bn, split): deform_conv.deform_conv2d_cuda(  # noqa: E731
+                        xd, offset, md, wd, bias, taps=taps, launch_plan=p)
+                    fn()
+                    rows[key].append({"x": list(shape), "o": o, "plan": [bm, bn, split],
+                                      "chosen": (bm, bn, split) == pick,
+                                      "ms": queued_ms(fn, ITERS // 5)})
+            rows[key].append({
+                "x": list(shape), "o": o, "plan": list(pick),
+                "nhwc_copy_ms": queued_ms(lambda: xd.permute(0, 2, 3, 1).contiguous(),
+                                          ITERS // 5)})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
     dev = torch.device("cuda")
+    if "--e-plans" in sys.argv[1:]:
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "e_plans": e_plans(dev)}))
+        return 0
     rng = np.random.default_rng(0)
-    rows = {"a": [], "a_no_peaks": [], "b_nchw": [], "b_nhwc": [], "c_f32": [], "c_bf16": [], "d": []}
+    rows = {"a": [], "a_no_peaks": [], "b_nchw": [], "b_nhwc": [], "c_f32": [], "c_bf16": [],
+            "d": [], "e_f32": [], "e_bf16": []}
     shape, k = A_CALL
     logits = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3).to(dev)
     rows["a"].append(_row(lambda: peak_decode_cuda(logits, k), x=list(shape), k=k,
@@ -139,9 +203,27 @@ def main() -> int:
         fn()
         rows["d"].append({"x": [b, h, w_, c], "o": o, "ops": 2 * 9 * q.numel() * o,
                           "ms": queued_ms(fn, ITERS // 5)})
+    for shape, o, n in E_CALLS:
+        x, offset, mask, weight, bias = _e_inputs(rng, shape, o, dev)
+        for key, dtype in (("e_f32", torch.float32), ("e_bf16", torch.bfloat16)):
+            xd, md, wd = x.to(dtype), mask.to(dtype), weight.to(dtype)
+            kwargs = ({"taps": deform_conv.kernel_weights(wd)}
+                      if hasattr(deform_conv, "kernel_weights") else {})
+            fn = lambda: deform_conv.deform_conv2d_cuda(xd, offset, md, wd, bias, **kwargs)  # noqa: E731
+            try:
+                fn()
+            except TypeError:   # an older kernel E: f32 only
+                rows[key].append({"x": list(shape), "o": o, "calls": n, "ms": None})
+                continue
+            ms = queued_ms(fn, ITERS // 5)
+            rows[key].append({"x": list(shape), "o": o, "calls": n,
+                              "flop": 2 * 9 * x.numel() * o, "ms": ms,
+                              "tflops": 2 * 9 * x.numel() * o / ms / 1e9})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    totals = {f"{key}_ms": sum(r["ms"] for r in calls) for key, calls in rows.items()}
+    totals = {f"{key}_ms": (None if any(r["ms"] is None for r in calls)
+                            else sum(r["ms"] * r.get("calls", 1) for r in calls))
+              for key, calls in rows.items()}
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
                       **totals, **rows}))
     return 0

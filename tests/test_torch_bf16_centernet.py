@@ -329,10 +329,15 @@ def test_torch_centernet_rejects_unknown_stage_and_bf16_dcn():
     oc, _ = centernet_config(H, W)
     with pytest.raises(ValueError, match="f32_stages"):
         CenterpointDLA34(oc, device="cpu", dtype=torch.bfloat16, f32_stages=("stem", "level6"))
-    with pytest.raises(NotImplementedError):
-        CenterpointDLA34(oc, device="cpu", dtype=torch.bfloat16, deform=True)
-    with pytest.raises(NotImplementedError):
-        DeformConvBlock(16, 16, deform=True, dtype=torch.bfloat16)
+    # A bf16 DCN is served since kernel E has a bf16 entry point
+    # (tests/test_torch_dcn_north_star.py): its offset and mask convs
+    # compute in bf16; the DCN takes bf16 x, weight and mask.
+    net = CenterpointDLA34(oc, device="cpu", dtype=torch.bfloat16, deform=True)
+    assert len(net.deform_convs()) == 16
+    block = DeformConvBlock(32, 16, deform=True, dtype=torch.bfloat16).eval()
+    assert block.offset.compute_dtype == block.mask.compute_dtype == torch.bfloat16
+    with torch.inference_mode():
+        assert block(torch.randn(1, 32, 5, 6)).dtype == torch.float32   # bn_out f32
     # "early" and every trunk and DLASeg stage are accepted, as in JAX.
     CenterpointDLA34(oc, device="cpu", dtype=torch.bfloat16,
                      f32_stages=("early", "level5", "dla_up", "ida_up", "heads"))

@@ -11,8 +11,10 @@ Tolerances: peak decode index/label exact and score 1e-6; mask assembly
 atol = 1e-5 (4 f32 taps in another order than cuDNN), in bf16 one bf16
 ulp (the same f32 sum, rounded once); probe P1's dots 1e-4 (f32 sums of
 exact bf16 products in another order), its copies exact; deformable conv
-rtol = atol = 1e-4 (9 C f32 products an output, up to 4,608 at the
-served shapes, summed in another order than the plain per-tap GEMMs).
+in f32 rtol = atol = 1e-4 (9 C f32 products an output, up to 4,608 at the
+served shapes, summed in another order than the plain per-tap GEMMs, on
+3xTF32 products), in bf16 one bf16 ulp plus the f32 accumulation-order
+term (``assert_dcn_close``), at the 7 served shapes and a ragged tile.
 Exact: the int8 transposed conv (integer sums, the same fused
 multiply-add epilogue; at the served shapes and at ragged column and
 channel tiles), the chain's integer conv core against the
@@ -221,13 +223,14 @@ def test_torch_op_probe_copies_on_card(cuda, n_iter):
         assert got.dtype == want.dtype and torch.equal(got, want)
 
 
-def _dcn_inputs(case, b, c, o, h, w):
-    """x, offset, mask, weight, bias on the CPU.  ``block``: the offsets
-    and masks of a seeded DeformConvBlock, as the served net makes them;
-    ``planted_40``: offsets uniform in +-40 cells, far past the map;
-    ``negative_fraction``: positions in (-1, 0) of the tap, where a
-    truncating floor would go wrong; ``no_mask``: the block's offsets and
-    no mask."""
+def _dcn_inputs(case, b, c, o, h, w, dtype=torch.float32):
+    """x, offset, mask, weight, bias on the CPU; x, mask and weight in
+    ``dtype`` (rounded from f32), offset and bias f32.  ``block``: the
+    offsets and masks of a seeded DeformConvBlock, as the served net
+    makes them; ``planted_40``: offsets uniform in +-40 cells, far past
+    the map; ``negative_fraction``: positions in (-1, 0) of the tap,
+    where a truncating floor would go wrong; ``no_mask``: the block's
+    offsets and no mask."""
     x = _normal((b, c, h, w), 8)
     block = DeformConvBlock(c, o, deform=True)
     init_parameters(block, torch.Generator().manual_seed(9))
@@ -240,24 +243,64 @@ def _dcn_inputs(case, b, c, o, h, w):
     elif case == "negative_fraction":
         offset = torch.from_numpy(rng.uniform(-1, 0, offset.shape).astype(np.float32))
     bias = _normal((o,), 11, 0.1)
-    return (x, offset, None if case == "no_mask" else mask,
-            block.conv.weight.detach().clone(), bias)
+    return (x.to(dtype), offset, None if case == "no_mask" else mask.to(dtype),
+            block.conv.weight.detach().clone().to(dtype), bias)
 
 
+def assert_dcn_close(got, want, c):
+    """f32: rtol = atol = 1e-4.  bf16: one bf16 ulp of the larger output,
+    plus the f32 accumulation-order term 9 C 2^-24 max|want| (the same
+    exact bf16 products summed in another order, then rounded once).
+    Returns how many outputs differ."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        return int((got != want).sum())
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    bar = ulp + 9 * c * 2.0 ** -24 * w.abs().max()
+    assert bool(((g - w).abs() <= bar).all()), float(((g - w).abs() - bar).max())
+    return int((got != want).sum())
+
+
+# The 7 distinct DCN calls of the served CenterNet (C, O, H, W) at
+# batch 2, and a ragged pixel tile with the smallest C and O.
+DCN_SHAPES = [(2, 512, 256, 12, 20), (2, 256, 256, 23, 40), (2, 256, 128, 23, 40),
+              (2, 128, 128, 45, 80), (2, 128, 64, 45, 80), (2, 64, 64, 90, 160),
+              (2, 256, 64, 23, 40), (1, 32, 8, 9, 11)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", ["block", "planted_40", "negative_fraction", "no_mask"])
-@pytest.mark.parametrize("b,c,o,h,w", [
-    (2, 128, 64, 45, 80),    # ida_2 proj and ida_up proj_1 of the served net
-    (1, 6, 5, 9, 11),        # ragged pixel, channel and output tiles
-])
-def test_torch_deform_conv_kernel_on_card(cuda, case, b, c, o, h, w):
-    args = _dcn_inputs(case, b, c, o, h, w)
-    want = deform_conv2d(*(None if a is None else a.to(cuda) for a in args))
-    before = kernels.LAUNCHES["deform_conv"]
-    got = deform_conv2d_cuda(*(None if a is None else a.to(cuda) for a in args))
+@pytest.mark.parametrize("b,c,o,h,w", DCN_SHAPES, ids=lambda v: str(v))
+def test_torch_deform_conv_kernel_on_card(cuda, case, b, c, o, h, w, dtype):
+    cpu_args = _dcn_inputs(case, b, c, o, h, w, dtype)
+    args = [None if a is None else a.to(cuda) for a in cpu_args]
+    want = deform_conv2d(*args)
+    entry = "tauv_deform_conv_" + ("f32" if dtype == torch.float32 else "bf16")
+    before = kernels.ENTRY_LAUNCHES[entry]
+    got = deform_conv2d_cuda(*args)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["deform_conv"] == before + 1
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(got.cpu(), deform_conv2d(*args), rtol=1e-4, atol=1e-4)
+    assert kernels.ENTRY_LAUNCHES[entry] == before + 1
+    assert_dcn_close(got, want, c)
+    assert_dcn_close(got.cpu(), deform_conv2d(*cpu_args), c)
+    # Deterministic: the split-K pass adds its partial sums in one order.
+    assert torch.equal(deform_conv2d_cuda(*args), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_torch_deform_conv_kernel_every_plan_on_card(cuda, dtype):
+    """Every launch plan ``kernel_times --e-plans`` times (pixel tile 64
+    or 128, K split 1-8) computes the call within the kernel's bar."""
+    b, c, o, h, w = 2, 256, 64, 23, 40
+    args = [None if a is None else a.to(cuda) for a in _dcn_inputs("block", b, c, o, h, w, dtype)]
+    want = deform_conv2d(*args)
+    for bm in (64, 128):
+        for split in (1, 2, 4, 8):
+            got = deform_conv2d_cuda(*args, launch_plan=(bm, 64, split))
+            torch.cuda.synchronize()
+            assert_dcn_close(got, want, c)
 
 
 def _codes(shape, seed):
@@ -352,9 +395,13 @@ def test_torch_kernel_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         op_probe.slice_copy_cuda(op_probe.copy_input(cuda)[:, :, :640].contiguous(), 1)
     x, offset, mask, weight, bias = (
-        a.to(cuda) for a in _dcn_inputs("block", 1, 4, 3, 6, 7))
+        a.to(cuda) for a in _dcn_inputs("block", 1, 32, 8, 6, 7))
     with pytest.raises(TypeError):
         deform_conv2d_cuda(x.double(), offset, mask, weight.double(), bias)
+    with pytest.raises(TypeError):    # f16: the kernel takes f32 or bf16
+        deform_conv2d_cuda(x.half(), offset, mask.half(), weight.half(), bias)
+    with pytest.raises(TypeError):    # weight in another dtype than x
+        deform_conv2d_cuda(x.bfloat16(), offset, mask.bfloat16(), weight, bias)
     with pytest.raises(ValueError):
         deform_conv2d_cuda(x, offset.transpose(2, 3).contiguous().transpose(2, 3),
                            mask, weight, bias)
@@ -362,6 +409,10 @@ def test_torch_kernel_wrappers_reject_bad_input(cuda):
         deform_conv2d_cuda(x, offset, mask.cpu(), weight, bias)
     with pytest.raises(ValueError):
         deform_conv2d_cuda(x, offset, mask, weight[:, :, :2, :2].contiguous(), bias)
+    with pytest.raises(ValueError):   # C = 48, not a multiple of 32
+        deform_conv2d_cuda(*(a.to(cuda) for a in _dcn_inputs("block", 1, 48, 8, 6, 7)))
+    with pytest.raises(ValueError):   # O = 320, above 256
+        deform_conv2d_cuda(*(a.to(cuda) for a in _dcn_inputs("block", 1, 32, 320, 6, 7)))
     with pytest.raises(ValueError):   # f = 3 does not divide the kernel's 8-output run
         depthwise_upsample_cuda(x, torch.ones(4, 1, 6, 6, device=cuda), 3)
     q, qk = _codes((1, 4, 5, 32), 18).to(cuda), _codes((3, 3, 32, 8), 19).to(cuda)
