@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Five served paths, each a CenterNet beside a YOLACT through
-``make_combined_pipeline``:
+Six served paths: five pair a CenterNet with a YOLACT through
+``make_combined_pipeline``, and the sixth serves the CenterNet node's full
+configuration alone:
 
 - ``plain_ida``: the CenterpointDLA34 with plain-conv IDA (the IDA that
   ``bench.py`` serves with no flags), all f32, beside the f32 YOLACT;
@@ -24,7 +25,13 @@ Five served paths, each a CenterNet beside a YOLACT through
 - ``dcn_north_star``: ``bench.py --deform --north-star``
   (``configs.DCN_NORTH_STAR``): the same pair with DCNv2 in the
   CenterNet's 16 IDA blocks, on ``dcn_ida``'s weights, its offset and
-  mask convs and kernel E in bf16 (E's bf16 entry point).
+  mask convs and kernel E in bf16 (E's bf16 entry point);
+- ``keypoints``: ``bench.py --keypoints`` (``configs.KEYPOINTS`` on
+  ``configs.keypoints_config``): the CenterpointDLA34 with keypoint
+  heatmap, affinity and depth heads in bf16 (f32 BatchNorm outputs, no
+  f32 stem, kernel C in bf16) through ``make_centernet_keypoint_pipeline``
+  at batch 16: kernel A on the object heatmap (K = 10) and on the
+  keypoint heatmap (K = 50), the greedy matcher and LM PnP on the card.
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -37,7 +44,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    the served shapes (batch 8), tolerances printed beside each result:
    kernel A on random, planted-tie (across tile bands), sparse (fewer
    than K peaks), flat and the net's own heatmaps, K = 1, 10 and 128,
-   and a map two column tiles wide; kernel B with the crop and without,
+   and a map two column tiles wide, and the keypoint net's own object
+   and keypoint heatmaps at batch 16 ([16,1,90,160] K = 10, [16,8,90,160]
+   K = 50); kernel B with the crop and without,
    on NCHW and NHWC-view prototypes, P = 8 and 32, and a ragged width;
    kernel C in f32 and in bf16 at the 8 upsamples of a forward;
    kernel E, f32 on ``dcn_ida``'s and bf16 on ``dcn_north_star``'s
@@ -64,6 +73,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    through every kernel of the path and decoded as the plain path does;
    the chain's decode against the f32 YOLACT's is printed, not gated
    (random weights), as is the bf16 CenterNet's against the f32 one;
+   ``keypoints`` answers 2 requests of 16 frames and one of 1 frame,
+   counted as the others, then is held to its plain path at threshold 0
+   (detections as the bf16 pairs are), and ``decode_keypoints`` on the
+   kernel and on the plain peak decode is held slot for slot on one
+   forward's heads, and ``solve_pnp_batch`` recovers 160 synthetic poses
+   (random weights validate few) within 1e-2;
+   the node servers: ``CenternetServer`` on the keypoint net and
+   ``YolactServer`` on the f32 YOLACT, each on one 640x480 colour frame
+   and a depth plane at 2 m with invalid cells, an identity pose: every
+   published position finite, and the count the drop rule implies;
 5. time: each kernel against its plain version (CUDA events, after
    warm-up, back to back as a path issues them: ``ms``), and each kernel
    on the device alone, its calls queued behind a spin of the card so
@@ -75,7 +94,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    P2's rates, the integer core against cuDNN's bf16 convolution per
    calibrated shape, probe P1's rows beside their bounds and the
    early-trunk convs in cuDNN they are weighed against, each path's
-   frames/s at batch 32, and its stages one by one.
+   frames/s at batch 32, and its stages one by one; kernel A at
+   [16,8,90,160] K = 50, and the ``keypoints`` request's frames/s at
+   batch 16 with its stages (preprocess, forward, decode, keypoint peaks,
+   matcher, PnP).
 
 Prints one JSON line describing the kernels, with each kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -88,6 +110,7 @@ line, ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes a
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -102,8 +125,12 @@ from tauv_vision_tpu_torch import kernels
 from tauv_vision_tpu_torch.configs import (
     DCN_NORTH_STAR,
     INT8_CHAIN_YOLACT,
+    KEYPOINTS,
     NORTH_STAR,
+    ClassConfig,
+    ClassConfigSet,
     centernet_config,
+    keypoints_config,
     yolact_config,
 )
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
@@ -118,6 +145,8 @@ from tauv_vision_tpu_torch.ops.image import normalize_image, preprocess, resize_
 from tauv_vision_tpu_torch.ops.int8_conv import conv2d_int8_f64
 from tauv_vision_tpu_torch.ops.masks import assemble_mask_batch, assemble_mask_cuda
 from tauv_vision_tpu_torch.ops.peaks import peak_decode, peak_decode_cuda
+from tauv_vision_tpu_torch.ops.pnp import solve_pnp_batch
+from tauv_vision_tpu_torch.ops.se3 import so3_exp
 from tauv_vision_tpu_torch.ops.transpose_conv import (
     transpose_conv2x_int8,
     transpose_conv2x_int8_cuda,
@@ -125,12 +154,20 @@ from tauv_vision_tpu_torch.ops.transpose_conv import (
 from tauv_vision_tpu_torch.scripts import int8_dot_probe, kernel_times, op_probe
 from tauv_vision_tpu_torch.scripts.kernel_times import queued_ms, time_ms
 from tauv_vision_tpu_torch.serving import quantize_chain
-from tauv_vision_tpu_torch.serving.centernet_decode import decode
+from tauv_vision_tpu_torch.serving.centernet_decode import (
+    decode,
+    decode_keypoints,
+    keypoint_peaks,
+    keypoint_poses,
+    match_keypoints,
+)
 from tauv_vision_tpu_torch.serving.compare import detection_deltas
+from tauv_vision_tpu_torch.serving.nodes import YOLACT_INPUT_DTYPE, CenternetServer, YolactServer
 from tauv_vision_tpu_torch.serving.pipeline import (
     IMAGENET_MEAN,
     IMAGENET_STDDEV,
     SERVING_DECODE,
+    make_centernet_keypoint_pipeline,
     make_centernet_pipeline,
     make_combined_pipeline,
     make_yolact_pipeline,
@@ -148,6 +185,20 @@ CHECK_BATCH = 8
 N_REQUESTS = 4
 FPS_BATCH = 32
 N_CALIBRATION = 2     # frames, as bench.py calibrates
+KP_BATCH = 16         # bench.py --keypoints' default batch
+KP_REQUESTS = 2
+# Every slot decoded: random weights put nothing above the served
+# thresholds (0.6 for objects, 0.3 for keypoints).
+ALL_SLOTS = dataclasses.replace(SERVING_DECODE, score_threshold=0.0,
+                                keypoint_score_threshold=0.0)
+# decode_keypoints on kernel A and on the plain peak decode, same heads:
+# peaks equal slot for slot, so PnP gets equal inputs and its poses are
+# expected bit-equal; the bar leaves room for a reduction whose order
+# follows the launch configuration.
+POSE_ATOL = 1e-5
+DEPTH_M = 2.0         # the node check's depth plane
+# The node check's camera: f = 520 px, centred on the 640x480 frame.
+FRAME_INTRINSICS = np.asarray([[520.0, 0.0, 320.0], [0.0, 520.0, 240.0], [0.0, 0.0, 1.0]])
 
 PEAK_ATOL = 1e-6      # score; index and label exact
 MASK_ATOL = 1e-5      # sigmoid of an 8-term dot, summed in another order
@@ -208,6 +259,7 @@ KERNELS = {
 # each dtype; P1 a row for each of the JAX probe's sites.
 ROWS = {
     "peak_decode": ("peak_decode", None),
+    "peak_decode_k50": ("peak_decode", None),
     "mask_assembly": ("mask_assembly", None),
     "depthwise_upsample": ("depthwise_upsample", "tauv_depthwise_upsample_f32"),
     "depthwise_upsample_bf16": ("depthwise_upsample", "tauv_depthwise_upsample_bf16"),
@@ -221,6 +273,9 @@ ROWS = {
     "op_probe/decimate": ("op_probe", "tauv_op_probe_decimate"),
     "op_probe/transpose": ("op_probe", "tauv_op_probe_transpose"),
 }
+# Rows that report one variant of their kernel's launches (kernel A at
+# K = 50: the keypoint heatmap's calls).
+ROW_VARIANTS = {"peak_decode_k50": ("peak_decode", "K=50")}
 # P1: the JAX site each row replaces, and the probe row it reports.
 P1_ROWS = {
     "op_probe/dot": (126, "dot[32x144xN640]"),
@@ -230,6 +285,7 @@ P1_ROWS = {
     "op_probe/transpose": (309, "transpose [32,320]->[320,32]+bf16"),
 }
 PATHS = ("plain_ida", "dcn_ida", "int8_chain", "north_star", "dcn_north_star")
+ALL_PATHS = PATHS + ("keypoints",)
 # The paths beside an int8-chain YOLACT, and its recipe on each.
 CHAIN_RECIPES = {"int8_chain": INT8_CHAIN_YOLACT, "north_star": NORTH_STAR.yolact,
                  "dcn_north_star": DCN_NORTH_STAR.yolact}
@@ -370,6 +426,44 @@ def build_models(device):
     return nets, cn_cfg, yl, yl_cfg, chains
 
 
+def build_keypoint_nets(device):
+    """(the keypoint CenterNet on the kernels, the same weights on the
+    plain versions, its object config, model config, projection)."""
+    oc, cfg, projection = keypoints_config()
+    kp = CenterpointDLA34(oc, generator=torch.Generator().manual_seed(3), device=device,
+                          **KEYPOINTS.centernet_kwargs()).eval()
+    # Seeded random weights give the 8 keypoint channels different means
+    # and tails of logits, and the top 50 peaks then come from one to three
+    # of them: a detection claims two or three keypoints and no PnP has
+    # work.  The keypoint head's output conv is rescaled channel by
+    # channel, on 4 seeded frames, to logits of mean 0 whose 99.95th
+    # percentile (about the 50 peaks of an image over 8 channels) is 1, so
+    # that every channel peaks and detections claim up to 8 keypoints.
+    with torch.inference_mode():
+        img = preprocess(request_frames(9, (4, FRAME_H, FRAME_W, 3)).to(device),
+                         (cfg.in_h, cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                         KEYPOINTS.input_dtype)
+        logits = kp(img).keypoint_heatmap.float().reshape(-1, oc.n_keypoints)
+        mean, top = logits.mean(dim=0), torch.quantile(logits, 0.9995, dim=0)
+    head = getattr(kp.model, "1")[2]
+    with torch.no_grad():
+        scale = 1.0 / (top - mean)
+        head.weight *= scale[:, None, None, None]
+        head.bias.copy_((head.bias - mean) * scale)
+    kp_plain = CenterpointDLA34(oc, up_impl="plain", device=device,
+                                **KEYPOINTS.centernet_kwargs()).eval()
+    kp_plain.load_state_dict(kp.state_dict())
+    return kp, kp_plain, oc, cfg, projection
+
+
+def keypoint_heatmaps(kp_plain, cfg, gen):
+    """The keypoint net's object and keypoint heatmaps, batch 16."""
+    img = torch.randn((KP_BATCH, 3, cfg.in_h, cfg.in_w), generator=gen, device="cuda")
+    with torch.inference_mode():
+        pred = kp_plain(img)
+    return pred.heatmap_nchw().contiguous(), pred.keypoint_heatmap_nchw().contiguous()
+
+
 def hooked_calls(cn_plain, modules, img, record):
     """``record(module, args)`` of every call of ``modules`` in one forward."""
     calls = []
@@ -384,9 +478,10 @@ def hooked_calls(cn_plain, modules, img, record):
 
 def upsample_calls(cn_plain, img):
     """(x, weight, factor) of every DepthwiseUpsample call of one forward,
-    the weight in the dtype the module computes in."""
+    x and the weight in the dtype the module computes in (its kernel's
+    inputs)."""
     return hooked_calls(cn_plain, cn_plain.depthwise_upsamples(), img, lambda m, args: (
-        args[0].clone(), m.weight.detach().to(m.dtype), m.factor))
+        args[0].to(m.dtype).clone(), m.weight.detach().to(m.dtype), m.factor))
 
 
 def dcn_calls(cn_plain, img):
@@ -512,7 +607,7 @@ def mask_cases(gen, net_proto):
     return cases
 
 
-def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img):
+def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img, kp_net, kp_maps):
     cn_plain = nets["plain_ida"][1]
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
@@ -525,8 +620,19 @@ def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img):
     # scripts/kernel_times.py times A and B at the nets' shapes.
     require((tuple(real_heatmap.shape), k) == kernel_times.A_CALL,
             "kernel A's call is not kernel_times.A_CALL")
-    err = 0.0
-    for name, x, kk in peak_cases(b, hh, ww, gen, real_heatmap):
+    # The keypoints path's two calls: its object heatmap at K = 10 and its
+    # keypoint heatmap at K = 50 (also on random logits of that shape).
+    require([(tuple(m.shape), kk) for m, kk in zip(kp_maps, (10, 50))] ==
+            [((KP_BATCH, 1, hh, ww), SERVING_DECODE.n_detections),
+             ((KP_BATCH, 8, hh, ww), SERVING_DECODE.keypoint_n_detections)],
+            f"keypoint heatmaps {[tuple(m.shape) for m in kp_maps]}")
+    keypoint_cases = [
+        ("keypoints_net_heatmap", kp_maps[0], 10),
+        ("keypoints_net_keypoint_heatmap", kp_maps[1], 50),
+        ("random_keypoint_shape", torch.randn(kp_maps[1].shape, generator=gen, device="cuda") * 3,
+         50)]
+    err, err_k50 = 0.0, 0.0
+    for name, x, kk in peak_cases(b, hh, ww, gen, real_heatmap) + keypoint_cases:
         got, want = peak_decode_cuda(x, kk), peak_decode(x, kk)
         torch.cuda.synchronize()
         require(torch.equal(got[0], want[0]), f"peak_decode {name} K={kk}: index differs")
@@ -537,7 +643,10 @@ def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img):
         print(f"check peak_decode {name} {tuple(x.shape)} K={kk}: index/label "
               f"exact, score max_abs_err {e:.3g} (atol {PEAK_ATOL}), "
               f"{int((want[2] > 0).sum())} of {want[2].numel()} slots positive")
+        if kk == 50:
+            err_k50 = max(err_k50, e)
     errs["peak_decode"] = err
+    errs["peak_decode_k50"] = err_k50
 
     kk = SERVING_DECODE.top_k
     with torch.inference_mode():
@@ -581,29 +690,42 @@ def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img):
                   f"max_abs_err {e:.3g} (rtol=atol={UPSAMPLE_TOL})")
     errs["depthwise_upsample"] = err
 
-    # Kernel C in bf16 at the 8 upsamples of a north_star forward: equal or
-    # one bf16 ulp apart (4 exact products summed in f32 in another order
-    # than cuDNN's, then rounded once).
+    # Kernel C in bf16 at the 8 upsamples of a north_star forward and at
+    # those of the keypoints path's forwards on its own frames (batch 16 and
+    # batch 1): equal or one bf16 ulp apart (4 exact products summed in f32
+    # in another order than cuDNN's, then rounded once).
     err, differ, total = 0.0, 0, 0
-    calls = upsample_calls(nets["north_star"][1], img)
-    require(len(calls) == 8 and all(x.dtype == torch.bfloat16 for x, _, _ in calls),
-            "north_star: expected 8 bf16 upsamples")
-    for i, (x, w, f) in enumerate(calls):
-        for wname, weight in (("net", w), ("random", torch.randn(
-                w.shape, generator=gen, device="cuda").to(torch.bfloat16))):
-            got, want = depthwise_upsample_cuda(x, weight, f), depthwise_upsample(x, weight, f)
-            torch.cuda.synchronize()
-            require(got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape,
-                    f"depthwise_upsample bf16 {tuple(x.shape)}: {got.dtype} {tuple(got.shape)}")
-            diff = (got.float() - want.float()).abs()
-            ulps = (diff / bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))).max().item()
-            require(ulps <= 1.0, f"depthwise_upsample bf16 {tuple(x.shape)} {wname}: {ulps} ulps")
-            n = int((got != want).sum().item())
-            differ, total = differ + n, total + got.numel()
-            err = max(err, diff.max().item())
-            print(f"check depthwise_upsample_bf16 call {i} f={f} {tuple(x.shape)} {wname}: "
-                  f"{n} of {got.numel()} elements one ulp apart, max_abs_err {err:.3g} "
-                  f"(tolerance one bf16 ulp)")
+    kp_plain, kp_cfg = kp_net[1], kp_net[3]
+    kp_img = preprocess(request_frames(4, (KP_REQUESTS, KP_BATCH, FRAME_H, FRAME_W, 3))[0].cuda(),
+                        (kp_cfg.in_h, kp_cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                        KEYPOINTS.input_dtype)
+    for tag, net, frames in (("north_star", nets["north_star"][1], img),
+                             ("keypoints", kp_plain, kp_img),
+                             ("keypoints_b1", kp_plain, kp_img[:1])):
+        calls = upsample_calls(net, frames)
+        require(len(calls) == 8 and all(x.dtype == torch.bfloat16 for x, _, _ in calls),
+                f"{tag}: expected 8 bf16 upsamples")
+        for i, (x, w, f) in enumerate(calls):
+            line = []
+            for wname, weight in (("net", w), ("random", torch.randn(
+                    w.shape, generator=gen, device="cuda").to(torch.bfloat16))):
+                got = depthwise_upsample_cuda(x, weight, f)
+                want = depthwise_upsample(x, weight, f)
+                torch.cuda.synchronize()
+                require(got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape,
+                        f"depthwise_upsample bf16 {tuple(x.shape)}: {got.dtype} {tuple(got.shape)}")
+                diff = (got.float() - want.float()).abs()
+                ulps = (diff / bf16_ulp(torch.maximum(got.float().abs(),
+                                                      want.float().abs()))).max().item()
+                require(ulps <= 1.0,
+                        f"depthwise_upsample bf16 {tag} {tuple(x.shape)} {wname}: {ulps} ulps")
+                n = int((got != want).sum().item())
+                differ, total = differ + n, total + got.numel()
+                err = max(err, diff.max().item())
+                line.append(f"{wname} weight {n} of {got.numel()} one ulp apart, "
+                            f"max_abs_err {diff.max().item():.3g}")
+            print(f"check depthwise_upsample_bf16 {tag} call {i} f={f} {tuple(x.shape)}: "
+                  f"{'; '.join(line)} (tolerance one bf16 ulp)")
     print(f"check depthwise_upsample_bf16: {differ / total:.3g} of all elements differ")
     errs["depthwise_upsample_bf16"] = err
 
@@ -792,17 +914,7 @@ def check_answers(path, answers, plain_answers, batch):
         for name, got, ref in (("CenterNet", cn_d, cn_p), ("YOLACT", yl_d, yl_p)):
             stats = detection_deltas(ref, got, score_threshold=0.0)
             if bf16 and name == "CenterNet":
-                # A bf16 net may swap a top-K slot where two logits tie
-                # within an ulp: counted, and held to 99% matched.
-                swaps += stats["total"] - round(stats["matched_fraction"] * stats["total"])
-                size_atol = NS_SIZE_ULPS * bf16_ulp(max(ref.h.abs().max().item(),
-                                                        ref.w.abs().max().item())).item()
-                require(stats["matched_fraction"] >= 0.99
-                        and stats["center_delta_p95"] <= 1e-3
-                        and stats["score_delta_p95"] <= 1e-3
-                        and stats["size_delta_p95"] <= size_atol,
-                        f"{path}: {name} decode kernel vs plain: {stats} (size atol "
-                        f"{size_atol})")
+                swaps += check_bf16_centernet(path, stats, ref)
             else:
                 require(stats["matched_fraction"] == 1.0,
                         f"{path}: {name} decode kernel vs plain: {stats}")
@@ -814,6 +926,21 @@ def check_answers(path, answers, plain_answers, batch):
         mask_err = max(mask_err, (yl_d.mask - yl_p.mask).abs().max().item())
     require(mask_err <= MASK_ATOL, f"served masks differ by {mask_err}")
     return swaps, cn_p95, mask_err
+
+
+def check_bf16_centernet(path, stats, ref) -> int:
+    """Hold a bf16 CenterNet's decode on the kernels (``stats`` of
+    ``detection_deltas`` against ``ref``, its plain decode); returns the
+    top-K slots swapped.  A bf16 net may swap a slot where two logits tie
+    within an ulp: counted, and held to 99% matched."""
+    size_atol = NS_SIZE_ULPS * bf16_ulp(max(ref.h.abs().max().item(),
+                                            ref.w.abs().max().item())).item()
+    require(stats["matched_fraction"] >= 0.99
+            and stats["center_delta_p95"] <= 1e-3
+            and stats["score_delta_p95"] <= 1e-3
+            and stats["size_delta_p95"] <= size_atol,
+            f"{path}: CenterNet decode kernel vs plain: {stats} (size atol {size_atol})")
+    return stats["total"] - round(stats["matched_fraction"] * stats["total"])
 
 
 def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
@@ -835,6 +962,7 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
     answers = [pipe(r) for r in requests]
     torch.cuda.synchronize()
     launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+    variants = dict(kernels.VARIANT_LAUNCHES)
     up_entry = "tauv_depthwise_upsample_" + ("bf16" if bf16 else "f32")
     dcn_entry = "tauv_deform_conv_" + ("bf16" if bf16 else "f32")
     print(f"serve {path}: {N_REQUESTS} requests x {CHECK_BATCH} frames, launches "
@@ -950,7 +1078,304 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
         print(f"report {path}: int8-chain YOLACT decode against the f32 YOLACT on the "
               f"same weights and frames (random weights, not gated): {matched:.4f} of "
               f"{total} matched at score threshold 0, worst request p95 {worst}")
-    return launches, entries
+    return launches, entries, variants
+
+
+def keypoint_launches(kp):
+    """Each kernel's launches in one ``keypoints`` request: kernel A on both
+    heatmaps, kernel C at every upsample, nothing else."""
+    return {**{name: 0 for name in KERNELS}, "peak_decode": 2,
+            "depthwise_upsample": len(kp.depthwise_upsamples())}
+
+
+def check_keypoint_outputs(out, batch, n_slots):
+    d = out.detections
+    k = SERVING_DECODE.n_detections
+    require(all(t.shape == (batch, k) for t in
+                (d.valid, d.score, d.label, d.y, d.x, d.h, d.w, d.depth, out.pose_valid,
+                 out.pose_error)), "keypoints: detection shapes")
+    require(out.keypoint_valid.shape == out.keypoint_score.shape == (batch, k, n_slots)
+            and out.keypoint_affinity.shape == (batch, k, n_slots, 2)
+            and out.pose_rotation.shape == (batch, k, 3, 3)
+            and out.pose_translation.shape == (batch, k, 3), "keypoints: keypoint shapes")
+    require(finite(d.score, d.y, d.x, d.h, d.w, d.depth, out.keypoint_y, out.keypoint_x,
+                   out.keypoint_score, out.keypoint_affinity), "keypoints: non-finite")
+    require(bool((d.label == 0).all()) and bool((d.depth >= 0).all()),
+            "keypoints: labels or depths")
+    valid = out.pose_valid
+    require(finite(out.pose_rotation[valid], out.pose_translation[valid]),
+            "keypoints: a valid pose is not finite")
+
+
+def keypoint_pipelines(kp_net, device, knobs):
+    """(the keypoint pipeline on the kernels, on the plain versions)."""
+    kp, kp_plain, oc, cfg, projection = kp_net
+    return tuple(make_centernet_keypoint_pipeline(net, cfg, oc, projection, device, knobs=knobs,
+                                                  impl=impl, dtype=KEYPOINTS.input_dtype)
+                 for net, impl in ((kp, "kernel"), (kp_plain, "plain")))
+
+
+def serve_keypoints(kp_net):
+    """Serve the ``keypoints`` path's requests and check them; returns the
+    served run's launches (by kernel, by entry point, by variant)."""
+    device = torch.device("cuda")
+    kp, kp_plain, oc, cfg, projection = kp_net
+    n_slots = max(len(c.keypoints) for c in oc.configs)
+    requests = [request_frames(4, (KP_REQUESTS, KP_BATCH, FRAME_H, FRAME_W, 3))[i].pin_memory()
+                for i in range(KP_REQUESTS)]
+    pipe, _ = keypoint_pipelines(kp_net, device, SERVING_DECODE)
+    n_up = len(kp.depthwise_upsamples())
+    require(n_up == 8 and not kp.deform_convs(), f"keypoints: {n_up} upsamples")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    answers = [pipe(r) for r in requests]
+    torch.cuda.synchronize()
+    launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+    variants = dict(kernels.VARIANT_LAUNCHES)
+    per_request = keypoint_launches(kp)
+    want = {name: KP_REQUESTS * n for name, n in per_request.items()}
+    print(f"serve keypoints: {KP_REQUESTS} requests x {KP_BATCH} frames, launches {launches} "
+          f"(kernel A by K: {variants}, kernel C: {entries['tauv_depthwise_upsample_bf16']} "
+          f"by tauv_depthwise_upsample_bf16)")
+    require(launches == want, f"keypoints: launch counts {launches}, expected {want}")
+    require(entries["tauv_depthwise_upsample_bf16"] == KP_REQUESTS * n_up,
+            "keypoints: kernel C's bf16 launches")
+    require(variants == {("peak_decode", "K=10"): KP_REQUESTS,
+                         ("peak_decode", "K=50"): KP_REQUESTS},
+            f"keypoints: kernel A by K {variants}")
+    for out in answers:
+        check_keypoint_outputs(out, KP_BATCH, n_slots)
+    print(f"serve keypoints: at the served thresholds "
+          f"{sum(int(a.detections.valid.sum()) for a in answers)} detections valid, "
+          f"{sum(int(a.keypoint_valid.sum()) for a in answers)} keypoints claimed, "
+          f"{sum(int(a.pose_valid.sum()) for a in answers)} poses valid (random weights)")
+
+    # The whole request on the kernels and on the plain versions, every
+    # slot decoded.
+    pipe0, plain0 = keypoint_pipelines(kp_net, device, ALL_SLOTS)
+    swaps, claimed, posed = 0, [0, 0], [0, 0]
+    for r in requests:
+        got, ref = pipe0(r), plain0(r)
+        check_keypoint_outputs(got, KP_BATCH, n_slots)
+        swaps += check_bf16_centernet("keypoints", detection_deltas(
+            ref.detections, got.detections, score_threshold=0.0), ref.detections)
+        for i, out in enumerate((got, ref)):
+            claimed[i] += int(out.keypoint_valid.sum())
+            posed[i] += int(out.pose_valid.sum())
+    print(f"serve keypoints: decoded kernel vs plain at threshold 0: CenterNet {swaps} top-K "
+          f"slots swapped of {KP_REQUESTS * KP_BATCH * SERVING_DECODE.n_detections}; "
+          f"keypoints claimed {claimed[0]} (plain {claimed[1]}), PnP solves valid {posed[0]} "
+          f"(plain {posed[1]})")
+
+    # decode_keypoints on one forward's heads, kernel A against the plain
+    # peak decode.
+    with torch.inference_mode():
+        img = preprocess(requests[0].to(device), (cfg.in_h, cfg.in_w), IMAGENET_MEAN,
+                         IMAGENET_STDDEV, KEYPOINTS.input_dtype)
+        pred = kp(img)
+        proj = torch.tensor(projection, dtype=torch.float32, device=device)
+        args = (pred, cfg, oc, proj, ALL_SLOTS.n_detections, ALL_SLOTS.keypoint_n_detections,
+                0.0, 0.0)
+        dk, dp = decode_keypoints(*args, impl="kernel"), decode_keypoints(*args, impl="plain")
+    torch.cuda.synchronize()
+    for name in ("valid", "label", "y", "x", "h", "w", "depth"):
+        require(torch.equal(getattr(dk.detections, name), getattr(dp.detections, name)),
+                f"keypoints same heads: detections.{name} differs")
+    for name in ("keypoint_valid", "keypoint_y", "keypoint_x", "keypoint_affinity", "pose_valid"):
+        require(torch.equal(getattr(dk, name), getattr(dp, name)),
+                f"keypoints same heads: {name} differs")
+    score_err = max((dk.detections.score - dp.detections.score).abs().max().item(),
+                    (dk.keypoint_score - dp.keypoint_score).abs().max().item())
+    require(score_err <= PEAK_ATOL, f"keypoints same heads: score err {score_err}")
+    # Every slot's pose, valid or not: PnP ran on the same claimed points.
+    pose_err = max((getattr(dk, n) - getattr(dp, n)).abs().max().item()
+                   for n in ("pose_rotation", "pose_translation"))
+    require(pose_err <= POSE_ATOL, f"keypoints same heads: pose err {pose_err}")
+    n_claimed = dk.keypoint_valid.sum(-1)
+    print(f"serve keypoints: decode_keypoints on the same heads, kernel A vs plain: indices, "
+          f"labels, keypoint_valid and slots exact, scores max_abs_err {score_err:.3g} (atol "
+          f"{PEAK_ATOL}), {int(dk.keypoint_valid.sum())} of {dk.keypoint_valid.numel()} "
+          f"keypoint slots claimed (a detection claims {torch.bincount(n_claimed.flatten(), minlength=9).tolist()} "
+          f"times 0..8), {int(dk.pose_valid.sum())} of {dk.pose_valid.numel()} PnP solves "
+          f"valid, every slot's pose max_abs_err {pose_err:.3g} (atol {POSE_ATOL})")
+    check_pnp_on_card(proj)
+
+    # One camera frame, the batch a vehicle's node serves.
+    frame = request_frames(5, (1, FRAME_H, FRAME_W, 3)).pin_memory()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    one = pipe(frame)
+    torch.cuda.synchronize()
+    one_launches = dict(kernels.LAUNCHES)
+    require(one_launches == per_request and kernels.VARIANT_LAUNCHES == {
+        ("peak_decode", "K=10"): 1, ("peak_decode", "K=50"): 1},
+        f"keypoints batch 1: launch counts {one_launches}")
+    check_keypoint_outputs(one, 1, n_slots)
+    got, ref = pipe0(frame), plain0(frame)
+    swaps1 = check_bf16_centernet("keypoints batch 1", detection_deltas(
+        ref.detections, got.detections, score_threshold=0.0), ref.detections)
+    print(f"serve keypoints batch 1: launches {one_launches}, decoded kernel vs plain "
+          f"at threshold 0: {swaps1} slots swapped of {SERVING_DECODE.n_detections}, "
+          f"{int(got.keypoint_valid.sum())} keypoints claimed, {int(got.pose_valid.sum())} "
+          f"poses valid")
+    return launches, entries, variants
+
+
+def check_pnp_on_card(camera):
+    """``solve_pnp_batch`` on the card on as many problems as a batch-16
+    request solves, each 8 exact correspondences of a known pose (the
+    cases of ``tests/test_se3_pnp.py``, at the keypoint projection), a
+    sixth of them with only 5 points: random weights validate no pose, so
+    this is where a valid one is held to the truth, within the JAX
+    tests' 1e-2."""
+    n = KP_BATCH * SERVING_DECODE.n_detections
+    rng = np.random.default_rng(8)
+    obj = rng.uniform(-0.2, 0.2, (n, 8, 3)).astype(np.float32)
+    w = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32) * 0.4)
+    t = np.stack([rng.uniform(-0.2, 0.2, n), rng.uniform(-0.1, 0.1, n),
+                  rng.uniform(1.0, 3.0, n)], -1).astype(np.float32)
+    with torch.inference_mode():
+        r = so3_exp(w).numpy()
+        cam = camera.double().cpu().numpy()
+        pts = np.einsum("nij,npj->npi", r, obj) + t[:, None]
+        uv = np.stack([cam[0, 0] * pts[..., 0] / pts[..., 2] + cam[0, 2],
+                       cam[1, 1] * pts[..., 1] / pts[..., 2] + cam[1, 2]], -1).astype(np.float32)
+        mask = np.ones((n, 8), bool)
+        mask[::6, 5:] = False
+        got = solve_pnp_batch(*(torch.from_numpy(a).cuda() for a in (obj, uv)), camera,
+                              torch.from_numpy(mask).cuda())
+    want_valid = mask.sum(-1) >= 6
+    valid = got.valid.cpu().numpy()
+    require(np.array_equal(valid, want_valid), f"PnP on the card: valid {valid.sum()} of {n}, "
+                                               f"expected {want_valid.sum()}")
+    t_err = np.abs(got.translation.cpu().numpy() - t)[valid].max()
+    r_err = np.abs(got.rotation.cpu().numpy() - r)[valid].max()
+    require(t_err <= 1e-2 and r_err <= 1e-2, f"PnP on the card: err t {t_err} r {r_err}")
+    print(f"check PnP on the card: {n} problems, {int(valid.sum())} valid as expected, "
+          f"translation max_abs_err {t_err:.3g}, rotation {r_err:.3g} against the truth (atol "
+          f"1e-2), largest mean squared reprojection error "
+          f"{got.error.cpu().numpy()[valid].max():.3g} px^2")
+
+
+def window_has_depth(depth, cy, cx, window=5):
+    """Whether the clipped window around (cy, cx) holds a valid depth, as
+    ``depth_window_z`` reads it."""
+    h, w = depth.shape
+    half = window // 2
+    ys = np.clip(np.arange(cy - half, cy + half + 1), 0, h - 1)
+    xs = np.clip(np.arange(cx - half, cx + half + 1), 0, w - 1)
+    vals = depth[np.ix_(ys, xs)]
+    return bool((np.isfinite(vals) & (vals > 0)).any())
+
+
+def node_phase(kp_net, yl, yl_cfg):
+    """Both node servers on the card, one 640x480 colour frame and a depth
+    image each: a plane at DEPTH_M with 1% of cells 0 and a NaN square over
+    one detection, an identity pose.  Every published position must be
+    finite and the count must be the one the drop rule implies.  Returns
+    kernel B's error against its plain version at the YOLACT server's call."""
+    device = torch.device("cuda")
+    kp, _, oc, cfg, projection = kp_net
+    frame = request_frames(6, (1, FRAME_H, FRAME_W, 3)).numpy()
+    rng = np.random.default_rng(0)
+
+    def plane():
+        depth = np.full((1, FRAME_H, FRAME_W), DEPTH_M, np.float32)
+        depth[rng.random(depth.shape) < 0.01] = 0.0
+        return depth
+
+    server = CenternetServer(kp, cfg, oc, projection, score_threshold=0.0,
+                             keypoint_score_threshold=0.0, device=device)
+    out = server.pipeline(frame)
+    valid = out.detections.valid[0].cpu().numpy()
+    pose_valid = out.pose_valid[0].cpu().numpy()
+    cy = np.clip(out.detections.y[0].cpu().numpy() * FRAME_H, 0, FRAME_H - 1).astype(np.int32)
+    cx = np.clip(out.detections.x[0].cpu().numpy() * FRAME_W, 0, FRAME_W - 1).astype(np.int32)
+    depth = plane()
+    unposed = np.flatnonzero(valid & ~pose_valid)
+    if len(unposed):   # its window loses all depth: dropped
+        i = unposed[0]
+        depth[0, max(cy[i] - 8, 0): cy[i] + 9, max(cx[i] - 8, 0): cx[i] + 9] = np.nan
+    placed = [valid[i] and (pose_valid[i] or window_has_depth(depth[0], cy[i], cx[i]))
+              for i in range(len(valid))]
+    published = []
+    kernels.reset_launch_counts()
+    results = server.process(frame, depth, pose_lookup=lambda: np.eye(4),
+                             publish=published.append)
+    torch.cuda.synchronize()
+    node_launches = dict(kernels.LAUNCHES)
+    require(len(published) == 1 and len(results[0]) == sum(placed),
+            f"CenternetServer published {[len(r) for r in results]}, expected {sum(placed)}")
+    require(all(np.isfinite(d.position).all() and d.tag == "torpedo_24" for d in results[0]),
+            "CenternetServer: a published position is not finite")
+    n_pose = sum(d.orientation is not None for d in results[0])
+    require(n_pose == int((valid & pose_valid).sum()), "CenternetServer: PnP poses published")
+    require(not len(unposed) or sum(placed) < int(valid.sum()),
+            "CenternetServer: the detection without depth or pose was not dropped")
+    require(node_launches == keypoint_launches(kp),
+            f"CenternetServer.process launches {node_launches}")
+    print(f"node CenternetServer.process: {int(valid.sum())} detections valid (threshold 0), "
+          f"{len(results[0])} published ({n_pose} placed by PnP, the rest at the depth "
+          f"window's z), {int(valid.sum()) - len(results[0])} dropped (no depth, no pose), "
+          f"launches {node_launches}")
+
+    classes = ClassConfigSet(tuple(ClassConfig("background" if i == 0 else f"class_{i}", i)
+                                   for i in range(yl_cfg.n_classes + 1)))
+    yserver = YolactServer(yl, yl_cfg, classes, FRAME_INTRINSICS, confidence_threshold=0.0,
+                           device=device)
+    # Kernel B at the node's own call: one frame's NCHW prototypes from the
+    # f32 YOLACT, decoded through the kernel and through the plain version
+    # on the same heads (the same Fast-NMS picks, so the masks compare slot
+    # for slot).
+    with torch.inference_mode():
+        pred = yl(preprocess(torch.from_numpy(frame).to(device), (yl_cfg.in_h, yl_cfg.in_w),
+                             yl_cfg.img_mean, yl_cfg.img_stddev, YOLACT_INPUT_DTYPE))
+        proto = pred.mask_prototype.permute(0, 3, 1, 2)
+        args = (pred, yl_cfg, SERVING_DECODE.top_k, SERVING_DECODE.iou_threshold, 0.0)
+        dk, dp = decode_yolact(*args, impl="kernel"), decode_yolact(*args, impl="plain")
+    torch.cuda.synchronize()
+    require(proto.shape[0] == 1 and proto.is_contiguous(),
+            f"YolactServer prototypes {tuple(proto.shape)} strides {proto.stride()}")
+    require(torch.equal(dk.valid, dp.valid) and torch.equal(dk.box, dp.box),
+            "YolactServer decode: kernel and plain picks differ")
+    mask_err = (dk.mask - dp.mask).abs().max().item()
+    require(mask_err <= MASK_ATOL, f"mask_assembly on YolactServer's call: err {mask_err}")
+    print(f"check mask_assembly node_yolact_b1 proto {tuple(proto.shape)} strides "
+          f"{proto.stride()} K={dk.mask.shape[1]} ({int(dk.valid.sum())} slots valid): "
+          f"max_abs_err {mask_err:.3g} (atol {MASK_ATOL})")
+    out = yserver.pipeline(frame)
+    valid = out.valid[0].cpu().numpy()
+    box = out.box[0].cpu().numpy()
+    masks = out.mask[0].cpu().numpy()
+    depth = plane()
+    first = np.flatnonzero(valid)
+    if len(first):     # NaN over the first detection's box (and a margin): dropped
+        y, x, h, w = box[first[0]] * (FRAME_H, FRAME_W, FRAME_H, FRAME_W)
+        depth[0, max(int(y - h / 2) - 8, 0): int(y + h / 2) + 9,
+              max(int(x - w / 2) - 8, 0): int(x + w / 2) + 9] = np.nan
+    mh, mw = masks.shape[1:]
+    ys = (np.arange(mh) * (FRAME_H / mh)).astype(np.int32)
+    xs = (np.arange(mw) * (FRAME_W / mw)).astype(np.int32)
+    small = depth[0][np.ix_(ys, xs)]
+    has = ((masks > 0.5) & np.isfinite(small) & (small > 0)).any(axis=(1, 2))
+    want = int((valid & has).sum())
+    kernels.reset_launch_counts()
+    results = yserver.process(frame, depth, pose_lookup=lambda: np.eye(4))
+    torch.cuda.synchronize()
+    node_launches = dict(kernels.LAUNCHES)
+    require(len(results[0]) == want,
+            f"YolactServer published {len(results[0])}, expected {want}")
+    require(all(np.isfinite(d.position).all() and d.tag.startswith("class_")
+                for d in results[0]), "YolactServer: a published position is not finite")
+    require(not len(first) or want < int(valid.sum()),
+            "YolactServer: the detection without depth was not dropped")
+    require(node_launches["mask_assembly"] == 1, f"YolactServer.process launches {node_launches}")
+    print(f"node YolactServer.process: {int(valid.sum())} detections valid (confidence 0), "
+          f"{len(results[0])} published, {int(valid.sum()) - len(results[0])} dropped (no "
+          f"depth inside the mask), latency {yserver.last_latency * 1e3:.1f} ms, launches "
+          f"{node_launches}")
+    return mask_err
 
 
 # ---- phase 5 ------------------------------------------------------------
@@ -969,7 +1394,8 @@ def abba(kernel_fn, plain_fn, iters: int, warmup: int = 3, timer=time_ms):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, profile_dir):
+def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, profile_dir,
+               kp_net, kp_maps):
     gen = torch.Generator(device="cuda").manual_seed(1)
     b = CHECK_BATCH
     times, bounds, device = {}, {}, {}
@@ -982,8 +1408,15 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
     k = SERVING_DECODE.n_detections
     timed("peak_decode", lambda: peak_decode_cuda(logits, k),
           lambda: peak_decode(logits, k), 50)
-    # sigmoid (4 flops), 3x3 max (8 compares) and the peak test (1) an element
+    # sigmoid (4 flops), 3x3 max (8 compares) and the peak test (1) an
+    # element; out: index (8 bytes), label and score (4 each) a slot
     bounds["peak_decode"] = bound(nbytes(logits) + b * k * 16, 13 * logits.numel(), PEAK["f32"])
+    # The keypoints path's keypoint-heatmap call, on the net's own map.
+    kp_logits, kk50 = kp_maps[1], SERVING_DECODE.keypoint_n_detections
+    timed("peak_decode_k50", lambda: peak_decode_cuda(kp_logits, kk50),
+          lambda: peak_decode(kp_logits, kk50), 50)
+    bounds["peak_decode_k50"] = bound(nbytes(kp_logits) + kp_logits.shape[0] * kk50 * 16,
+                                      13 * kp_logits.numel(), PEAK["f32"])
     # Kernel B on the prototypes as the int8 chain (north_star) makes them:
     # the NHWC view, read in place.
     p, kk = yl_cfg.n_prototype_masks, SERVING_DECODE.top_k
@@ -1063,6 +1496,8 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         bounds[name] = (r["bound_ns"] / 1e6, r["bound_by"])
     what = {
         "peak_decode": f"[{b},4,{cn_cfg.out_h},{cn_cfg.out_w}] K={k}",
+        "peak_decode_k50": f"{list(kp_logits.shape)} K={kk50}, the keypoint net's keypoint "
+                           f"heatmap",
         "mask_assembly": f"proto [{b},{p},{yl_cfg.in_h // 2},{yl_cfg.in_w // 2}] (NHWC view) "
                          f"K={kk} crop",
         "depthwise_upsample": f"all {len(calls)} calls of one batch-{b} forward",
@@ -1206,6 +1641,7 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         stage_ms = {name: time_ms(fn, 5) for name, fn in stages.items()}
     print(f"time stages batch {FPS_BATCH}: " + ", ".join(
         f"{name} {ms:.3f} ms" for name, ms in stage_ms.items()) + f" ({card})")
+    time_keypoints(kp_net, card)
     print(f"peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     if profile_dir is not None:
@@ -1223,6 +1659,78 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
             print(f"profile {path} (3 batch-32 requests), top kernels by device time:")
             print("\n".join(table.splitlines()[:22]))
     return times
+
+
+def device_busy(fn, reps: int = 3):
+    """(device ms a call, summed over its kernels and copies, and their
+    count a call) from ``torch.profiler``, or (None, None) where the
+    profiler records no device activity.  A launch-bound call issues more
+    launches than the card queues, so a spin ahead of it (``queued_ms``)
+    cannot keep the host's cost out; the trace's own durations can."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not device:
+        return None, None
+    return (round(sum(e.self_device_time_total for e in device) / 1e3 / reps, 3),
+            round(sum(e.count for e in device) / reps))
+
+
+def time_keypoints(kp_net, card):
+    """The ``keypoints`` request at batch 16 (kernels and plain), and its
+    stages one by one on device-resident frames, at the served knobs."""
+    device = torch.device("cuda")
+    kp, _, oc, cfg, projection = kp_net
+    knobs = SERVING_DECODE
+    frames = request_frames(7, (KP_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    pipe, plain = keypoint_pipelines(kp_net, device, knobs)
+    k_ms, p_ms = abba(lambda: pipe(frames), lambda: plain(frames), 10)
+    busy_ms, n_kernels = device_busy(lambda: pipe(frames))
+    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / k_ms:.1%}"
+    print(f"time pipeline keypoints batch {KP_BATCH} (upload + resize + bf16 CenterNet + "
+          f"decode + matcher + PnP): kernels {k_ms:.3f} ms = {KP_BATCH * 1000 / k_ms:.2f} "
+          f"frames/s, plain {p_ms:.3f} ms = {KP_BATCH * 1000 / p_ms:.2f} frames/s; the "
+          f"kernels' request: {n_kernels} device kernels and copies, busy {busy_ms} ms, the "
+          f"device idle {idle} of the request ({card})")
+    with torch.inference_mode():
+        on_card = frames.to(device)
+        proj = torch.tensor(projection, dtype=torch.float32, device=device)
+        img = preprocess(on_card, (cfg.in_h, cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                         KEYPOINTS.input_dtype)
+        pred = kp(img)
+        dets = decode(pred, cfg, knobs.n_detections, knobs.score_threshold)
+        peaks = keypoint_peaks(pred, cfg, knobs.keypoint_n_detections,
+                               knobs.keypoint_score_threshold)
+        slots_y, slots_x, _, _, claimed = match_keypoints(dets, peaks, oc)
+        stages = {
+            "upload": lambda: frames.to(device, non_blocking=True),
+            "resize + normalise (bf16)": lambda: preprocess(
+                on_card, (cfg.in_h, cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                KEYPOINTS.input_dtype),
+            "forward": lambda: kp(img),
+            "decode (objects, kernel A K=10)": lambda: decode(
+                pred, cfg, knobs.n_detections, knobs.score_threshold),
+            "keypoint peaks (kernel A K=50)": lambda: keypoint_peaks(
+                pred, cfg, knobs.keypoint_n_detections, knobs.keypoint_score_threshold),
+            "matcher": lambda: match_keypoints(dets, peaks, oc),
+            "PnP": lambda: keypoint_poses(dets, slots_y, slots_x, claimed, cfg, oc, proj),
+            "decode_keypoints (all of the decode)": lambda: decode_keypoints(
+                pred, cfg, oc, proj, knobs.n_detections, knobs.keypoint_n_detections,
+                knobs.score_threshold, knobs.keypoint_score_threshold),
+        }
+        for fn in stages.values():
+            fn()
+        stage_ms = {name: time_ms(fn, 10) for name, fn in stages.items()}
+        busy = {name: device_busy(fn) for name, fn in stages.items()}
+    print(f"time stages keypoints batch {KP_BATCH} (ms back to back; device kernels and "
+          f"copies a call, ms busy): " + ", ".join(
+              f"{name} {ms:.3f} ({busy[name][1]}, {busy[name][0]})"
+              for name, ms in stage_ms.items()) + f" ({card})")
 
 
 # The north_star CenterNet's early trunk at batch 32, each conv alone in
@@ -1316,35 +1824,44 @@ def main(argv=None) -> int:
     card = device_phase()
     build_phase()
     nets, cn_cfg, yl, yl_cfg, chains = build_models(torch.device("cuda"))
+    kp_net = build_keypoint_nets(torch.device("cuda"))
+    kp_maps = keypoint_heatmaps(kp_net[1], kp_net[3],
+                                torch.Generator(device="cuda").manual_seed(3))
     yl_img = preprocess(request_frames(0, (N_REQUESTS, CHECK_BATCH, FRAME_H, FRAME_W, 3))[0]
                         .cuda(), (yl_cfg.in_h, yl_cfg.in_w), yl_cfg.img_mean, yl_cfg.img_stddev)
-    errs, record, int8_shapes = check_phase(nets, cn_cfg, yl_cfg, chains, yl_img)
+    errs, record, int8_shapes = check_phase(nets, cn_cfg, yl_cfg, chains, yl_img, kp_net,
+                                            kp_maps)
     served = {path: serve_phase(path, *nets[path], cn_cfg, yl, yl_cfg, chains,
                                 nets[BF16_NETS.get(path, (None, "plain_ida"))[1]][0])
               for path in PATHS}
+    served["keypoints"] = serve_keypoints(kp_net)
+    errs["mask_assembly"] = max(errs["mask_assembly"], node_phase(kp_net, yl, yl_cfg))
     for name in ("peak_decode", "mask_assembly", "depthwise_upsample", "deform_conv",
                  "transpose_conv"):
-        require(any(served[path][0][name] for path in PATHS), f"{name} never launched")
+        require(any(served[path][0][name] for path in ALL_PATHS), f"{name} never launched")
     for path, entry in (("dcn_ida", "tauv_deform_conv_f32"),
                         ("dcn_north_star", "tauv_deform_conv_bf16")):
         require(served[path][1][entry] == N_REQUESTS * N_DCN, f"{path}: {entry} launches")
     times = time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card,
-                       args.profile)
+                       args.profile, kp_net, kp_maps)
 
     def launches(path, row):
         kernel, entry = ROWS[row]
-        by_kernel, by_entry = served[path]
+        by_kernel, by_entry, by_variant = served[path]
+        if row in ROW_VARIANTS:
+            return by_variant.get(ROW_VARIANTS[row], 0)
         return by_kernel[kernel] if entry is None else by_entry[entry]
 
     # ``launches``: the served runs of all paths, each counted from 0;
     # ``launches_by_path``: each path's own run.  A row with an entry point
-    # counts that entry's launches (kernel C's by dtype).
+    # counts that entry's launches (kernel C's by dtype), a row with a
+    # variant that variant's (kernel A's K = 50 row).
     report = {"kernels": [
         {"name": row, "route": "cuda", "source": KERNELS[ROWS[row][0]][0],
          "replaces": (f"tauv_vision_tpu/scripts/mosaic_op_probe.py:{P1_ROWS[row][0]}"
                       if row in P1_ROWS else KERNELS[ROWS[row][0]][1]),
-         "launches": sum(launches(path, row) for path in PATHS),
-         "launches_by_path": {path: launches(path, row) for path in PATHS},
+         "launches": sum(launches(path, row) for path in ALL_PATHS),
+         "launches_by_path": {path: launches(path, row) for path in ALL_PATHS},
          "max_abs_err": errs[row], **times[row]}
         for row in ROWS
     ]}

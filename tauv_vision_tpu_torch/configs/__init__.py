@@ -10,6 +10,9 @@ the only place that recipe is written; ``DCN_NORTH_STAR`` is the same
 recipe with DCNv2 in the CenterNet's 16 IDA blocks (``bench.py --deform
 --north-star``); ``INT8_CHAIN_YOLACT`` is its YOLACT with the int8
 protonet upsamples of ``bench.py --int8-transpose pallas`` (kernel D).
+``keypoints_config`` and ``KEYPOINTS`` are the CenterNet node's full
+configuration that ``bench.py --keypoints`` serves (keypoint heatmaps,
+affinity and depth heads, the matcher and PnP).
 """
 
 from __future__ import annotations
@@ -27,20 +30,25 @@ from tauv_vision_tpu_torch.configs.centernet import (
     ObjectConfigSet,
     get_head_channels,
 )
-from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig
+from tauv_vision_tpu_torch.configs.yolact import ClassConfig, ClassConfigSet, YolactModelConfig
 
 __all__ = [
     "AngleConfig",
     "CenternetModelConfig",
+    "ClassConfig",
+    "ClassConfigSet",
     "DCN_NORTH_STAR",
     "INT8_CHAIN_YOLACT",
+    "KEYPOINTS",
     "ObjectConfig",
     "NORTH_STAR",
     "ObjectConfigSet",
+    "ServedCenternetRecipe",
     "ServedRecipe",
     "YolactModelConfig",
     "centernet_config",
     "get_head_channels",
+    "keypoints_config",
     "yolact_config",
 ]
 
@@ -65,6 +73,27 @@ def centernet_config(in_h: int = 360, in_w: int = 640
         downsamples=2, angle_bin_overlap=pi / 3,
     )
     return object_config, model_config
+
+
+def keypoints_config(in_h: int = 360, in_w: int = 640):
+    """(object config, model config, projection matrix) of ``bench.py
+    --keypoints`` (``build_centernet_keypoints``, ``bench.py:385-441``):
+    one class, ``torpedo_24``, with 8 keypoints and a depth head, its
+    angles untrained, the DLA-34 geometry of ``centernet_config``, and a
+    [3, 4] projection with f = 520 px centred on the 640x360 input."""
+    def angle():
+        return AngleConfig(train=False, modulo=2 * pi)
+
+    keypoints = tuple(
+        (0.1 * (i % 2) - 0.05, 0.1 * (i // 4) - 0.05, 0.02 * i) for i in range(8)
+    )
+    object_config = ObjectConfigSet(configs=(
+        ObjectConfig(id="torpedo_24", yaw=angle(), pitch=angle(), roll=angle(),
+                     train_depth=True, train_keypoints=True, keypoints=keypoints),
+    ))
+    _, model_config = centernet_config(in_h, in_w)
+    projection = ((520.0, 0.0, 320.0, 0.0), (0.0, 520.0, 180.0, 0.0), (0.0, 0.0, 1.0, 0.0))
+    return object_config, model_config, projection
 
 
 def yolact_config(in_h: int = 360, in_w: int = 640,
@@ -107,7 +136,19 @@ class YolactChainRecipe:
 
 
 @dataclass(frozen=True)
-class ServedRecipe:
+class ServedCenternetRecipe:
+    """A served CenterNet: its precision (``CenterpointDLA34``'s keyword
+    arguments) and the type its normalised input is rounded to."""
+
+    centernet: CenternetRecipe
+    input_dtype: torch.dtype
+
+    def centernet_kwargs(self) -> dict:
+        return asdict(self.centernet)
+
+
+@dataclass(frozen=True)
+class ServedRecipe(ServedCenternetRecipe):
     """What ``bench.py`` serves with no flags (its ``north-star`` profile,
     ``bench.py:1276-1305,1391-1454,1578-1610``): the float CenterNet in
     bf16 with bf16 BatchNorm outputs and an f32 stem, plain-conv IDA,
@@ -117,12 +158,7 @@ class ServedRecipe:
     pipeline whose normalised input is ``input_dtype`` (see
     ``serving.pipeline.make_combined_pipeline``)."""
 
-    centernet: CenternetRecipe
     yolact: YolactChainRecipe
-    input_dtype: torch.dtype
-
-    def centernet_kwargs(self) -> dict:
-        return asdict(self.centernet)
 
 
 NORTH_STAR = ServedRecipe(
@@ -148,3 +184,16 @@ INT8_CHAIN_YOLACT = replace(NORTH_STAR.yolact, int8_transposes=True)
 # (torchvision's unbounded offsets), so the two graphs are equal only
 # where every |offset| <= 3 cells.
 DCN_NORTH_STAR = replace(NORTH_STAR, centernet=replace(NORTH_STAR.centernet, deform=True))
+
+
+# ``bench.py --keypoints``'s bf16 net (its ``bf16_fps``): bf16 convs with
+# f32 BatchNorm outputs and no f32 stem (the JAX model's defaults), plain
+# IDA (``deform=False``), fed the bf16 image of the JAX pipeline's default
+# ``dtype``; served through ``make_centernet_keypoint_pipeline`` on
+# ``keypoints_config`` with ``SERVING_DECODE`` (10 detections at 0.6, 50
+# keypoint peaks at 0.3).  Its int8 chain is not ported.
+KEYPOINTS = ServedCenternetRecipe(
+    centernet=CenternetRecipe(dtype=torch.bfloat16, bn_out=torch.float32,
+                              f32_stages=(), deform=False),
+    input_dtype=torch.bfloat16,
+)

@@ -3,14 +3,15 @@ that the port uses, copied so the port imports nothing of the JAX package.
 
 Frozen dataclasses with the same fields, defaults and derived properties;
 ``ObjectConfig`` flags derive the network's head structure through
-``get_head_channels``.  The JSON round trip and the keypoint-index codec
-of the original are not copied: the port does not use them.
+``get_head_channels``, and ``ObjectConfigSet`` carries the keypoint-index
+codec that the keypoint decode's matcher reads.  The JSON round trip of
+the original is not copied: the port does not use it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -76,8 +77,10 @@ class ObjectConfig:
 
 @dataclass(frozen=True)
 class ObjectConfigSet:
-    """The per-class configs; the ``train_*`` properties OR over all
-    classes and decide which prediction heads the network has."""
+    """The per-class configs and the global keypoint-index codec; the
+    ``train_*`` properties OR over all classes and decide which
+    prediction heads the network has, and the keypoint channels are the
+    concatenation of every class's local keypoint list."""
 
     configs: Tuple[ObjectConfig, ...]
 
@@ -113,6 +116,38 @@ class ObjectConfigSet:
         return sum(
             len(c.keypoints) if c.keypoints is not None else 0 for c in self.configs
         )
+
+    @property
+    def label_id_to_index(self) -> Dict[str, int]:
+        return {c.id: i for i, c in enumerate(self.configs)}
+
+    def _keypoint_tables(self):
+        """({(object, local keypoint): flat channel}, its inverse)."""
+        encode: Dict[Tuple[int, int], int] = {}
+        decode: Dict[int, Tuple[int, int]] = {}
+        flat = 0
+        for obj_i, c in enumerate(self.configs):
+            if c.keypoints is None:
+                continue
+            for local_i in range(len(c.keypoints)):
+                encode[(obj_i, local_i)] = flat
+                decode[flat] = (obj_i, local_i)
+                flat += 1
+        return encode, decode
+
+    def encode_keypoint_index(self, object_index: int, object_keypoint_index: int) -> int:
+        return self._keypoint_tables()[0][(object_index, object_keypoint_index)]
+
+    def decode_keypoint_index(self, keypoint_index: int) -> Tuple[int, int]:
+        return self._keypoint_tables()[1][keypoint_index]
+
+    def keypoint_owner_labels(self) -> Tuple[int, ...]:
+        """Owning object label for each flat keypoint channel."""
+        _, decode = self._keypoint_tables()
+        return tuple(decode[i][0] for i in range(self.n_keypoints))
+
+    def get_by_label(self, label: str) -> ObjectConfig:
+        return self.configs[self.label_id_to_index[label]]
 
 
 def get_head_channels(object_config: ObjectConfigSet) -> Tuple[int, ...]:

@@ -1,12 +1,12 @@
-"""YOLACT model configuration: ``YolactModelConfig`` of
-``tauv_vision_tpu/configs/yolact.py``, copied so the port imports nothing
-of the JAX package.  Same fields, defaults and derived properties; the
-JSON round trip of the original is not copied."""
+"""YOLACT configuration: ``YolactModelConfig``, ``ClassConfig`` and
+``ClassConfigSet`` of ``tauv_vision_tpu/configs/yolact.py``, copied so the
+port imports nothing of the JAX package.  Same fields, defaults and
+derived properties; the JSON round trip of the original is not copied."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -57,3 +57,31 @@ class YolactModelConfig:
     def n_fpn_levels(self) -> int:
         # 3 backbone taps + extra stride-2 levels.
         return 3 + self.n_fpn_downsample_layers
+
+
+@dataclass(frozen=True)
+class ClassConfig:
+    """id / index pair; index 0 is the background, so classes start at 1."""
+
+    id: str
+    index: int
+
+
+@dataclass(frozen=True)
+class ClassConfigSet:
+    configs: Tuple[ClassConfig, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "configs", tuple(self.configs))
+
+    def get_by_index(self, index: int) -> Optional[ClassConfig]:
+        for config in self.configs:
+            if config.index == index:
+                return config
+        return None
+
+    def get_by_id(self, id: str) -> Optional[ClassConfig]:
+        for config in self.configs:
+            if config.id == id:
+                return config
+        return None

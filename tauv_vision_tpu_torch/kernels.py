@@ -12,7 +12,9 @@ the CPU test suite imports every module of the port on machines with no
 where it launches its kernel and nowhere else, so a run can show that the
 served path went through the kernels (``chip_smoke.py``);
 ``ENTRY_LAUNCHES`` counts the same launches by C entry point, which tells
-a kernel's variants apart (kernels C's and E's f32 and bf16).
+a kernel's variants apart (kernels C's and E's f32 and bf16), and
+``VARIANT_LAUNCHES`` by (counter, variant) where a wrapper names one
+(kernel A its K).
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ _SIGNATURES = {
     "tauv_op_probe_transpose": [_P] * 2 + [_I] * 2 + [_P],
 }
 ENTRY_LAUNCHES = {name: 0 for name in _SIGNATURES}
+VARIANT_LAUNCHES = {}   # (counter, variant) -> launches
 
 _lib = None
 
@@ -65,6 +68,7 @@ def reset_launch_counts() -> None:
     for counts in (LAUNCHES, ENTRY_LAUNCHES):
         for name in counts:
             counts[name] = 0
+    VARIANT_LAUNCHES.clear()
 
 
 def _sources():
@@ -145,11 +149,12 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, counter: str, *args) -> None:
+def launch(name: str, counter: str, *args, variant=None) -> None:
     """Call a C entry point on the current stream; raise on a CUDA error.
 
     ``args`` are the entry point's arguments up to, not including, the
-    device and stream, which are filled in here."""
+    device and stream, which are filled in here; ``variant``, if given,
+    also counts the launch under (counter, variant)."""
     fn = getattr(library(), name)
     if len(args) + 2 != len(fn.argtypes):
         raise TypeError(f"{name} takes {len(fn.argtypes) - 2} arguments before the "
@@ -161,6 +166,8 @@ def launch(name: str, counter: str, *args) -> None:
         raise RuntimeError(f"{name} failed with CUDA error {code}")
     LAUNCHES[counter] += 1
     ENTRY_LAUNCHES[name] += 1
+    if variant is not None:
+        VARIANT_LAUNCHES[(counter, variant)] = VARIANT_LAUNCHES.get((counter, variant), 0) + 1
 
 
 def check_cuda_tensor(t, name: str, dtype, ndim: int) -> None:

@@ -69,8 +69,9 @@ class Yolact(nn.Module):
         self.to(device)
 
     def forward(self, img: torch.Tensor) -> YolactPrediction:
-        """img: [B, 3, H, W] normalised f32."""
-        fpn_outputs = self._feature_pyramid(self._backbone(img))
+        """img: [B, 3, H, W] normalised, f32 or rounded to bf16 (computed
+        in f32 either way, as flax promotes a bf16 image in an f32 conv)."""
+        fpn_outputs = self._feature_pyramid(self._backbone(img.to(torch.float32)))
         prototype = self._masknet(fpn_outputs[0])
         heads = [self._prediction_head(x) for x in fpn_outputs]
         classification, box, coeff = (torch.cat(t, dim=1) for t in zip(*heads))

@@ -131,6 +131,8 @@ def preprocess(
     out_hw: Tuple[int, int],
     mean: Sequence[float],
     stddev: Sequence[float],
+    dtype=torch.float32,
 ) -> torch.Tensor:
-    """uint8 NHWC camera frames -> resized, normalised f32 NCHW."""
-    return normalize_image(resize_frames(img_uint8, out_hw), mean, stddev)
+    """uint8 NHWC camera frames -> resized, normalised NCHW, computed in
+    f32 and rounded once to ``dtype``, as the JAX ``preprocess`` does."""
+    return normalize_image(resize_frames(img_uint8, out_hw), mean, stddev, dtype)

@@ -106,6 +106,6 @@ def peak_decode_cuda(
         "tauv_peak_decode_f32", "peak_decode",
         heatmap_logits.data_ptr(), candidates.data_ptr(), index.data_ptr(),
         label.data_ptr(), score.data_ptr(), b, c, h, w, n_detections,
-        kernel_size, tile_h, tile_w,
+        kernel_size, tile_h, tile_w, variant=f"K={n_detections}",
     )
     return index, label, score

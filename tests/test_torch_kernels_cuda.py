@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from tauv_vision_tpu_torch import kernels
-from tauv_vision_tpu_torch.configs import centernet_config
+from tauv_vision_tpu_torch.configs import centernet_config, keypoints_config
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34, DeformConvBlock
 from tauv_vision_tpu_torch.models.layers import init_parameters
 from tauv_vision_tpu_torch.ops.conv_transpose import (
@@ -102,6 +102,15 @@ def _net_heatmap():
         return net(_normal((2, 3, cfg.in_h, cfg.in_w), 9)).heatmap_nchw().contiguous()
 
 
+def _keypoint_heatmap():
+    """The keypoint net's (``configs.keypoints_config``) keypoint heatmap,
+    [2, 8, 18, 26]."""
+    oc, cfg, _ = keypoints_config(72, 104)
+    net = CenterpointDLA34(oc, generator=torch.Generator().manual_seed(0), device="cpu").eval()
+    with torch.inference_mode():
+        return net(_normal((2, 3, cfg.in_h, cfg.in_w), 9)).keypoint_heatmap_nchw().contiguous()
+
+
 PEAK_CASES = {
     "random": lambda shape: _normal(shape, 0, 3.0),
     "ties": _planted_ties,
@@ -109,6 +118,7 @@ PEAK_CASES = {
     "sparse": _sparse,
     "flat": torch.zeros,           # every cell 0.5 and a peak: the full tile sort
     "net_heatmap": lambda shape: _net_heatmap(),
+    "keypoint_heatmap": lambda shape: _keypoint_heatmap(),
 }
 
 
@@ -129,6 +139,14 @@ PEAK_CASES = {
     ("flat", (2, 4, 90, 160), 128, 3),
     ("net_heatmap", None, 10, 3),
     ("net_heatmap", None, 128, 3),
+    # the keypoints path: the object heatmap (C = 1, K = 10) and the
+    # keypoint heatmap (C = 8, K = 50) at batch 16
+    ("random", (16, 1, 90, 160), 10, 3),
+    ("random", (16, 1, 90, 160), 50, 3),
+    ("random", (16, 8, 90, 160), 10, 3),
+    ("random", (16, 8, 90, 160), 50, 3),
+    ("sparse", (2, 8, 90, 160), 50, 3),
+    ("keypoint_heatmap", None, 50, 3),
 ])
 def test_torch_peak_decode_kernel_on_card(cuda, name, shape, k, kernel_size):
     x = PEAK_CASES[name](shape).to(cuda)
@@ -137,6 +155,7 @@ def test_torch_peak_decode_kernel_on_card(cuda, name, shape, k, kernel_size):
     want = peak_decode(x, k, kernel_size)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["peak_decode"] == before + 1
+    assert kernels.VARIANT_LAUNCHES[("peak_decode", f"K={k}")] >= 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
 

@@ -35,15 +35,20 @@ from tauv_vision_tpu.models.yolact import Yolact as JaxYolact
 from tauv_vision_tpu.models.yolact import export_yolact_state_dict
 from tauv_vision_tpu import configs as jax_configs
 from tauv_vision_tpu_torch import configs as port_configs
-from tauv_vision_tpu_torch.configs import centernet_config, yolact_config
+from tauv_vision_tpu_torch.configs import centernet_config, keypoints_config, yolact_config
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
 from tauv_vision_tpu_torch.models.yolact import Yolact
-from tauv_vision_tpu_torch.serving.pipeline import make_combined_pipeline, make_yolact_pipeline
+from tauv_vision_tpu_torch.serving.nodes import CenternetServer, YolactServer
+from tauv_vision_tpu_torch.serving.pipeline import (
+    make_centernet_keypoint_pipeline,
+    make_combined_pipeline,
+    make_yolact_pipeline,
+)
 from tauv_vision_tpu_torch.weights import (
     centerpoint_state_dict_from_flax,
     yolact_state_dict_from_flax,
 )
-from torch_parity import random_variables
+from torch_parity import jax_object_config, random_variables
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "tauv_vision_tpu_torch"
@@ -134,6 +139,23 @@ def test_torch_dcn_centerpoint_weights_round_trip(dcn_variables):
         np.testing.assert_array_equal(np.asarray(rebuilt[path]), leaf, err_msg=str(path))
 
 
+def test_torch_keypoint_centerpoint_weights_round_trip():
+    """The keypoint-and-depth net of ``bench.py --keypoints`` (heads:
+    heatmap, keypoint heatmap, affinity, size, offset, depth): flax ->
+    port (strict load) -> reference importer == flax, every leaf random."""
+    oc, _, _ = keypoints_config()
+    model = JaxCenterpointDLA34(object_config=jax_object_config(oc), deform=False)
+    variables = random_variables(model, (1, 32, 32, 3), 4)
+    assert len([k for k in variables["params"]["model"] if k.endswith("_out")]) == 6
+    port = CenterpointDLA34(oc, device="cpu")
+    port.load_state_dict(centerpoint_state_dict_from_flax(variables), strict=True)
+    rebuilt = dict(_flat(load_centerpoint_dla34_state_dict(port.state_dict())))
+    want = dict(_flat(variables))
+    assert rebuilt.keys() == want.keys()
+    for path, leaf in want.items():
+        np.testing.assert_array_equal(np.asarray(rebuilt[path]), leaf, err_msg=str(path))
+
+
 def test_torch_yolact_weights_match_export():
     cfg = yolact_config(72, 104, feature_depth=32)
     model = JaxYolact(cfg)
@@ -164,7 +186,8 @@ def test_torch_port_imports_no_jax():
         REPO / "chip_smoke.py", REPO / "tests" / "test_torch_kernels_cuda.py"]
     assert len(sources) > 10
     for module in ("models/layers.py", "models/centerpoint_dla.py", "configs/__init__.py",
-                   "scripts/op_probe.py", "scripts/int8_dot_probe.py", "ops/image.py"):
+                   "scripts/op_probe.py", "scripts/int8_dot_probe.py", "ops/image.py",
+                   "ops/pnp.py", "serving/nodes.py", "serving/centernet_decode.py"):
         assert PORT / module in sources, module
     for path in sources:
         for name in _imports(path):
@@ -210,6 +233,35 @@ def test_torch_configs_match_jax():
     assert port_configs.get_head_channels(oc) == jax_configs.get_head_channels(jax_oc) == (4, 2, 2)
 
 
+def test_torch_keypoint_codec_matches_jax():
+    """The keypoint-index codec of ``ObjectConfigSet``, on the served
+    keypoint config and on a set with a keypoint-less class between two
+    with keypoints."""
+    oc, cn, projection = keypoints_config()
+    angle = port_configs.AngleConfig(train=False, modulo=None)
+    mixed = port_configs.ObjectConfigSet(configs=tuple(
+        port_configs.ObjectConfig(id=name, yaw=angle, pitch=angle, roll=angle,
+                                  train_depth=False, train_keypoints=kps is not None,
+                                  keypoints=kps)
+        for name, kps in (("a", ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0))), ("b", None),
+                          ("c", ((0.0, 1.0, 0.0),) * 3))))
+    for port in (oc, mixed):
+        jax_oc = jax_object_config(port)
+        assert _fields(port) == _fields(jax_oc)
+        assert port.keypoint_owner_labels() == jax_oc.keypoint_owner_labels()
+        assert port.label_id_to_index == jax_oc.label_id_to_index
+        for flat in range(port.n_keypoints):
+            assert port.decode_keypoint_index(flat) == jax_oc.decode_keypoint_index(flat)
+            assert port.encode_keypoint_index(*port.decode_keypoint_index(flat)) == flat
+        for c in port.configs:
+            assert port.get_by_label(c.id) == c
+    assert mixed.keypoint_owner_labels() == (0, 0, 2, 2, 2)
+    assert port_configs.get_head_channels(oc) == jax_configs.get_head_channels(
+        jax_object_config(oc)) == (1, 8, 16, 2, 2, 1)
+    assert cn == centernet_config()[1]
+    assert np.asarray(projection).shape == (3, 4)
+
+
 def test_torch_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     oc, cn_cfg = centernet_config()
@@ -223,4 +275,11 @@ def test_torch_entry_points_default_to_the_card(monkeypatch):
         make_yolact_pipeline(model, yl_cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_combined_pipeline(model, cn_cfg, model, yl_cfg)
+    kp_oc, kp_cfg, projection = keypoints_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_centernet_keypoint_pipeline(model, kp_cfg, kp_oc, projection)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CenternetServer(model, kp_cfg, kp_oc, np.eye(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        YolactServer(model, yl_cfg, None, np.eye(3))
     assert next(model.parameters()).device.type == "cpu"

@@ -7,9 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from tauv_vision_tpu import configs as jax_configs
 from tauv_vision_tpu.configs import YolactModelConfig as JaxYolactModelConfig
 from tauv_vision_tpu.models.yolact import Yolact as JaxYolact
+from tauv_vision_tpu_torch import configs as port_configs
 from tauv_vision_tpu_torch.configs import YolactModelConfig
+from tauv_vision_tpu_torch.models.centernet import Prediction
 from tauv_vision_tpu_torch.models.yolact import Yolact
 from tauv_vision_tpu_torch.weights import yolact_state_dict_from_flax
 
@@ -28,6 +31,44 @@ SMALL_YOLACT = dict(
 def jax_yolact_config(cfg: YolactModelConfig) -> JaxYolactModelConfig:
     """The JAX package's copy of a port YOLACT config."""
     return JaxYolactModelConfig(**dataclasses.asdict(cfg))
+
+
+def jax_object_config(oc):
+    """The JAX package's copy of a port ``ObjectConfigSet``."""
+    return _convert_object_config(oc, jax_configs)
+
+
+def port_object_config(oc):
+    """The port's copy of a JAX ``ObjectConfigSet``."""
+    return _convert_object_config(oc, port_configs)
+
+
+def _convert_object_config(oc, to):
+    def angle(a):
+        return to.AngleConfig(train=a.train, modulo=a.modulo)
+
+    return to.ObjectConfigSet(configs=tuple(
+        to.ObjectConfig(id=c.id, yaw=angle(c.yaw), pitch=angle(c.pitch), roll=angle(c.roll),
+                        train_depth=c.train_depth, train_keypoints=c.train_keypoints,
+                        keypoints=c.keypoints)
+        for c in oc.configs))
+
+
+def jax_centernet_config(mc):
+    return jax_configs.CenternetModelConfig(**dataclasses.asdict(mc))
+
+
+PREDICTION_FIELDS = ("heatmap", "keypoint_heatmap", "keypoint_affinity", "size", "offset",
+                     "roll_bin", "roll_offset", "pitch_bin", "pitch_offset", "yaw_bin",
+                     "yaw_offset", "depth")
+
+
+def port_prediction(prediction) -> Prediction:
+    """A JAX ``Prediction``'s heads as the port's (NHWC, f32, on the CPU)."""
+    def convert(a):
+        return None if a is None else torch.from_numpy(np.array(a, np.float32))
+
+    return Prediction(**{name: convert(getattr(prediction, name)) for name in PREDICTION_FIELDS})
 
 
 def yolact_pair(cfg: YolactModelConfig, seed: int):
