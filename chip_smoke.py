@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Six served paths: five pair a CenterNet with a YOLACT through
-``make_combined_pipeline``, and the sixth serves the CenterNet node's full
-configuration alone:
+Nine served paths: five pair a CenterNet with a YOLACT through
+``make_combined_pipeline``, two serve the CenterNet and the YOLACT as
+int8 chains in two requests, as ``bench.py`` times them, and two serve
+the CenterNet node's full configuration alone:
 
 - ``plain_ida``: the CenterpointDLA34 with plain-conv IDA (the IDA that
   ``bench.py`` serves with no flags), all f32, beside the f32 YOLACT;
@@ -31,7 +32,21 @@ configuration alone:
   heatmap, affinity and depth heads in bf16 (f32 BatchNorm outputs, no
   f32 stem, kernel C in bf16) through ``make_centernet_keypoint_pipeline``
   at batch 16: kernel A on the object heatmap (K = 10) and on the
-  keypoint heatmap (K = 50), the greedy matcher and LM PnP on the card.
+  keypoint heatmap (K = 50), the greedy matcher and LM PnP on the card;
+- ``chain_int8``: ``bench.py --chain-int8`` (``configs.CHAIN_INT8``): the
+  CenterNet as an int8 chain (``make_centernet_chain_pipeline``: every
+  conv with 16 input channels or more int8, heads included, per-tensor
+  scales of its bf16 model on 2 frames, f32 joins, kernel C in bf16) on
+  ``plain_ida``'s weights, and the YOLACT as an int8 chain at the same
+  recipe (``make_yolact_chain_pipeline``, prediction head int8), each
+  request preprocessing its own bf16 image;
+- ``dcn_chain_int8``: ``bench.py --deform`` (``configs.DCN_CHAIN_INT8``):
+  the same with the CenterNet's 16 IDA blocks deformable in bf16 (kernel
+  E's bf16 entry point) on ``dcn_ida``'s weights;
+- ``keypoints_int8``: the ``int8_fps`` of ``bench.py --keypoints``: the
+  ``keypoints`` net as an int8 chain
+  (``make_centernet_keypoint_chain_pipeline``), calibrated per tensor on
+  its rescaled keypoint head.
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -58,7 +73,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    core (im2col + ``torch._int_mm``) bit-equal to the float64 cuDNN
    convolution at every distinct calibrated conv shape; probe P2 exact;
    probe P1's kernels at the JAX probe's shapes (copies, decimations and
-   the transpose exact, the dots within 1e-4);
+   the transpose exact, the dots within 1e-4); and at the int8-chain
+   paths' own calls: kernel A on ``chain_int8``'s heatmap and the keypoint
+   chain's two, kernel B on the chain-int8 YOLACT's prototypes, kernel C
+   in bf16 at the chains' 8 upsamples (batch 8, 16 and 1), kernel E in
+   bf16 at each distinct DCN shape of ``dcn_chain_int8``, and the integer
+   core at the CenterNet chains' integer convs (heads of 2 and 4 output
+   channels, padded to 8 for ``torch._int_mm``);
 4. serve: for each path, the served pair at full width on seeded random
    weights answers 4 requests of 8 random 640x480 uint8 frames; outputs
    must be finite and well shaped, the launch counters (zeroed just
@@ -79,6 +100,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    kernel and on the plain peak decode is held slot for slot on one
    forward's heads, and ``solve_pnp_batch`` recovers 160 synthetic poses
    (random weights validate few) within 1e-2;
+   the chain pairs answer 4 requests of 8 frames and one of 1 through
+   every kernel of the path, counted as the others, held to their plain
+   versions (``chain_int8``: every int8 code of the CenterNet chain equal;
+   ``dcn_chain_int8``: the trunk's codes equal; both: decodes 100% matched,
+   CenterNet p95 <= 1e-3), and ``keypoints_int8`` 2 requests of 16 frames
+   and one of 1 (codes equal, detections 100% matched, the same keypoints
+   claimed and poses valid); their decodes against the float nets on the
+   same weights are printed, not gated;
    the node servers: ``CenternetServer`` on the keypoint net and
    ``YolactServer`` on the f32 YOLACT, each on one 640x480 colour frame
    and a depth plane at 2 m with invalid cells, an identity pose: every
@@ -97,7 +126,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    frames/s at batch 32, and its stages one by one; kernel A at
    [16,8,90,160] K = 50, and the ``keypoints`` request's frames/s at
    batch 16 with its stages (preprocess, forward, decode, keypoint peaks,
-   matcher, PnP).
+   matcher, PnP); the chain pairs' frames/s at batch 32 (the batch over
+   the sum of their two requests' times), their stages, the CenterNet
+   chain forward's device split from ``torch.profiler`` (im2col, ``_int_mm``,
+   kernels C and E, cuDNN, the rest) and the device's idle share, and
+   ``keypoints_int8`` at batch 16 beside ``keypoints`` in the same run.
 
 Prints one JSON line describing the kernels, with each kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -123,6 +156,8 @@ import torch.nn.functional as F
 
 from tauv_vision_tpu_torch import kernels
 from tauv_vision_tpu_torch.configs import (
+    CHAIN_INT8,
+    DCN_CHAIN_INT8,
     DCN_NORTH_STAR,
     INT8_CHAIN_YOLACT,
     KEYPOINTS,
@@ -175,10 +210,14 @@ from tauv_vision_tpu_torch.serving.pipeline import (
 from tauv_vision_tpu_torch.serving.quantize import calibrate, strip_scales
 from tauv_vision_tpu_torch.serving.quantize_chain import (
     ChainCtx,
+    dla34_chain_forward,
+    make_centernet_chain_pipeline,
+    make_centernet_keypoint_chain_pipeline,
     make_yolact_chain_pipeline,
     yolact_chain_forward,
 )
 from tauv_vision_tpu_torch.serving.yolact_decode import decode_yolact
+from tauv_vision_tpu_torch.weights import centerpoint_calibration_paths, centerpoint_flax_path
 
 FRAME_H, FRAME_W = 480, 640
 CHECK_BATCH = 8
@@ -285,11 +324,24 @@ P1_ROWS = {
     "op_probe/transpose": (309, "transpose [32,320]->[320,32]+bf16"),
 }
 PATHS = ("plain_ida", "dcn_ida", "int8_chain", "north_star", "dcn_north_star")
-ALL_PATHS = PATHS + ("keypoints",)
+# The int8-chain pairs: {path: (recipe, the f32 path whose CenterNet weights
+# it serves)}.  bench.py times the CenterNet chain and the YOLACT chain as
+# two requests on the same frames (bench.py:1620-1627), and so do these.
+CHAIN_PAIRS = {"chain_int8": (CHAIN_INT8, "plain_ida"), "dcn_chain_int8": (DCN_CHAIN_INT8, "dcn_ida")}
+KP_INT8 = "keypoints_int8"
+ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8,)
+PAIR_ITERS = 5        # timed repetitions of a pair path's request at batch 32
+CHAIN_ITERS = 5       # of each of a chain pair's two requests
 # The paths beside an int8-chain YOLACT, and its recipe on each.
 CHAIN_RECIPES = {"int8_chain": INT8_CHAIN_YOLACT, "north_star": NORTH_STAR.yolact,
                  "dcn_north_star": DCN_NORTH_STAR.yolact}
 BF16_PATHS = ("north_star", "dcn_north_star")   # the bf16 CenterNet's
+# The chain pairs' decoded CenterNet, kernels against plain versions:
+# 100% matched and every p95 within this (the PARITY.md bar).  On
+# dcn_chain_int8 kernel E sums in another order than its plain version, so
+# codes after the DCN blocks may differ by one or two, and the heads by
+# what that moves them.
+CHAIN_P95 = 1e-3
 DCN_PATHS = ("dcn_ida", "dcn_north_star")
 # The bf16 CenterNets: {path: (recipe, the f32 path whose weights it serves)}.
 BF16_NETS = {"north_star": (NORTH_STAR, "plain_ida"), "dcn_north_star": (DCN_NORTH_STAR, "dcn_ida")}
@@ -426,6 +478,98 @@ def build_models(device):
     return nets, cn_cfg, yl, yl_cfg, chains
 
 
+def build_chain_nets(nets, cn_cfg, yl, yl_cfg, kp_net, device):
+    """The int8-chain paths' nets, calibrated as ``bench.py`` calibrates
+    them (per-tensor scales on the first 2 frames; the CenterNet's of its
+    bf16 model with f32 BatchNorm outputs, keyed by
+    ``centerpoint_calibration_paths``): ({chain pair: {"model", "scales",
+    "kernel": (ctx, forward), "plain": (ctx, forward)}}, the pairs'
+    YOLACT scales, the keypoint chain's scales).  The CenterNets serve
+    the f32 paths' weights; the keypoint chain the ``keypoints`` net, its
+    keypoint head rescaled."""
+    cal = request_frames(0, (N_CALIBRATION, FRAME_H, FRAME_W, 3)).to(device)
+    oc, _ = centernet_config()
+    chains = {}
+    for path, (recipe, f32_path) in CHAIN_PAIRS.items():
+        cn = CenterpointDLA34(oc, device=device, **recipe.centernet_kwargs()).eval()
+        cn.load_state_dict(nets[f32_path][0].state_dict())
+        img = preprocess(cal, (cn_cfg.in_h, cn_cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                         recipe.input_dtype)
+        scales = calibrate(cn, [img], paths_of=centerpoint_calibration_paths)
+        chains[path] = {"model": cn, "scales": scales}
+        for impl in ("kernel", "plain"):
+            ctx = ChainCtx(cn, scales, dtype=recipe.input_dtype, join_dtype=None, impl=impl,
+                           path_of=centerpoint_flax_path)
+            chains[path][impl] = (ctx, dla34_chain_forward(ctx))
+        print(f"int8 chain CenterNet of {path}: {len(scales)} calibrated convs, per-tensor, "
+              f"{len(cn.deform_convs())} bf16 DCN blocks, f32 joins")
+    recipe = CHAIN_INT8.yolact
+    img = preprocess(cal, (yl_cfg.in_h, yl_cfg.in_w), yl_cfg.img_mean, yl_cfg.img_stddev)
+    yl_scales = strip_scales(calibrate(yl, [img], per_channel=recipe.per_channel),
+                             recipe.float_paths)
+    kp, _, _, kp_cfg, _ = kp_net
+    img = preprocess(cal, (kp_cfg.in_h, kp_cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                     KEYPOINTS.input_dtype)
+    kp_scales = calibrate(kp, [img], paths_of=centerpoint_calibration_paths)
+    print(f"int8 chain YOLACT of the chain pairs: {len(yl_scales)} calibrated convs, "
+          f"per-tensor, prediction head int8, f32 joins; keypoint chain: {len(kp_scales)}")
+    return chains, yl_scales, kp_scales
+
+
+def chain_pair_pipelines(path, chains, cn_cfg, yl, yl_scales, knobs=SERVING_DECODE):
+    """{impl: (CenterNet chain pipeline, YOLACT chain pipeline)} of a chain
+    pair: the two requests ``bench.py`` times, each preprocessing its own
+    bf16 image."""
+    recipe, device = CHAIN_PAIRS[path][0], torch.device("cuda")
+    net = chains[path]
+    return {impl: (
+        make_centernet_chain_pipeline(net["model"], cn_cfg, net["scales"], device, knobs,
+                                      dtype=recipe.input_dtype, impl=impl),
+        make_yolact_chain_pipeline(yl, yl_scales, device, knobs, dtype=recipe.yolact.dtype,
+                                   join_dtype=recipe.yolact.join_dtype, impl=impl))
+        for impl in ("kernel", "plain")}
+
+
+def keypoint_chain_pipelines(kp_net, kp_scales, knobs=SERVING_DECODE):
+    """(the keypoint chain's pipeline on the kernels, on the plain versions)."""
+    kp, _, _, cfg, projection = kp_net
+    return tuple(make_centernet_keypoint_chain_pipeline(
+        kp, cfg, kp_scales, projection, torch.device("cuda"), knobs, dtype=KEYPOINTS.input_dtype,
+        impl=impl) for impl in ("kernel", "plain"))
+
+
+def keypoint_chain_forward(kp, kp_scales, impl, with_ctx=False):
+    """The keypoint net's chain forward on ``impl`` (with its context)."""
+    ctx = ChainCtx(kp, kp_scales, dtype=KEYPOINTS.input_dtype, join_dtype=None, impl=impl,
+                   path_of=centerpoint_flax_path)
+    forward = dla34_chain_forward(ctx)
+    return (ctx, forward) if with_ctx else forward
+
+
+def chain_upsample_calls(forward, img):
+    """(x, weight, factor) of every depthwise upsample of one chain forward
+    on the plain versions (kernel C's inputs: the f32 BatchNorm output
+    cast to bf16)."""
+    calls, plain = [], quantize_chain.depthwise_upsample
+
+    def record(x, w, f):
+        calls.append((x.clone(), w, f))
+        return plain(x, w, f)
+
+    quantize_chain.depthwise_upsample = record
+    try:
+        forward(img)
+    finally:
+        quantize_chain.depthwise_upsample = plain
+    return calls
+
+
+def chain_codes(ctx, forward, img):
+    """{path: int8 output} of every layer of one chain forward that emits
+    int8."""
+    return chain_calls(ctx, forward, img)["codes"]
+
+
 def build_keypoint_nets(device):
     """(the keypoint CenterNet on the kernels, the same weights on the
     plain versions, its object config, model config, projection)."""
@@ -531,14 +675,17 @@ def chain_calls(ctx, forward, img):
     """One chain forward of ``img``: {"transpose": [(x_q, qk, deq, bias,
     out_scale, act, out_dtype, taps)] of kernel D's two calls, "int8_conv":
     [(q, qk, stride, padding)] of every integer conv, "maps": {path:
-    output} of the protonet's layers}."""
-    record = {"transpose": [], "int8_conv": [], "maps": {}}
+    output} of the protonet's layers, "codes": {path: output} of every
+    layer that emits int8}."""
+    record = {"transpose": [], "int8_conv": [], "maps": {}, "codes": {}}
     run_layer, conv = ctx.run_layer, quantize_chain.conv2d_int8
 
     def run(inp, path, **kwargs):
         y = run_layer(inp, path, **kwargs)
         if path.startswith("protonet/"):
             record["maps"][path] = y
+        if y.dtype == torch.int8:
+            record["codes"][path] = y
         if path in UPSAMPLES:
             qk, deq, bias, out_scale, taps = ctx.transpose_args(path, D_NEXT[path])
             record["transpose"].append((inp, qk, deq, bias, out_scale, "leaky", torch.int8, taps))
@@ -830,6 +977,140 @@ def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img, kp_net, kp_maps):
     return errs, record, shapes
 
 
+def check_chain_kernels(chains, cn_cfg, yl, yl_cfg, yl_scales, kp_net, kp_scales, errs):
+    """Kernels A, B, C bf16 and E bf16 at the int8-chain paths' own calls,
+    each against its plain version on the same inputs, and the integer
+    core at the CenterNet chains' integer convs (heads of 1, 2 and 4
+    channels among them).  Updates ``errs``; returns the CenterNet chain's
+    {shape: (q, qk, stride, padding)} of its distinct integer convs."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    frames = request_frames(0, (N_REQUESTS, CHECK_BATCH, FRAME_H, FRAME_W, 3))[0].cuda()
+    img = preprocess(frames, (cn_cfg.in_h, cn_cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                     CHAIN_INT8.input_dtype)
+    kp, _, _, kp_cfg, _ = kp_net
+    kp_frames = request_frames(4, (KP_REQUESTS, KP_BATCH, FRAME_H, FRAME_W, 3))[0].cuda()
+    kp_img = preprocess(kp_frames, (kp_cfg.in_h, kp_cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                        KEYPOINTS.input_dtype)
+    kp_forward = {impl: keypoint_chain_forward(kp, kp_scales, impl) for impl in ("kernel", "plain")}
+
+    # Kernel A on the chains' own heatmaps: chain_int8's [8,4,90,160] at
+    # K = 10, the keypoint chain's [16,1,90,160] K = 10 and [16,8,90,160]
+    # K = 50.
+    with torch.inference_mode():
+        heads = chains["chain_int8"]["plain"][1](img)
+        kp_heads = kp_forward["plain"](kp_img)
+    cases = [("chain_int8_heatmap", heads.heatmap_nchw(), SERVING_DECODE.n_detections),
+             ("keypoints_int8_heatmap", kp_heads.heatmap_nchw(), SERVING_DECODE.n_detections),
+             ("keypoints_int8_keypoint_heatmap", kp_heads.keypoint_heatmap_nchw(),
+              SERVING_DECODE.keypoint_n_detections)]
+    for name, x, kk in cases:
+        require(x.is_contiguous(), f"{name}: the chain's heatmap is not contiguous NCHW")
+        got, want = peak_decode_cuda(x, kk), peak_decode(x, kk)
+        torch.cuda.synchronize()
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"peak_decode {name} K={kk}: index or label differs")
+        e = (got[2] - want[2]).abs().max().item()
+        require(e <= PEAK_ATOL, f"peak_decode {name} K={kk}: score err {e}")
+        row = "peak_decode_k50" if kk == 50 else "peak_decode"
+        errs[row] = max(errs[row], e)
+        print(f"check peak_decode {name} {tuple(x.shape)} K={kk}: index/label exact, score "
+              f"max_abs_err {e:.3g} (atol {PEAK_ATOL})")
+
+    # Kernel B on the chain-int8 YOLACT's prototypes (the NHWC view).
+    recipe = CHAIN_INT8.yolact
+    yl_img = preprocess(frames, (yl_cfg.in_h, yl_cfg.in_w), yl_cfg.img_mean, yl_cfg.img_stddev,
+                        recipe.dtype)
+    with torch.inference_mode():
+        proto = yolact_chain_forward(ChainCtx(yl, yl_scales, dtype=recipe.dtype,
+                                              join_dtype=recipe.join_dtype, impl="plain"))(
+            yl_img).mask_prototype.permute(0, 3, 1, 2)
+    kk = SERVING_DECODE.top_k
+    coeff = torch.tanh(torch.randn((proto.shape[0], kk, proto.shape[1]), generator=gen,
+                                   device="cuda"))
+    box = torch.cat([torch.rand((proto.shape[0], kk, 2), generator=gen, device="cuda"),
+                     torch.rand((proto.shape[0], kk, 2), generator=gen, device="cuda") * 0.6], -1)
+    got, want = assemble_mask_cuda(proto, coeff, box), assemble_mask_batch(proto, coeff, box)
+    torch.cuda.synchronize()
+    e = (got - want).abs().max().item()
+    require(e <= MASK_ATOL, f"mask_assembly chain_int8 prototypes: err {e}")
+    errs["mask_assembly"] = max(errs["mask_assembly"], e)
+    print(f"check mask_assembly chain_int8 proto {tuple(proto.shape)} strides {proto.stride()} "
+          f"K={kk} crop: max_abs_err {e:.3g} (atol {MASK_ATOL})")
+
+    # Kernel C in bf16 at the chains' 8 upsamples a forward: the f32
+    # BatchNorm output cast to bf16, batch 8 (chain pairs) and 16 and 1
+    # (keypoint chain); equal or one bf16 ulp apart.
+    differ, total = 0, 0
+    for tag, forward, x_in in (("chain_int8", chains["chain_int8"]["plain"][1], img),
+                               ("dcn_chain_int8", chains["dcn_chain_int8"]["plain"][1], img),
+                               (KP_INT8, kp_forward["plain"], kp_img),
+                               (f"{KP_INT8}_b1", kp_forward["plain"], kp_img[:1])):
+        with torch.inference_mode():
+            calls = chain_upsample_calls(forward, x_in)
+        require(len(calls) == 8 and all(x.dtype == torch.bfloat16 for x, _, _ in calls),
+                f"{tag}: expected 8 bf16 upsamples, got {len(calls)}")
+        for i, (x, w, f) in enumerate(calls):
+            got, want = depthwise_upsample_cuda(x, w, f), depthwise_upsample(x, w, f)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            ulps = (diff / bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))).max()
+            require(got.dtype == want.dtype and ulps.item() <= 1.0,
+                    f"depthwise_upsample bf16 {tag} call {i}: {ulps.item()} ulps")
+            n = int((got != want).sum().item())
+            differ, total = differ + n, total + got.numel()
+            errs["depthwise_upsample_bf16"] = max(errs["depthwise_upsample_bf16"],
+                                                  diff.max().item())
+        print(f"check depthwise_upsample_bf16 {tag}: 8 calls {[tuple(c[0].shape) for c in calls]}"
+              f", {differ} of {total} elements one ulp apart so far (tolerance one bf16 ulp)")
+
+    # Kernel E in bf16 at the DCN chain's calls: its bf16 input, f32
+    # offsets and bf16 masks, each distinct shape once.
+    cn = chains["dcn_chain_int8"]["model"]
+    calls = hooked_calls(chains["dcn_chain_int8"]["plain"][1], cn.deform_convs(), img,
+                         lambda m, args: (*(a.clone() for a in args),
+                                          m.weight.detach().to(args[0].dtype), m.bias.detach()))
+    require(len(calls) == N_DCN, f"dcn_chain_int8: {len(calls)} DCN calls a forward")
+    by_shape = dcn_shapes(calls)
+    require(len(by_shape) == N_DCN_SHAPES, f"dcn_chain_int8: {len(by_shape)} DCN shapes")
+    differ, total = 0, 0
+    for (shape, o), ((x, offset, mask, w, bias), _) in by_shape.items():
+        require(x.dtype == mask.dtype == torch.bfloat16 and offset.dtype == torch.float32
+                and x.is_contiguous(), f"dcn_chain_int8 DCN inputs {x.dtype} {offset.dtype}")
+        got, want = deform_conv2d_cuda(x, offset, mask, w, bias), deform_conv2d(x, offset, mask,
+                                                                                 w, bias)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        big = torch.maximum(got.float().abs(), want.float().abs())
+        bar = bf16_ulp(big) + 9 * shape[1] * 2.0 ** -24 * want.float().abs().max()
+        require(not (diff > bar).any().item(), f"deform_conv_bf16 dcn_chain_int8 {shape}: "
+                                               f"err {diff.max().item()}")
+        n = int((got != want).sum().item())
+        differ, total = differ + n, total + got.numel()
+        errs["deform_conv_bf16"] = max(errs["deform_conv_bf16"], diff.max().item())
+        print(f"check deform_conv_bf16 dcn_chain_int8 {shape} -> O={o} (net |offset| <= "
+              f"{offset.abs().max().item():.2f}): max_abs_err {diff.max().item():.3g}, {n} of "
+              f"{got.numel()} outputs differ (one bf16 ulp + 9 C 2^-24 max|plain|)")
+    print(f"check deform_conv_bf16 dcn_chain_int8: {differ / total:.3g} of all outputs differ")
+
+    # The integer core at the CenterNet chains' integer convs.
+    shapes = {}
+    for path in CHAIN_PAIRS:
+        record = chain_calls(*chains[path]["plain"], img)
+        for q, qk, stride, padding in record["int8_conv"]:
+            shapes.setdefault((tuple(q.shape), tuple(qk.shape), tuple(stride), padding),
+                              (q, qk, stride, padding))
+    for key, (q, qk, stride, padding) in shapes.items():
+        got = quantize_chain.conv2d_int8(q, qk, stride, padding)
+        want = conv2d_int8_f64(q, qk, stride, padding)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"conv2d_int8 CenterNet chain {key}: differs from float64")
+    narrow = sorted({k[1][3] for k in shapes if k[1][3] % 8})
+    print(f"check conv2d_int8: the CenterNet chains' {len(shapes)} distinct integer convs "
+          f"bit-equal to the float64 conv (output widths {narrow} padded to 8)")
+    require(narrow == [2, 4], f"CenterNet chain narrow convs {narrow}")
+    return shapes
+
+
 def check_op_probe():
     """Probe P1's kernels against their plain versions at the JAX probe's
     shapes: the dots within P1_DOT_ATOL, the rest exact."""
@@ -1078,6 +1359,186 @@ def serve_phase(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains, f32_cn):
         print(f"report {path}: int8-chain YOLACT decode against the f32 YOLACT on the "
               f"same weights and frames (random weights, not gated): {matched:.4f} of "
               f"{total} matched at score threshold 0, worst request p95 {worst}")
+    return launches, entries, variants
+
+
+def chain_launches(cn):
+    """Each kernel's launches in one chain pair request: kernel A in the
+    CenterNet's decode, B in the YOLACT's, C at every upsample and E at
+    every DCN block of the CenterNet chain (both bf16), nothing else."""
+    return {**{name: 0 for name in KERNELS}, "peak_decode": 1, "mask_assembly": 1,
+            "depthwise_upsample": len(cn.depthwise_upsamples()),
+            "deform_conv": len(cn.deform_convs())}
+
+
+def check_chain_launches(path, cn, n_requests, by_kernel, by_entry):
+    want = {name: n_requests * n for name, n in chain_launches(cn).items()}
+    require(by_kernel == want, f"{path}: launch counts {by_kernel}, expected {want}")
+    for entry, n in (("tauv_depthwise_upsample_bf16", len(cn.depthwise_upsamples())),
+                     ("tauv_deform_conv_bf16", len(cn.deform_convs()))):
+        require(by_entry[entry] == n_requests * n,
+                f"{path}: {entry} launched {by_entry[entry]} times, expected {n_requests * n}")
+
+
+def serve_chain_pair(path, chains, nets, cn_cfg, yl, yl_cfg, yl_scales):
+    """Serve a chain pair's 4 requests of 8 frames (its CenterNet chain and
+    its YOLACT chain as two requests each) and one of 1 frame, and hold
+    them to the plain versions: decodes matched (on ``chain_int8`` the
+    CenterNet chain's int8 codes equal too); returns (launches by kernel,
+    by entry point, by variant) of the served run."""
+    device = torch.device("cuda")
+    requests = [request_frames(0, (N_REQUESTS, CHECK_BATCH, FRAME_H, FRAME_W, 3))[i].pin_memory()
+                for i in range(N_REQUESTS)]
+    pipes = chain_pair_pipelines(path, chains, cn_cfg, yl, yl_scales)
+    (cn_pipe, yl_pipe), (cn_plain, yl_plain) = pipes["kernel"], pipes["plain"]
+    cn = chains[path]["model"]
+    deform = CHAIN_PAIRS[path][0].centernet.deform
+    require(len(cn.depthwise_upsamples()) == 8 and len(cn.deform_convs()) == (N_DCN if deform
+                                                                               else 0),
+            f"{path}: {len(cn.deform_convs())} DCN blocks")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    answers = [(cn_pipe(r), yl_pipe(r)) for r in requests]
+    torch.cuda.synchronize()
+    launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+    variants = dict(kernels.VARIANT_LAUNCHES)
+    print(f"serve {path}: {N_REQUESTS} requests x {CHECK_BATCH} frames, each the CenterNet "
+          f"chain and the YOLACT chain, launches {launches} (kernel C: "
+          f"{entries['tauv_depthwise_upsample_bf16']} bf16, kernel E: "
+          f"{entries['tauv_deform_conv_bf16']} bf16)")
+    check_chain_launches(path, cn, N_REQUESTS, launches, entries)
+
+    with torch.inference_mode():
+        img = preprocess(requests[0].to(device), (cn_cfg.in_h, cn_cfg.in_w), IMAGENET_MEAN,
+                         IMAGENET_STDDEV, CHAIN_PAIRS[path][0].input_dtype)
+    codes = {impl: chain_codes(*chains[path][impl], img) for impl in ("kernel", "plain")}
+    require(codes["kernel"].keys() == codes["plain"].keys(), f"{path}: int8 layers differ")
+    differ, total, worst = 0, 0, 0
+    for layer, q in codes["kernel"].items():
+        diff = (q.int() - codes["plain"][layer].int()).abs()
+        differ, total = differ + int((diff > 0).sum()), total + diff.numel()
+        worst = max(worst, int(diff.max()))
+    if deform:
+        trunk = [layer for layer in codes["kernel"] if layer.startswith("model/base/")]
+        require(all(torch.equal(codes["kernel"][t], codes["plain"][t]) for t in trunk),
+                f"{path}: trunk codes differ between kernel and plain")
+        print(f"serve {path}: CenterNet chain int8 codes kernel vs plain: the trunk's "
+              f"{len(trunk)} maps equal; after the DCN blocks {differ} of {total} codes differ "
+              f"(at most by {worst}); decoded detections compared below")
+    else:
+        require(differ == 0, f"{path}: {differ} of {total} int8 codes differ kernel vs plain")
+        print(f"serve {path}: CenterNet chain int8 codes kernel vs plain: all {total} codes of "
+              f"{len(codes['kernel'])} int8 maps equal")
+
+    plain_answers = [(cn_plain(r), yl_plain(r)) for r in requests]
+    _, cn_p95, mask_err = check_answers(path, answers, plain_answers, CHECK_BATCH)
+    print(f"serve {path}: decoded kernel vs plain (score threshold 0): CenterNet and YOLACT "
+          f"100% matched, CenterNet p95 {cn_p95} (bar {CHAIN_P95}), mask max_abs_err "
+          f"{mask_err:.3g}; "
+          f"{sum(int(a[0].valid.sum()) for a in answers)} CenterNet and "
+          f"{sum(int(a[1].valid.sum()) for a in answers)} YOLACT detections valid at the "
+          f"served thresholds")
+    require(all(v <= CHAIN_P95 for v in cn_p95.values()),
+            f"{path}: CenterNet decode kernel vs plain p95 {cn_p95} (bar {CHAIN_P95})")
+
+    frame = request_frames(3, (1, FRAME_H, FRAME_W, 3)).pin_memory()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    one = (cn_pipe(frame), yl_pipe(frame))
+    torch.cuda.synchronize()
+    check_chain_launches(f"{path} batch 1", cn, 1, dict(kernels.LAUNCHES),
+                         dict(kernels.ENTRY_LAUNCHES))
+    _, p95_1, mask_err1 = check_answers(path, [one], [(cn_plain(frame), yl_plain(frame))],
+                                             1)
+    require(all(v <= CHAIN_P95 for v in p95_1.values()), f"{path} batch 1: p95 {p95_1}")
+    print(f"serve {path} batch 1: launches {dict(kernels.LAUNCHES)}, decoded kernel vs plain: "
+          f"CenterNet and YOLACT 100% matched, CenterNet p95 {p95_1}, mask max_abs_err "
+          f"{mask_err1:.3g}")
+
+    # The chains against the float nets on the same weights (random
+    # weights: reported, not gated).
+    f32_cn = nets[CHAIN_PAIRS[path][1]][0]
+    f32 = make_centernet_pipeline(f32_cn, cn_cfg, device)
+    f32_yl = make_yolact_pipeline(yl, yl_cfg, device)
+    for name, ref, i in (("CenterNet", f32, 0), ("YOLACT", f32_yl, 1)):
+        stats = [detection_deltas(ref(r), a[i], score_threshold=0.0)
+                 for r, a in zip(requests, answers)]
+        total = sum(st["total"] for st in stats)
+        worst = {key: max(st.get(key, 0.0) for st in stats)
+                 for key in ("center_delta_p95", "score_delta_p95", "size_delta_p95")}
+        print(f"report {path}: int8-chain {name} decode against the f32 {name} on the same "
+              f"weights and frames (random weights, not gated): "
+              f"{sum(st['matched_fraction'] * st['total'] for st in stats) / max(total, 1):.4f}"
+              f" of {total} matched at score threshold 0, worst request p95 {worst}")
+    return launches, entries, variants
+
+
+def serve_keypoints_int8(kp_net, kp_scales):
+    """Serve the keypoint chain's 2 requests of 16 frames and one of 1 frame,
+    and hold them to the plain versions: int8 codes equal, detections 100%
+    matched, the same keypoints claimed and poses valid; returns the served
+    run's launches (by kernel, by entry point, by variant)."""
+    device = torch.device("cuda")
+    kp, _, oc, cfg, _ = kp_net
+    n_slots = max(len(c.keypoints) for c in oc.configs)
+    requests = [request_frames(4, (KP_REQUESTS, KP_BATCH, FRAME_H, FRAME_W, 3))[i].pin_memory()
+                for i in range(KP_REQUESTS)]
+    pipe, _ = keypoint_chain_pipelines(kp_net, kp_scales)
+    per_request = keypoint_launches(kp)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    answers = [pipe(r) for r in requests]
+    torch.cuda.synchronize()
+    launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+    variants = dict(kernels.VARIANT_LAUNCHES)
+    print(f"serve {KP_INT8}: {KP_REQUESTS} requests x {KP_BATCH} frames, launches {launches} "
+          f"(kernel A by K: {variants}, kernel C: {entries['tauv_depthwise_upsample_bf16']} bf16)")
+    require(launches == {name: KP_REQUESTS * n for name, n in per_request.items()},
+            f"{KP_INT8}: launch counts {launches}")
+    require(entries["tauv_depthwise_upsample_bf16"] == KP_REQUESTS * 8,
+            f"{KP_INT8}: kernel C's bf16 launches")
+    require(variants == {("peak_decode", "K=10"): KP_REQUESTS,
+                         ("peak_decode", "K=50"): KP_REQUESTS}, f"{KP_INT8}: kernel A by K")
+    for out in answers:
+        check_keypoint_outputs(out, KP_BATCH, n_slots)
+
+    with torch.inference_mode():
+        img = preprocess(requests[0].to(device), (cfg.in_h, cfg.in_w), IMAGENET_MEAN,
+                         IMAGENET_STDDEV, KEYPOINTS.input_dtype)
+    codes = {impl: chain_codes(*keypoint_chain_forward(kp, kp_scales, impl, with_ctx=True), img)
+             for impl in ("kernel", "plain")}
+    require(codes["kernel"].keys() == codes["plain"].keys() and all(
+        torch.equal(q, codes["plain"][layer]) for layer, q in codes["kernel"].items()),
+        f"{KP_INT8}: int8 codes differ kernel vs plain")
+
+    pipe0, plain0 = keypoint_chain_pipelines(kp_net, kp_scales, ALL_SLOTS)
+    claimed, posed = [0, 0], [0, 0]
+    for r in requests + [request_frames(5, (1, FRAME_H, FRAME_W, 3)).pin_memory()]:
+        got, ref = pipe0(r), plain0(r)
+        stats = detection_deltas(ref.detections, got.detections, score_threshold=0.0)
+        require(stats["matched_fraction"] == 1.0, f"{KP_INT8}: decode kernel vs plain {stats}")
+        for name in ("keypoint_valid", "pose_valid"):
+            require(torch.equal(getattr(got, name), getattr(ref, name)),
+                    f"{KP_INT8}: {name} differs kernel vs plain")
+        for i, out in enumerate((got, ref)):
+            claimed[i] += int(out.keypoint_valid.sum())
+            posed[i] += int(out.pose_valid.sum())
+    print(f"serve {KP_INT8}: int8 codes kernel vs plain equal ({len(codes['kernel'])} maps); "
+          f"decoded at threshold 0 over {KP_REQUESTS} x {KP_BATCH} + 1 frames 100% matched, "
+          f"keypoints claimed {claimed[0]} (plain {claimed[1]}), PnP solves valid {posed[0]} "
+          f"(plain {posed[1]})")
+
+    frame = request_frames(5, (1, FRAME_H, FRAME_W, 3)).pin_memory()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    one = pipe(frame)
+    torch.cuda.synchronize()
+    require(dict(kernels.LAUNCHES) == per_request and kernels.VARIANT_LAUNCHES == {
+        ("peak_decode", "K=10"): 1, ("peak_decode", "K=50"): 1},
+        f"{KP_INT8} batch 1: launch counts {dict(kernels.LAUNCHES)}")
+    check_keypoint_outputs(one, 1, n_slots)
+    print(f"serve {KP_INT8} batch 1: launches {dict(kernels.LAUNCHES)}")
     return launches, entries, variants
 
 
@@ -1589,7 +2050,7 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
     pipes = {}
     for path, (cn, cn_plain) in nets.items():
         pipe, plain = pipelines(path, cn, cn_plain, cn_cfg, yl, yl_cfg, chains)
-        k_ms, p_ms = abba(lambda: pipe(frames), lambda: plain(frames), 10)
+        k_ms, p_ms = abba(lambda: pipe(frames), lambda: plain(frames), PAIR_ITERS)
         print(f"time pipeline {path} batch {FPS_BATCH} (upload + resize + both nets + "
               f"decode): kernels {k_ms:.3f} ms = {FPS_BATCH * 1000 / k_ms:.2f} "
               f"frames/s, plain {p_ms:.3f} ms = {FPS_BATCH * 1000 / p_ms:.2f} frames/s "
@@ -1733,6 +2194,161 @@ def time_keypoints(kp_net, card):
               for name, ms in stage_ms.items()) + f" ({card})")
 
 
+def chain_split(forward, img, reps: int = 3):
+    """{part: device ms} of one chain forward, from ``torch.profiler``:
+    the integer convs' im2col side (padding, the strided copy, the
+    weight's layout; their annotated range less ``_int_mm``), ``_int_mm``,
+    kernel C, kernel E, the cuDNN convs (the float stem, the DCN blocks'
+    offset and mask conv), the rest (epilogues, quantization, BatchNorms,
+    joins, pools, casts), and "busy" (every kernel and copy); None where
+    the profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    conv = quantize_chain.conv2d_int8
+
+    def annotated(*args):
+        with record_function("chain.int8_conv"):
+            return conv(*args)
+
+    quantize_chain.conv2d_int8 = annotated
+    try:
+        forward(img)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                forward(img)
+            torch.cuda.synchronize()
+    finally:
+        quantize_chain.conv2d_int8 = conv
+    rows = prof.key_averages()
+    # The annotated range also appears on the device's timeline: not a kernel.
+    kernel_rows = [e for e in rows
+                   if e.device_type == DeviceType.CUDA and e.key != "chain.int8_conv"]
+    if not kernel_rows:
+        return None, prof
+
+    def cpu_total(name):
+        return sum(e.device_time_total for e in rows
+                   if e.device_type == DeviceType.CPU and e.key == name) / 1e3 / reps
+
+    def kernels_named(*parts):
+        return sum(e.self_device_time_total for e in kernel_rows
+                   if any(p in e.key for p in parts)) / 1e3 / reps
+
+    split = {"busy": sum(e.self_device_time_total for e in kernel_rows) / 1e3 / reps,
+             "int_mm": cpu_total("aten::_int_mm"),
+             "C": kernels_named("depthwise_upsample_kernel"),
+             "E": kernels_named("deform_conv_kernel", "deform_conv_reduce", "nchw_to_nhwc"),
+             "cudnn_conv": cpu_total("aten::cudnn_convolution")}
+    split["im2col"] = cpu_total("chain.int8_conv") - split["int_mm"]
+    split["other"] = split["busy"] - sum(split[k] for k in ("im2col", "int_mm", "C", "E",
+                                                            "cudnn_conv"))
+    return {k: round(v, 3) for k, v in split.items()}, prof
+
+
+def time_chain_paths(chains, nets, cn_cfg, yl, yl_cfg, yl_scales, kp_net, kp_scales, card,
+                     profile_dir):
+    """The int8-chain paths' requests (kernels and plain): each chain pair
+    at batch 32 as bench.py times it (frames/s = batch over the sum of its
+    two requests), the keypoint chain at batch 16; their stages and the
+    CenterNet chain forward's split from torch.profiler."""
+    device = torch.device("cuda")
+    frames = request_frames(1, (FPS_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    for path in CHAIN_PAIRS:
+        pipes = chain_pair_pipelines(path, chains, cn_cfg, yl, yl_scales)
+        (cn_k, yl_k), (cn_p, yl_p) = pipes["kernel"], pipes["plain"]
+        cn_ms, cn_plain_ms = abba(lambda: cn_k(frames), lambda: cn_p(frames), CHAIN_ITERS)
+        yl_ms, yl_plain_ms = abba(lambda: yl_k(frames), lambda: yl_p(frames), CHAIN_ITERS)
+        busy_ms, n_kernels = device_busy(lambda: (cn_k(frames), yl_k(frames)))
+        wall = cn_ms + yl_ms
+        idle = "not measured" if busy_ms is None else f"{1 - busy_ms / wall:.1%}"
+        print(f"time pipeline {path} batch {FPS_BATCH} (bench.py's two requests, each upload + "
+              f"bf16 preprocess + int8 chain + decode): CenterNet {cn_ms:.3f} ms, YOLACT "
+              f"{yl_ms:.3f} ms, kernels {FPS_BATCH * 1000 / wall:.2f} frames/s, plain "
+              f"CenterNet {cn_plain_ms:.3f} ms, YOLACT {yl_plain_ms:.3f} ms = "
+              f"{FPS_BATCH * 1000 / (cn_plain_ms + yl_plain_ms):.2f} frames/s; the kernels' "
+              f"pair: {n_kernels} device kernels and copies, busy {busy_ms} ms, the device idle "
+              f"{idle} ({card})")
+
+    knobs = SERVING_DECODE
+    recipe = CHAIN_INT8
+    with torch.inference_mode():
+        on_card = frames.to(device)
+        cn_in = preprocess(on_card, (cn_cfg.in_h, cn_cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                           recipe.input_dtype)
+        yl_in = preprocess(on_card, (yl_cfg.in_h, yl_cfg.in_w), yl_cfg.img_mean,
+                           yl_cfg.img_stddev, recipe.yolact.dtype)
+        yl_fwd = yolact_chain_forward(ChainCtx(yl, yl_scales, dtype=recipe.yolact.dtype,
+                                               join_dtype=recipe.yolact.join_dtype))
+        cn_fwd = chains["chain_int8"]["kernel"][1]
+        dcn_fwd = chains["dcn_chain_int8"]["kernel"][1]
+        cn_pred, yl_pred = cn_fwd(cn_in), yl_fwd(yl_in)
+        stages = {
+            "upload": lambda: frames.to(device, non_blocking=True),
+            "preprocess to bf16 (CenterNet)": lambda: preprocess(
+                on_card, (cn_cfg.in_h, cn_cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                recipe.input_dtype),
+            "CenterNet int8 chain forward (chain_int8)": lambda: cn_fwd(cn_in),
+            "CenterNet int8 chain forward, DCN IDA (dcn_chain_int8)": lambda: dcn_fwd(cn_in),
+            "CenterNet bf16 forward (north_star), same frames": lambda: nets["north_star"][0](
+                cn_in.float()),
+            "YOLACT int8 chain forward, chain-int8 recipe": lambda: yl_fwd(yl_in),
+            "CenterNet decode": lambda: decode(cn_pred, cn_cfg, knobs.n_detections,
+                                               knobs.score_threshold),
+            "YOLACT decode": lambda: decode_yolact(yl_pred, yl_cfg, knobs.top_k,
+                                                   knobs.iou_threshold,
+                                                   knobs.confidence_threshold),
+        }
+        for fn in stages.values():
+            fn()
+        stage_ms = {name: time_ms(fn, 5) for name, fn in stages.items()}
+        print(f"time stages chain pairs batch {FPS_BATCH}: " + ", ".join(
+            f"{name} {ms:.3f} ms" for name, ms in stage_ms.items()) + f" ({card})")
+        for tag, fwd, wall in (("chain_int8", cn_fwd,
+                                stage_ms["CenterNet int8 chain forward (chain_int8)"]),
+                               ("dcn_chain_int8", dcn_fwd, stage_ms[
+                                   "CenterNet int8 chain forward, DCN IDA (dcn_chain_int8)"])):
+            split, prof = chain_split(fwd, cn_in)
+            if split is None:
+                print(f"time split {tag} CenterNet chain forward: not measured (the profiler "
+                      f"recorded no device activity)")
+                continue
+            print(f"time split {tag} CenterNet chain forward batch {FPS_BATCH} (device ms from "
+                  f"torch.profiler, 3 forwards): {split}; im2col "
+                  f"{split['im2col'] / split['busy']:.1%} of device time, _int_mm "
+                  f"{split['int_mm'] / split['busy']:.1%}; busy {split['busy']:.3f} of "
+                  f"{wall:.3f} ms back to back, the device idle {1 - split['busy'] / wall:.1%} "
+                  f"({card})")
+            if profile_dir is not None:
+                out = pathlib.Path(profile_dir)
+                out.mkdir(parents=True, exist_ok=True)
+                table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
+                (out / f"chain_profile_{tag}.txt").write_text(f"{card}\n{table}\n")
+
+    kp_frames = request_frames(7, (KP_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    pipe, plain = keypoint_chain_pipelines(kp_net, kp_scales)
+    bf16_pipe, _ = keypoint_pipelines(kp_net, device, knobs)
+    k_ms, p_ms = abba(lambda: pipe(kp_frames), lambda: plain(kp_frames), 5)
+    b_ms, _ = abba(lambda: bf16_pipe(kp_frames), lambda: pipe(kp_frames), 5)
+    busy_ms, n_kernels = device_busy(lambda: pipe(kp_frames))
+    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / k_ms:.1%}"
+    kp = kp_net[0]
+    img = preprocess(kp_frames.to(device), (kp_net[3].in_h, kp_net[3].in_w), IMAGENET_MEAN,
+                     IMAGENET_STDDEV, KEYPOINTS.input_dtype)
+    kp_fwd = keypoint_chain_forward(kp, kp_scales, "kernel")
+    with torch.inference_mode():
+        kp_fwd(img)
+        fwd_ms, bf16_fwd_ms = abba(lambda: kp_fwd(img), lambda: kp(img), 5)
+    print(f"time pipeline {KP_INT8} batch {KP_BATCH} (upload + bf16 preprocess + int8 chain + "
+          f"decode + matcher + PnP): kernels {k_ms:.3f} ms = {KP_BATCH * 1000 / k_ms:.2f} "
+          f"frames/s, plain {p_ms:.3f} ms = {KP_BATCH * 1000 / p_ms:.2f} frames/s, the bf16 "
+          f"keypoints request in the same call {b_ms:.3f} ms = {KP_BATCH * 1000 / b_ms:.2f} "
+          f"frames/s; forward: int8 chain {fwd_ms:.3f} ms, bf16 net {bf16_fwd_ms:.3f} ms; "
+          f"the chain's request: {n_kernels} device kernels and copies, busy {busy_ms} ms, the "
+          f"device idle {idle} ({card})")
+
+
 # The north_star CenterNet's early trunk at batch 32, each conv alone in
 # cuDNN: (name, C_in, C_out, kernel, stride, input H, W, dtype).
 EARLY_CONVS = (
@@ -1829,21 +2445,32 @@ def main(argv=None) -> int:
                                 torch.Generator(device="cuda").manual_seed(3))
     yl_img = preprocess(request_frames(0, (N_REQUESTS, CHECK_BATCH, FRAME_H, FRAME_W, 3))[0]
                         .cuda(), (yl_cfg.in_h, yl_cfg.in_w), yl_cfg.img_mean, yl_cfg.img_stddev)
+    cn_chains, chain_yl_scales, kp_scales = build_chain_nets(nets, cn_cfg, yl, yl_cfg, kp_net,
+                                                             torch.device("cuda"))
     errs, record, int8_shapes = check_phase(nets, cn_cfg, yl_cfg, chains, yl_img, kp_net,
                                             kp_maps)
+    int8_shapes.update(check_chain_kernels(cn_chains, cn_cfg, yl, yl_cfg, chain_yl_scales,
+                                           kp_net, kp_scales, errs))
     served = {path: serve_phase(path, *nets[path], cn_cfg, yl, yl_cfg, chains,
                                 nets[BF16_NETS.get(path, (None, "plain_ida"))[1]][0])
               for path in PATHS}
     served["keypoints"] = serve_keypoints(kp_net)
+    for path in CHAIN_PAIRS:
+        served[path] = serve_chain_pair(path, cn_chains, nets, cn_cfg, yl, yl_cfg,
+                                        chain_yl_scales)
+    served[KP_INT8] = serve_keypoints_int8(kp_net, kp_scales)
     errs["mask_assembly"] = max(errs["mask_assembly"], node_phase(kp_net, yl, yl_cfg))
     for name in ("peak_decode", "mask_assembly", "depthwise_upsample", "deform_conv",
                  "transpose_conv"):
         require(any(served[path][0][name] for path in ALL_PATHS), f"{name} never launched")
     for path, entry in (("dcn_ida", "tauv_deform_conv_f32"),
-                        ("dcn_north_star", "tauv_deform_conv_bf16")):
+                        ("dcn_north_star", "tauv_deform_conv_bf16"),
+                        ("dcn_chain_int8", "tauv_deform_conv_bf16")):
         require(served[path][1][entry] == N_REQUESTS * N_DCN, f"{path}: {entry} launches")
     times = time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card,
                        args.profile, kp_net, kp_maps)
+    time_chain_paths(cn_chains, nets, cn_cfg, yl, yl_cfg, chain_yl_scales, kp_net, kp_scales,
+                     card, args.profile)
 
     def launches(path, row):
         kernel, entry = ROWS[row]

@@ -12,7 +12,9 @@ recipe with DCNv2 in the CenterNet's 16 IDA blocks (``bench.py --deform
 protonet upsamples of ``bench.py --int8-transpose pallas`` (kernel D).
 ``keypoints_config`` and ``KEYPOINTS`` are the CenterNet node's full
 configuration that ``bench.py --keypoints`` serves (keypoint heatmaps,
-affinity and depth heads, the matcher and PnP).
+affinity and depth heads, the matcher and PnP), as a bf16 net or as an
+int8 chain.  ``CHAIN_INT8`` and ``DCN_CHAIN_INT8`` are the int8-chain
+pairs of ``bench.py --chain-int8`` and ``--deform``.
 """
 
 from __future__ import annotations
@@ -34,9 +36,11 @@ from tauv_vision_tpu_torch.configs.yolact import ClassConfig, ClassConfigSet, Yo
 
 __all__ = [
     "AngleConfig",
+    "CHAIN_INT8",
     "CenternetModelConfig",
     "ClassConfig",
     "ClassConfigSet",
+    "DCN_CHAIN_INT8",
     "DCN_NORTH_STAR",
     "INT8_CHAIN_YOLACT",
     "KEYPOINTS",
@@ -149,18 +153,19 @@ class ServedCenternetRecipe:
 
 @dataclass(frozen=True)
 class ServedRecipe(ServedCenternetRecipe):
-    """What ``bench.py`` serves with no flags (its ``north-star`` profile,
-    ``bench.py:1276-1305,1391-1454,1578-1610``): the float CenterNet in
-    bf16 with bf16 BatchNorm outputs and an f32 stem, plain-conv IDA,
-    beside the int8-chain YOLACT whose protonet upsamples stay bf16
-    transposed convs (``bench.py`` leaves ``int8_transpose`` None, and
-    ``calibrate`` records no scale for them), both behind one combined
-    pipeline whose normalised input is ``input_dtype`` (see
-    ``serving.pipeline.make_combined_pipeline``)."""
+    """A served pair: a CenterNet beside the int8-chain YOLACT of
+    ``yolact``, both fed images normalised to ``input_dtype``."""
 
     yolact: YolactChainRecipe
 
 
+# What ``bench.py`` serves with no flags (its ``north-star`` profile,
+# ``bench.py:1276-1305,1391-1454,1578-1610``): the float CenterNet in bf16
+# with bf16 BatchNorm outputs and an f32 stem, plain-conv IDA, beside the
+# int8-chain YOLACT whose protonet upsamples stay bf16 transposed convs
+# (``bench.py`` leaves ``int8_transpose`` None, and ``calibrate`` records
+# no scale for them), both behind one combined pipeline whose normalised
+# input is ``input_dtype`` (see ``serving.pipeline.make_combined_pipeline``).
 NORTH_STAR = ServedRecipe(
     centernet=CenternetRecipe(dtype=torch.bfloat16, bn_out=torch.bfloat16,
                               f32_stages=("stem",), deform=False),
@@ -191,9 +196,41 @@ DCN_NORTH_STAR = replace(NORTH_STAR, centernet=replace(NORTH_STAR.centernet, def
 # IDA (``deform=False``), fed the bf16 image of the JAX pipeline's default
 # ``dtype``; served through ``make_centernet_keypoint_pipeline`` on
 # ``keypoints_config`` with ``SERVING_DECODE`` (10 detections at 0.6, 50
-# keypoint peaks at 0.3).  Its int8 chain is not ported.
+# keypoint peaks at 0.3).  Its ``int8_fps`` is the int8 chain of the same
+# net (``make_centernet_keypoint_chain_pipeline``, ``bench.py:1136-1154``):
+# per-tensor scales, f32 joins, the bf16 image.
 KEYPOINTS = ServedCenternetRecipe(
     centernet=CenternetRecipe(dtype=torch.bfloat16, bn_out=torch.float32,
                               f32_stages=(), deform=False),
     input_dtype=torch.bfloat16,
 )
+
+
+
+# ``bench.py --chain-int8``, its throughput profile (``bench.py:1355-1357,
+# 1412-1440,1578-1627``), served by ``serving/quantize_chain.py``'s
+# ``make_centernet_chain_pipeline`` and ``make_yolact_chain_pipeline`` as
+# two requests: both nets int8 chains with per-tensor scales
+# (``per_channel=parity``, False here) and no float tail (every conv with 16
+# input channels or more int8, heads included), f32 joins (``yl_join_dtype``
+# is None off north-star), the protonet upsamples bf16 (``int8_transpose``
+# None).  The CenterNet is calibrated on, and reads the weights of, the
+# bf16 model with f32 BatchNorm outputs and no f32 stage (the profile is
+# not north-star), and each net preprocesses its own bf16 image.
+CHAIN_INT8 = ServedRecipe(
+    centernet=CenternetRecipe(dtype=torch.bfloat16, bn_out=torch.float32, f32_stages=(),
+                              deform=False),
+    yolact=YolactChainRecipe(per_channel=False, float_paths=(), dtype=torch.bfloat16,
+                             join_dtype=None, int8_transposes=False),
+    input_dtype=torch.bfloat16,
+)
+
+# ``bench.py --deform``, which selects the chain-int8 profile
+# (``bench.py:1288-1289,1514-1519``): the same pair with the CenterNet's 16
+# IDA blocks deformable in bf16 inside its int8 trunk
+# (``dla34_chain_forward(deform=True)``, ``dcn_max_offset=3``, no
+# ``offset_bound``), through kernel E's bf16 entry point.  As on
+# ``DCN_NORTH_STAR``, the JAX graph's Pallas kernel drops the samples past
+# its 3-cell window and kernel E keeps them, so the two graphs are equal
+# only where every |offset| <= 3 cells.
+DCN_CHAIN_INT8 = replace(CHAIN_INT8, centernet=replace(CHAIN_INT8.centernet, deform=True))

@@ -267,20 +267,25 @@ class DeformConvBlock(nn.Module):
             self.conv = Conv2d(in_channels, out_channels, 3, padding=1, compute_dtype=dtype)
         self.actf = nn.Sequential(batch_norm(out_channels, bn_out), nn.ReLU(inplace=True))
 
-    def forward(self, x):
-        if not self.deform:
-            return self.actf(self.conv(x))
-        offset = self.offset(x)
+    def modulation(self, offset: torch.Tensor, mask: torch.Tensor):
+        """(offsets in f32, mask) of the DCN from the offset and mask
+        convs' outputs: the offsets through the tanh bound where one is
+        set, the mask through the sigmoid, both in the convs' dtype."""
         if self.offset_bound is not None:
             offset = self.offset_bound * torch.tanh(offset / self.offset_bound)
-        mask = self.mask(x)
         if mask.dtype == torch.float32:
             mask = torch.sigmoid(mask)
         else:
             # XLA expands a bf16 logistic into bf16 exp, add and divide,
             # each rounded; torch.sigmoid would round once.
             mask = torch.reciprocal(1.0 + torch.exp(-mask))
-        return self.actf(self.conv(x.to(self.dtype), offset.float(), mask))
+        return offset.float(), mask
+
+    def forward(self, x):
+        if not self.deform:
+            return self.actf(self.conv(x))
+        offset, mask = self.modulation(self.offset(x), self.mask(x))
+        return self.actf(self.conv(x.to(self.dtype), offset, mask))
 
 
 class DepthwiseUpsample(nn.Module):
@@ -455,26 +460,34 @@ class CenterpointDLA34(nn.Module):
     def forward(self, img: torch.Tensor) -> Prediction:
         """img: [B, 3, H, W] normalised, f32 (the stem casts it to its
         dtype); the fields are f32."""
-        oc = self.object_config
-        out = [o.permute(0, 2, 3, 1) for o in self.model(img)]  # NHWC views
-        heatmap = out.pop(0)
-        keypoint_heatmap = keypoint_affinity = None
-        if oc.train_keypoints:
-            keypoint_heatmap = out.pop(0)
-            aff = out.pop(0)
-            b, h, w, _ = aff.shape
-            keypoint_affinity = aff.reshape(b, h, w, oc.n_keypoints, 2)
-        size = out.pop(0)
-        offset = out.pop(0)
-        fields = {}
-        for name in ("yaw", "pitch", "roll"):
-            if getattr(oc, f"train_{name}"):
-                fields[f"{name}_bin"] = out.pop(0)
-                fields[f"{name}_offset"] = out.pop(0)
-        if oc.train_depth:
-            fields["depth"] = out.pop(0)
-        return Prediction(
-            heatmap=heatmap, keypoint_heatmap=keypoint_heatmap,
-            keypoint_affinity=keypoint_affinity, size=size, offset=offset,
-            **fields,
-        )
+        return prediction_from_heads(self.object_config,
+                                     [o.permute(0, 2, 3, 1) for o in self.model(img)])
+
+
+def prediction_from_heads(object_config: ObjectConfigSet,
+                          heads: Sequence[torch.Tensor]) -> Prediction:
+    """The ``Prediction`` of the heads' NHWC outputs, in the order of
+    ``get_head_channels`` (the JAX ``CenterpointDLA34``'s unpacking)."""
+    oc = object_config
+    out = list(heads)
+    heatmap = out.pop(0)
+    keypoint_heatmap = keypoint_affinity = None
+    if oc.train_keypoints:
+        keypoint_heatmap = out.pop(0)
+        aff = out.pop(0)
+        b, h, w, _ = aff.shape
+        keypoint_affinity = aff.reshape(b, h, w, oc.n_keypoints, 2)
+    size = out.pop(0)
+    offset = out.pop(0)
+    fields = {}
+    for name in ("yaw", "pitch", "roll"):
+        if getattr(oc, f"train_{name}"):
+            fields[f"{name}_bin"] = out.pop(0)
+            fields[f"{name}_offset"] = out.pop(0)
+    if oc.train_depth:
+        fields["depth"] = out.pop(0)
+    return Prediction(
+        heatmap=heatmap, keypoint_heatmap=keypoint_heatmap,
+        keypoint_affinity=keypoint_affinity, size=size, offset=offset,
+        **fields,
+    )

@@ -259,7 +259,8 @@ class DeformConv2d(nn.Module):
     until the weight changes (``params.cast_parameter``).
     ``impl="kernel"`` runs ``deform_conv2d_cuda`` (kernel E on a CUDA
     tensor, the plain version on a CPU one); ``impl="plain"`` always runs
-    the plain version, for comparisons on the card."""
+    the plain version, for comparisons on the card.  A call's ``impl``
+    overrides the module's (the int8 chain passes its own)."""
 
     def __init__(self, in_channels: int, out_channels: int, impl: str = "kernel"):
         super().__init__()
@@ -270,9 +271,9 @@ class DeformConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
         nn.init.normal_(self.weight, 0.0, 1.0 / math.sqrt(9 * in_channels))
 
-    def forward(self, x, offset, mask):
+    def forward(self, x, offset, mask, impl: Optional[str] = None):
         weight = cast_parameter(self, "weight", x.dtype)
-        if self.impl == "plain" or x.device.type == "cpu":
+        if (impl or self.impl) == "plain" or x.device.type == "cpu":
             return deform_conv2d(x, offset, mask, weight, self.bias)
         taps = cast_parameter(self, "weight", x.dtype, layout=kernel_weights)
         return deform_conv2d_cuda(x, offset, mask, weight, self.bias, taps=taps)

@@ -9,8 +9,10 @@ convolution on CUDA, so:
 - on the card: im2col of the padded int8 map (a strided view made
   contiguous: [B*Ho*Wo, kh*kw*C]) times the kernel as [kh*kw*C, O]
   through ``torch._int_mm`` (cuBLASLt int8 x int8 -> int32), with zero
-  rows added where a conv has 16 or fewer.  Its other shape conditions
-  are checked here and raise; there is no quiet fallback;
+  rows added where a conv has 16 or fewer, and the kernel's output
+  channels zero-padded to a multiple of 8 where a conv has other (the
+  CenterNet chain's heads: 1, 2 or 4).  Its other shape conditions are
+  checked here and raise; there is no quiet fallback;
 - on the CPU: a float64 ``F.conv2d`` of the codes rounded to int32,
   exact because 127^2 * kh * kw * C < 2^53.
 
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 
 MIN_INT_MM_ROWS = 16   # torch._int_mm takes more rows than this
 PADDED_ROWS = 32
+INT_MM_ALIGN = 8       # torch._int_mm's K and N are multiples of this
 
 
 def _pairs(v) -> Tuple[int, int]:
@@ -44,9 +47,13 @@ def conv2d_int8_f64(q: torch.Tensor, qk: torch.Tensor, stride=1, padding=0) -> t
 
 def conv2d_int8_im2col(q: torch.Tensor, qk: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
     """The card's route: im2col of the padded map times the kernel through
-    ``torch._int_mm``, which needs more than 16 rows: a conv with fewer
-    (a batch-1 frame's last FPN levels) runs with zero rows up to 32,
-    sliced off after, which is exact.  K and N must be multiples of 8."""
+    ``torch._int_mm``, which needs more than 16 rows and K and N multiples
+    of 8.  A conv with 16 rows or fewer (a batch-1 frame's last FPN
+    levels) runs with zero rows up to 32, and one whose O is not a
+    multiple of 8 (a head of 1, 2 or 4 channels) with zero output
+    channels up to the next; both are sliced off after, which is exact.
+    K = kh kw C must be a multiple of 8 (C >= 16 in every chain conv):
+    otherwise this raises."""
     sh, sw = _pairs(stride)
     ph, pw = _pairs(padding)
     b, h, w, c = q.shape
@@ -54,9 +61,10 @@ def conv2d_int8_im2col(q: torch.Tensor, qk: torch.Tensor, stride=1, padding=0) -
     ho = (h + 2 * ph - kh) // sh + 1
     wo = (w + 2 * pw - kw) // sw + 1
     rows, k = b * ho * wo, kh * kw * c
-    if k % 8 or o % 8:
+    if k % INT_MM_ALIGN or qk.shape[2] != c:
         raise ValueError(
-            f"torch._int_mm needs K and N multiples of 8; this conv gives K {k}, N {o}"
+            f"torch._int_mm needs K a multiple of {INT_MM_ALIGN}; this conv gives K {k} "
+            f"(q {tuple(q.shape)}, qk {tuple(qk.shape)})"
         )
     x = F.pad(q.contiguous(), (0, 0, pw, pw, ph, ph)) if ph or pw else q.contiguous()
     s = x.stride()
@@ -65,8 +73,14 @@ def conv2d_int8_im2col(q: torch.Tensor, qk: torch.Tensor, stride=1, padding=0) -
     cols = cols.reshape(rows, k)
     if rows <= MIN_INT_MM_ROWS:
         cols = torch.cat((cols, cols.new_zeros(PADDED_ROWS - rows, k)))
-    weight = qk.reshape(k, o).t().contiguous().t()  # column-major [K, O]
-    return torch._int_mm(cols, weight)[:rows].reshape(b, ho, wo, o)
+    weight = qk.reshape(k, o)
+    if o % INT_MM_ALIGN:
+        weight = F.pad(weight, (0, -o % INT_MM_ALIGN))
+    weight = weight.t().contiguous().t()  # column-major [K, N]
+    acc = torch._int_mm(cols, weight)
+    if acc.shape != (rows, o):
+        acc = acc[:rows, :o]
+    return acc.reshape(b, ho, wo, o)
 
 
 def conv2d_int8(q: torch.Tensor, qk: torch.Tensor, stride=1, padding=0) -> torch.Tensor:

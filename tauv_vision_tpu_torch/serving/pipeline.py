@@ -8,9 +8,8 @@ uploads the frames to ``device`` (the card unless the caller passes
 ``SERVING_DECODE`` and nowhere else.  ``dtype`` is the normalised
 image's type: the JAX functions' parameter, whose default there is bf16;
 the port's default is f32, and a served recipe passes its own
-(``configs.NORTH_STAR.input_dtype``, ``configs.KEYPOINTS.input_dtype``).
-``make_centernet_pipeline`` takes no ``dtype``: no served recipe runs the
-object-only CenterNet alone, so it feeds the f32 image.
+(``configs.NORTH_STAR.input_dtype``, ``configs.KEYPOINTS.input_dtype``,
+and the int8 chains' bf16 through ``serving/quantize_chain.py``).
 
 ``depth_window_z``, ``mask_mean_z`` and ``back_project`` turn decoded
 detections and a depth image into camera-frame 3D points, for the node
@@ -62,15 +61,17 @@ def _upload(img_uint8, device) -> torch.Tensor:
 def make_centernet_pipeline(model, model_config: CenternetModelConfig,
                             device=DEFAULT_DEVICE,
                             knobs: DecodeKnobs = SERVING_DECODE,
-                            impl: str = "kernel"):
-    """``fn(img_uint8) -> Detections``, on the f32 image."""
+                            impl: str = "kernel", dtype=torch.float32):
+    """``fn(img_uint8) -> Detections``; ``model(img)`` takes the normalised
+    NCHW image (the model itself, or a chain forward of
+    ``serving/quantize_chain.py``)."""
     device = resolve_device(device)
     out_hw = (model_config.in_h, model_config.in_w)
 
     def pipeline(img_uint8):
         with torch.inference_mode():
             img = preprocess(_upload(img_uint8, device), out_hw,
-                             IMAGENET_MEAN, IMAGENET_STDDEV)
+                             IMAGENET_MEAN, IMAGENET_STDDEV, dtype)
             return decode(model(img), model_config, knobs.n_detections,
                           knobs.score_threshold, impl=impl)
 

@@ -5,15 +5,17 @@
 over some batches, with the JAX package's rules: a conv is recorded when
 its input has at least ``MIN_IN_CHANNELS`` channels; the scale is
 max(absmax, 1e-6) / 127, per tensor or per input channel.  Transposed
-convs are not recorded, as in the JAX package, whose ``calibrate`` sees
-only ``nn.Conv`` modules.  Scales are keyed by the JAX module path of the
-YOLACT (``weights.yolact_flax_path`` of the port's module name), so one
+convs, depthwise upsamples and deformable convs are not recorded, as in
+the JAX package, whose ``calibrate`` sees only ``nn.Conv`` modules.
+Scales are keyed by the JAX module path of the port's module name
+(``weights.yolact_flax_path`` for the YOLACT,
+``weights.centerpoint_calibration_paths`` for the CenterNet), so one
 scales dict feeds both stacks.  The JAX ``percentile`` option is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -25,29 +27,40 @@ from tauv_vision_tpu_torch.weights import yolact_flax_path
 MIN_IN_CHANNELS = 16
 
 
+Paths = Optional[Union[str, Sequence[str]]]
+
+
 def calibrate(model: nn.Module, batches: Iterable[torch.Tensor],
-              per_channel: bool = False) -> Dict[str, Any]:
+              per_channel: bool = False,
+              paths_of: Callable[[str], Paths] = yolact_flax_path) -> Dict[str, Any]:
     """Run ``model(batch)`` over ``batches`` (NCHW, as the model takes
     them) and return {JAX module path: activation scale}: a float, or with
-    ``per_channel`` a float64 [C_in] array."""
+    ``per_channel`` a float64 [C_in] array.  ``paths_of(name)`` gives the
+    JAX path of the conv ``name``, several paths where the JAX forward
+    runs more than one conv on that input, or None where it runs none."""
     absmax: Dict[str, Any] = {}
 
-    def recorder(path):
+    def recorder(paths):
         def hook(module, args):
             x = args[0]
             if x.dim() != 4 or x.shape[1] < MIN_IN_CHANNELS:
                 return
             magnitude = x.abs()
-            if per_channel:
-                value = magnitude.amax(dim=(0, 2, 3)).cpu().numpy().astype(np.float64)
-                prev = absmax.get(path)
-                absmax[path] = value if prev is None else np.maximum(prev, value)
-            else:
-                absmax[path] = max(absmax.get(path, 0.0), float(magnitude.max()))
+            for path in paths:
+                if per_channel:
+                    value = magnitude.amax(dim=(0, 2, 3)).cpu().numpy().astype(np.float64)
+                    prev = absmax.get(path)
+                    absmax[path] = value if prev is None else np.maximum(prev, value)
+                else:
+                    absmax[path] = max(absmax.get(path, 0.0), float(magnitude.max()))
         return hook
 
-    hooks = [m.register_forward_pre_hook(recorder(yolact_flax_path(name)))
-             for name, m in model.named_modules() if type(m) is nn.Conv2d]
+    hooks = []
+    for name, m in model.named_modules():
+        paths = paths_of(name) if isinstance(m, nn.Conv2d) else None
+        if paths is not None:
+            paths = (paths,) if isinstance(paths, str) else tuple(paths)
+            hooks.append(m.register_forward_pre_hook(recorder(paths)))
     try:
         with torch.inference_mode():
             for batch in batches:

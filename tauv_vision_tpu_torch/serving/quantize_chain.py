@@ -1,5 +1,5 @@
-"""The chain-fused int8 YOLACT forward (counterpart of the YOLACT side of
-``tauv_vision_tpu/serving/quantize_chain.py``).
+"""The chain-fused int8 forwards of the YOLACT and the DLA-34 CenterNet
+(counterpart of ``tauv_vision_tpu/serving/quantize_chain.py``).
 
 Activations stay int8 from conv to conv: each calibrated conv runs as an
 int8 x int8 -> int32 convolution (``ops/int8_conv.py``), and its epilogue
@@ -17,11 +17,25 @@ Activations are NHWC, as in the JAX chain, so that four int8 channels
 share one 32-bit word for the kernels and the tests compare without
 transposes; the float convs run ``F.conv2d`` on the NCHW views.
 
-The chain reads the port's ``Yolact`` module; its parameters and scales
-are found by the JAX module path (``weights.yolact_flax_path``).  The
+The chain reads the port's ``Yolact`` or ``CenterpointDLA34`` module; its
+parameters and scales are found by the JAX module path
+(``weights.yolact_flax_path``, ``weights.centerpoint_flax_path``).  The
 quantized weights, folded BatchNorm affines and float weights are
 computed at first use and kept, so the module's weights must not change
 while a context serves.
+
+The CenterNet chain (``dla34_chain_forward``) keeps the JAX chain's
+dataflow: every calibrated conv int8 (the BasicBlocks' conv1 -> conv2
+and the heads' conv -> out links int8 in and out), the 3-channel stem
+float, BatchNorm outputs and joins f32 (or ``join_dtype``), the depthwise
+upsamples in ``dtype`` through kernel C, and with DCN IDA the 16 blocks
+in ``dtype``: the offset and mask convs merged into one 27-channel conv
+as the JAX block serves them, then kernel E.  Two places differ from the
+JAX chain on purpose: the IDA size matcher is the reference's
+(``models.centerpoint_dla.pad_to_match``, which shifts an overshooting
+branch down and right by half the overshoot), where the JAX chain imports
+the symmetric ``models.dla.pad_to_match``; and a tree of depth 2 runs no
+projection of its own input, which the JAX chain computes and discards.
 
 Rounding: every epilogue op here is one PyTorch op that rounds once, as
 the JAX chain's ops do when run one by one, so that a layer's int8 codes
@@ -34,20 +48,35 @@ correctly rounded, so the BatchNorm folds take an f64 root.
 
 Not ported here: asymmetric ranges, ``wq_override``, gains and bias
 corrections, the capture and sequential-calibration hooks, ``f32_paths``,
-and the CenterNet and YOLO-Pose chains.
+and the YOLO-Pose chain.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tauv_vision_tpu_torch.configs import NORTH_STAR
+from tauv_vision_tpu_torch.configs import CHAIN_INT8, KEYPOINTS, NORTH_STAR
+from tauv_vision_tpu_torch.configs.centernet import CenternetModelConfig, get_head_channels
 from tauv_vision_tpu_torch.device import DEFAULT_DEVICE
+from tauv_vision_tpu_torch.models.centernet import Prediction
+from tauv_vision_tpu_torch.models.centerpoint_dla import (
+    DLA34_CHANNELS,
+    DLA34_LEVELS,
+    FIRST_LEVEL,
+    LAST_LEVEL,
+    CenterpointDLA34,
+    DeformConvBlock,
+    DepthwiseUpsample,
+    pad_to_match,
+    prediction_from_heads,
+)
 from tauv_vision_tpu_torch.models.yolact import Yolact, YolactPrediction
+from tauv_vision_tpu_torch.ops.conv_transpose import depthwise_upsample, depthwise_upsample_cuda
 from tauv_vision_tpu_torch.ops.image import resize_bilinear_nhwc
 from tauv_vision_tpu_torch.ops.int8_conv import conv2d_int8
 from tauv_vision_tpu_torch.ops.transpose_conv import (
@@ -55,8 +84,15 @@ from tauv_vision_tpu_torch.ops.transpose_conv import (
     transpose_conv2x_int8,
     transpose_conv2x_int8_cuda,
 )
-from tauv_vision_tpu_torch.serving.pipeline import SERVING_DECODE, DecodeKnobs, make_yolact_pipeline
-from tauv_vision_tpu_torch.weights import yolact_flax_path
+from tauv_vision_tpu_torch.params import cast_parameter
+from tauv_vision_tpu_torch.serving.pipeline import (
+    SERVING_DECODE,
+    DecodeKnobs,
+    make_centernet_keypoint_pipeline,
+    make_centernet_pipeline,
+    make_yolact_pipeline,
+)
+from tauv_vision_tpu_torch.weights import centerpoint_flax_path, yolact_flax_path
 
 BN_EPS = 1e-5
 IMPLS = ("kernel", "plain")
@@ -125,9 +161,15 @@ def _hwio(m: nn.Module) -> torch.Tensor:
     return m.weight.permute(2, 3, 1, 0)       # [O, I, kh, kw]
 
 
+# The modules a chain reads by JAX path.
+CHAIN_MODULES = (nn.Conv2d, nn.ConvTranspose2d, nn.BatchNorm2d, DepthwiseUpsample,
+                 DeformConvBlock)
+
+
 class ChainCtx:
-    """A ``Yolact`` module's parameters plus calibration scales for a
-    chain-fused forward.
+    """A module's parameters plus calibration scales for a chain-fused
+    forward: a ``Yolact`` (``path_of=weights.yolact_flax_path``, the
+    default) or a ``CenterpointDLA34`` (``weights.centerpoint_flax_path``).
 
     ``scales`` values are floats (per tensor) or per-input-channel
     vectors (``calibrate(per_channel=True)``).  A transposed conv with a
@@ -135,20 +177,20 @@ class ChainCtx:
     upsamples') runs int8 through kernel D with ``impl="kernel"``, through
     its plain version with ``"plain"``; without one it runs in ``dtype``.
     ``join_dtype`` rounds residual joins and feature taps (None keeps the
-    flax flow's f32).  The defaults are the served recipe
+    flax flow's f32).  ``impl`` picks kernels C, D and E or their plain
+    versions.  The defaults are the served YOLACT recipe
     (``configs.NORTH_STAR.yolact``)."""
 
-    def __init__(self, model: Yolact, scales: Dict[str, object],
+    def __init__(self, model: nn.Module, scales: Dict[str, object],
                  dtype=NORTH_STAR.yolact.dtype, join_dtype=NORTH_STAR.yolact.join_dtype,
-                 impl: str = "kernel"):
+                 impl: str = "kernel", path_of: Callable[[str], str] = yolact_flax_path):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.model = model
         self.modules = {
-            yolact_flax_path(name): m for name, m in model.named_modules()
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.BatchNorm2d))
+            path_of(name): m for name, m in model.named_modules() if isinstance(m, CHAIN_MODULES)
         }
-        self.device = model.anchor.device
+        self.device = next(model.parameters()).device
         self.scales = dict(scales)
         self.dtype = dtype
         self.join_dtype = join_dtype
@@ -437,4 +479,209 @@ def make_yolact_chain_pipeline(model: Yolact, scales: Dict[str, object],
     model).  The defaults serve the recipe of ``ChainCtx``; ``impl``
     picks kernel D and the decode kernels, or their plain versions."""
     ctx = ChainCtx(model, scales, dtype=dtype, join_dtype=join_dtype, impl=impl)
-    return make_yolact_pipeline(yolact_chain_forward(ctx), model.config, device, knobs, impl=impl)
+    return make_yolact_pipeline(yolact_chain_forward(ctx), model.config, device, knobs,
+                                impl=impl, dtype=dtype)
+
+
+# ---------------------------------------------- CenterNet DLA-34 chain
+
+
+def _match(x: torch.Tensor, target_hw) -> torch.Tensor:
+    """The reference's ``pad_to_match`` on an NHWC map."""
+    if tuple(x.shape[1:3]) == tuple(target_hw):
+        return x
+    return _nhwc(pad_to_match(_nchw(x), target_hw))
+
+
+def _nchw_contiguous(x: torch.Tensor, dtype) -> torch.Tensor:
+    """An NHWC map as a contiguous NCHW tensor in ``dtype`` (one copy), the
+    layout kernels C and E take."""
+    return _nchw(x).to(dtype, memory_format=torch.contiguous_format)
+
+
+def _dla_basic_block(ctx: ChainCtx, x, prefix: str, stride: int, residual):
+    """BasicBlock: the conv1 -> conv2 link int8, the residual join in the
+    BatchNorm's dtype."""
+    q = ctx.run_layer(x, f"{prefix}/conv1", strides=(stride, stride), padding=1,
+                      bn_path=f"{prefix}/bn1", act="relu", next_path=f"{prefix}/conv2")
+    out = ctx.join(ctx.run_layer(q, f"{prefix}/conv2", padding=1, bn_path=f"{prefix}/bn2"))
+    return torch.clamp_min(out + _match(residual, out.shape[1:3]).to(out.dtype), 0)
+
+
+def _dla_root(ctx: ChainCtx, children, prefix: str):
+    jd = ctx.join_dtype or torch.float32
+    x = torch.cat([c.to(jd) for c in children], dim=-1)
+    out = ctx.join(ctx.run_layer(x, f"{prefix}/conv", padding=0, bn_path=f"{prefix}/bn"))
+    return torch.clamp_min(out, 0)
+
+
+def _dla_tree(ctx: ChainCtx, x, prefix: str, levels: int, in_ch: int, out_ch: int,
+              stride: int = 1, level_root: bool = False, children=None):
+    """The HDA tree; the 2x2 downsampling is a ceil-mode max-pool, which
+    is flax's max-pool padded with -inf."""
+    children = [] if children is None else list(children)
+    bottom = x
+    if stride > 1:
+        bottom = _nhwc(F.max_pool2d(_nchw(x), stride, stride, ceil_mode=True))
+    if level_root:
+        children.append(bottom)
+    if levels == 1:
+        proj = bottom
+        if in_ch != out_ch:
+            proj = ctx.run_layer(bottom, f"{prefix}/project_conv", padding=0,
+                                 bn_path=f"{prefix}/project_bn")
+        x1 = _dla_basic_block(ctx, x, f"{prefix}/tree1", stride, proj)
+        x2 = _dla_basic_block(ctx, x1, f"{prefix}/tree2", 1, x1)
+        return _dla_root(ctx, [x2, x1] + children, f"{prefix}/root")
+    x1 = _dla_tree(ctx, x, f"{prefix}/tree1", levels - 1, in_ch, out_ch, stride=stride)
+    children.append(x1)
+    return _dla_tree(ctx, x1, f"{prefix}/tree2", levels - 1, out_ch, out_ch,
+                     children=children)
+
+
+def dla_trunk_chain(ctx: ChainCtx, img: torch.Tensor) -> List[torch.Tensor]:
+    """The DLA-34 trunk's six level outputs (NHWC); the 3-channel stem
+    stays float (it falls below calibration's ``MIN_IN_CHANNELS``)."""
+    x = ctx.run_layer(img, "model/base/base_conv", padding=3, bn_path="model/base/base_bn",
+                      act="relu")
+    outputs = []
+    for level_i in (0, 1):
+        stride = 1 if level_i == 0 else 2
+        for conv_i in range(DLA34_LEVELS[level_i]):
+            x = ctx.run_layer(x, f"model/base/level{level_i}_conv{conv_i}",
+                              strides=(stride if conv_i == 0 else 1,) * 2, padding=1,
+                              bn_path=f"model/base/level{level_i}_bn{conv_i}", act="relu")
+        outputs.append(x)
+    for level_i in (2, 3, 4, 5):
+        x = _dla_tree(ctx, x, f"model/base/level{level_i}", DLA34_LEVELS[level_i],
+                      DLA34_CHANNELS[level_i - 1], DLA34_CHANNELS[level_i], stride=2,
+                      level_root=level_i != 2)
+        outputs.append(x)
+    return outputs
+
+
+def _depthwise_upsample(ctx: ChainCtx, x, path: str) -> torch.Tensor:
+    """DepthwiseUpsample in ``ctx.dtype``: kernel C (``impl="kernel"``) or
+    its plain version, on the input cast to ``ctx.dtype``."""
+    m = ctx.modules[path]
+    fn = depthwise_upsample_cuda if ctx.impl == "kernel" else depthwise_upsample
+    return _nhwc(fn(_nchw_contiguous(x, ctx.dtype), cast_parameter(m, "weight", ctx.dtype),
+                    m.factor))
+
+
+def _dcn_block_chain(ctx: ChainCtx, x, path: str) -> torch.Tensor:
+    """DeformConvBlock (deform=True) in ``ctx.dtype``: the offset and mask
+    convs as one 27-channel conv with its bias added after the conv's
+    rounding, as the JAX block serves them, the tanh bound and the sigmoid
+    (``DeformConvBlock.modulation``), the DCN through kernel E or its
+    plain version, then flax's BatchNorm and the relu."""
+    block = ctx.modules[path]
+
+    def merged():
+        w = torch.cat([block.offset.weight, block.mask.weight]).to(ctx.dtype)
+        b = torch.cat([block.offset.bias, block.mask.bias]).to(ctx.dtype)
+        return w, b[:, None, None]
+
+    weight, bias = ctx._memo(("offset_mask", path), merged)
+    xf = _nchw_contiguous(x, ctx.dtype)
+    om = F.conv2d(xf, weight, padding=1) + bias
+    n_offset = block.offset.out_channels
+    offset, mask = block.modulation(om[:, :n_offset], om[:, n_offset:])
+    out = block.conv(xf, offset.contiguous(), mask.contiguous(), impl=ctx.impl)
+    return torch.clamp_min(ctx.bn_exact(_nhwc(out), f"{path}/bn"), 0.0)
+
+
+def _ida_stage_chain(ctx: ChainCtx, layers, prefix: str, up_factors, deform: bool):
+    """IDAUpStage: for i in 1..n-1, layers[i] = node(up(proj(layers[i])) +
+    layers[i-1]), the joins in f32 (or ``join_dtype``)."""
+    layers = list(layers)
+    jd = ctx.join_dtype or torch.float32
+    for i in range(1, len(layers)):
+        if deform:
+            x = _dcn_block_chain(ctx, layers[i], f"{prefix}/proj_{i}")
+        else:
+            x = ctx.run_layer(layers[i], f"{prefix}/proj_{i}/conv", padding=1,
+                              bn_path=f"{prefix}/proj_{i}/bn", act="relu")
+        if up_factors[i] > 1:
+            x = _depthwise_upsample(ctx, x, f"{prefix}/up_{i}")
+        joined = _match(x, layers[i - 1].shape[1:3]).to(jd) + layers[i - 1].to(jd)
+        if deform:
+            layers[i] = _dcn_block_chain(ctx, joined, f"{prefix}/node_{i}")
+        else:
+            layers[i] = ctx.run_layer(joined, f"{prefix}/node_{i}/conv", padding=1,
+                                      bn_path=f"{prefix}/node_{i}/bn", act="relu")
+    return layers
+
+
+def dla34_chain_forward(ctx: ChainCtx) -> Callable[[torch.Tensor], Prediction]:
+    """``fn(img) -> Prediction`` running the chain-int8 forward of ``ctx``'s
+    ``CenterpointDLA34`` (plain or DCN IDA, as the model is built); ``img``
+    is the normalised NCHW image, cast to ``ctx.dtype`` inside.  The heads
+    are f32 NHWC views of contiguous NCHW maps, as the model's are."""
+    model = ctx.model
+    if not isinstance(model, CenterpointDLA34):
+        raise TypeError(f"dla34_chain_forward needs a CenterpointDLA34, got {type(model)}")
+    deform = bool(model.deform_convs())
+    n_heads = len(get_head_channels(model.object_config))
+
+    def forward(img: torch.Tensor) -> Prediction:
+        with torch.inference_mode():
+            levels = dla_trunk_chain(ctx, _nhwc(img.to(ctx.dtype)))
+            layers = list(levels[FIRST_LEVEL:])
+            n = len(layers)
+            scl = np.array([2 ** i for i in range(n)], dtype=int)
+            out = [layers[-1]]
+            for i in range(n - 1):
+                j = -i - 2
+                layers[j:] = _ida_stage_chain(ctx, layers[j:], f"model/dla_up/ida_{i}",
+                                              (scl[j:] // scl[j]).tolist(), deform)
+                scl[j + 1:] = scl[j]
+                out.insert(0, layers[-1])
+            n_ida = LAST_LEVEL - FIRST_LEVEL
+            features = _ida_stage_chain(ctx, out[:n_ida], "model/ida_up",
+                                        [2 ** i for i in range(n_ida)], deform)[-1]
+            heads = []
+            for i in range(n_heads):
+                h = ctx.run_layer(features, f"model/head_{i}_conv", padding=1, act="relu",
+                                  next_path=f"model/head_{i}_out")
+                h = ctx.run_layer(h, f"model/head_{i}_out", padding=0)
+                heads.append(_nhwc(_nchw(h).to(torch.float32,
+                                               memory_format=torch.contiguous_format)))
+        return prediction_from_heads(model.object_config, heads)
+
+    return forward
+
+
+def make_centernet_chain_pipeline(model: CenterpointDLA34, model_config: CenternetModelConfig,
+                                  scales: Dict[str, object], device=DEFAULT_DEVICE,
+                                  knobs: DecodeKnobs = SERVING_DECODE, *,
+                                  dtype=CHAIN_INT8.input_dtype, impl: str = "kernel"):
+    """uint8 frames -> ``Detections`` through the chain-int8 DLA-34 forward
+    (``make_centernet_pipeline`` with the chain in place of the model, on
+    the image in ``dtype``, which is also the chain's float dtype), f32
+    joins.  The defaults serve ``bench.py --chain-int8``
+    (``configs.CHAIN_INT8``); the model's IDA (plain or DCN) is the
+    chain's.  ``impl`` picks kernels C and E and the decode's kernel A, or
+    their plain versions."""
+    ctx = ChainCtx(model, scales, dtype=dtype, join_dtype=None, impl=impl,
+                   path_of=centerpoint_flax_path)
+    return make_centernet_pipeline(dla34_chain_forward(ctx), model_config, device, knobs,
+                                   impl=impl, dtype=dtype)
+
+
+def make_centernet_keypoint_chain_pipeline(model: CenterpointDLA34,
+                                           model_config: CenternetModelConfig,
+                                           scales: Dict[str, object], projection_matrix,
+                                           device=DEFAULT_DEVICE,
+                                           knobs: DecodeKnobs = SERVING_DECODE, *,
+                                           dtype=KEYPOINTS.input_dtype, impl: str = "kernel"):
+    """uint8 frames -> ``KeypointDetections``: the CenterNet node's full
+    configuration over the chain-int8 DLA-34 forward, which emits every
+    head, so only the decode differs from ``make_centernet_chain_pipeline``.
+    The defaults serve the ``int8_fps`` of ``bench.py --keypoints`` (the
+    net of ``configs.KEYPOINTS``)."""
+    ctx = ChainCtx(model, scales, dtype=dtype, join_dtype=None, impl=impl,
+                   path_of=centerpoint_flax_path)
+    return make_centernet_keypoint_pipeline(dla34_chain_forward(ctx), model_config,
+                                            model.object_config, projection_matrix, device,
+                                            knobs, impl=impl, dtype=dtype)

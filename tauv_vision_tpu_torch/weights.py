@@ -98,6 +98,60 @@ def _centerpoint_name(path: Path) -> str:
     return "model." + ".".join(tokens)
 
 
+# (port module name pattern, JAX path template) for the names whose
+# tokens differ; every other name maps dot for slash.
+_CENTERPOINT_PATHS = (
+    (r"model\.(\d+)\.0", r"model/head_\1_conv"),
+    (r"model\.(\d+)\.2", r"model/head_\1_out"),
+    (r"model\.base\.base_layer\.0", "model/base/base_conv"),
+    (r"model\.base\.base_layer\.1", "model/base/base_bn"),
+    (r"model\.base\.level([01])\.0", r"model/base/level\1_conv0"),
+    (r"model\.base\.level([01])\.1", r"model/base/level\1_bn0"),
+    (r"(model\.base\..*)\.project\.0", r"\1.project_conv"),
+    (r"(model\.base\..*)\.project\.1", r"\1.project_bn"),
+    (r"(model\.(?:dla_up\.ida_\d+|ida_up)\.(?:proj|node)_\d+)\.actf\.0", r"\1.bn"),
+)
+
+
+def centerpoint_flax_path(name: str) -> str:
+    """The JAX package's module path (``model/base/level0_conv0``,
+    ``model/dla_up/ida_0/proj_1/conv``) of a port ``CenterpointDLA34``
+    module name (``model.base.level0.0``, ``model.dla_up.ida_0.proj_1.conv``):
+    the inverse of the naming used by ``centerpoint_state_dict_from_flax``,
+    so that calibration scales are keyed the same in both stacks.  It
+    covers the convs and BatchNorms, the depthwise upsamples (``up_1``),
+    a DCN block (``proj_1``, whose flax module holds the deformable
+    ``weight`` and ``bias``) with its ``offset``, ``mask`` and ``bn``, and
+    the heads (``model.0.0`` -> ``model/head_0_conv``)."""
+    for pattern, template in _CENTERPOINT_PATHS:
+        if re.fullmatch(pattern, name):
+            name = re.sub(pattern, template, name)
+            break
+    return name.replace(".", "/")
+
+
+def centerpoint_calibration_paths(name: str):
+    """The JAX paths whose conv input a port ``CenterpointDLA34`` conv
+    ``name`` stands for in ``serving.quantize.calibrate``, which records
+    what the JAX forward records:
+
+    - a DCN block's ``offset`` and ``mask`` convs: none, since the JAX
+      block serves them as one merged conv that is not an ``nn.Conv``
+      call (``merge_offset_mask``);
+    - the projection of a level-1 tree that is its parent's ``tree1``
+      (``level3``, ``level4``): its own path and its parent's, since the
+      JAX parent tree also projects the same pooled input (and discards
+      it), where the port's runs no such conv;
+    - any other conv: its ``centerpoint_flax_path``."""
+    path = centerpoint_flax_path(name)
+    if re.fullmatch(r"model/(dla_up/ida_\d+|ida_up)/(proj|node)_\d+/(offset|mask)", path):
+        return None
+    parent = re.fullmatch(r"(model/base/.+)/tree1/project_conv", path)
+    if parent:
+        return (path, f"{parent[1]}/project_conv")
+    return path
+
+
 def centerpoint_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """``CenterpointDLA34`` weights, plain-conv or DCN IDA (flax tree
     under ``model``) -> the port's ``CenterpointDLA34`` state dict."""

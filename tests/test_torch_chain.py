@@ -31,6 +31,11 @@ output is held to the compiled JAX op.
   in bf16 with bf16 joins (the served dtypes) and in f32, 100% of
   decoded detections matched with every p95 <= 1e-3 (measured: bf16 0,
   f32 1e-6).
+- The chain-int8 recipe of ``bench.py --chain-int8``
+  (``configs.CHAIN_INT8.yolact``: per-tensor scales, the prediction head
+  and ``protonet/output`` int8, f32 joins, bf16 transposes) on the small
+  chain from JAX's stem output: every int8 map and every output bit for
+  bit, the f32 BatchNorm outputs of its float convs within a few f32 ulps.
 """
 
 import jax
@@ -44,17 +49,20 @@ from tauv_vision_tpu.ops.image import resize_bilinear_nhwc as jax_resize_bilinea
 from tauv_vision_tpu.ops.pallas.transpose_conv import transpose_conv2x_int8_xla
 from tauv_vision_tpu.serving import quantize_chain as jax_chain
 from tauv_vision_tpu_torch import kernels
-from tauv_vision_tpu_torch.configs import YolactModelConfig, yolact_config
+from tauv_vision_tpu_torch.configs import CHAIN_INT8, YolactModelConfig, yolact_config
 from tauv_vision_tpu_torch.ops.image import preprocess, resize_bilinear_nhwc, resize_frames
 from tauv_vision_tpu_torch.serving import quantize_chain as port_chain
 from tauv_vision_tpu_torch.serving.compare import detection_deltas
 from tauv_vision_tpu_torch.serving.pipeline import DecodeKnobs
 from tauv_vision_tpu_torch.serving.quantize import calibrate, strip_scales
-from torch_parity import SMALL_YOLACT, upsample_scales, yolact_pair
+from torch_parity import SMALL_YOLACT, ChainRecorder, upsample_scales, yolact_pair
 
 ALL_SLOTS = DecodeKnobs(confidence_threshold=0.0)
 FIELDS = ("classification", "box_encoding", "mask_coeff", "mask_prototype")
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+# An f32 BatchNorm output against XLA's rsqrt: within 4 f32 ulps of the
+# map's largest value.
+FLOAT_MAP_ULPS = 2.0 ** -21
 
 
 @pytest.fixture(scope="module")
@@ -227,35 +235,16 @@ def test_torch_small_chain_matches_jax(small, dtype, with_upsample, record_prope
     jax_dtype, torch_dtype = DTYPES[dtype]
     join = None if dtype == "f32" else jax_dtype
     scales = _chain_scales(small, with_upsample)
-    codes = {"jax": [], "port": []}
-    stem = {}
-
-    def recording(run_layer, into, side):
-        def run(self, inp, path, **kwargs):
-            y = run_layer(self, inp, path, **kwargs)
-            if path == "backbone/conv1":
-                if side == "jax":
-                    stem["jax"] = np.asarray(y.astype(jnp.float32))
-                else:
-                    stem["port"] = y.float().numpy()
-                    y = torch.from_numpy(stem["jax"].copy()).to(y.dtype)
-            if str(y.dtype).endswith("int8"):
-                into.append(np.asarray(y))
-            return y
-        return run
-
-    jax_run, port_run = jax_chain.ChainCtx.run_layer, port_chain.ChainCtx.run_layer
-    try:
-        jax_chain.ChainCtx.run_layer = recording(jax_run, codes["jax"], "jax")
-        port_chain.ChainCtx.run_layer = recording(port_run, codes["port"], "port")
+    with ChainRecorder(jax_chain, port_chain, "backbone/conv1") as rec:
         want = jax_chain.yolact_chain_forward(
             jax_cfg, variables, scales, dtype=jax_dtype, join_dtype=join,
             int8_transpose="xla" if with_upsample else None)(jnp.asarray(x).astype(jax_dtype))
         got = port_chain.yolact_chain_forward(port_chain.ChainCtx(
             port, scales, dtype=torch_dtype, join_dtype=None if join is None else torch_dtype,
             impl="plain"))(xt)
-    finally:
-        jax_chain.ChainCtx.run_layer, port_chain.ChainCtx.run_layer = jax_run, port_run
+    stem = rec.stems
+    codes = {side: [m for m in maps.values() if m.dtype == np.int8]
+             for side, maps in rec.maps.items()}
 
     np.testing.assert_allclose(stem["port"], stem["jax"], rtol=STEM_RTOL[dtype], atol=1e-6)
     record_property("stem_max_abs_err", float(np.abs(stem["port"] - stem["jax"]).max()))
@@ -310,3 +299,42 @@ def test_torch_chain_pipeline_matches_jax(full_width, dtype, record_property):
     assert stats["total"] == 40 and stats["matched_fraction"] == 1.0, stats
     for what in ("center", "score", "size"):
         assert stats[f"{what}_delta_p95"] <= 1e-3, stats
+
+
+def test_torch_yolact_chain_int8_recipe_matches_jax(small, record_property):
+    """``CHAIN_INT8.yolact`` on the small YOLACT: per-tensor ``calibrate``
+    scales of the port's f32 forward, nothing stripped, f32 joins, bf16
+    float ops and transposes.  Every int8 map and every output equal; the
+    float maps within ``FLOAT_MAP_ULPS`` of their largest value: in the
+    small YOLACT the head's bottleneck conv3 (4 input channels) stays
+    float, and its f32 BatchNorm output is a few f32 ulps from XLA's, whose
+    ``rsqrt`` is not correctly rounded (measured at most 2.4e-7 on maps up
+    to 1.3, on each FPN level; every output equal)."""
+    recipe = CHAIN_INT8.yolact
+    jax_cfg, variables, port, x, xt, *_ = small
+    scales = calibrate(port, [xt], per_channel=recipe.per_channel)
+    assert "prediction_head/box" in scales and "protonet/output" in scales
+    dtype = jnp.bfloat16
+    with ChainRecorder(jax_chain, port_chain, "backbone/conv1") as rec:
+        want = jax_chain.yolact_chain_forward(jax_cfg, variables, scales, dtype=dtype,
+                                              join_dtype=recipe.join_dtype)(
+            jnp.asarray(x).astype(dtype))
+        got = port_chain.yolact_chain_forward(port_chain.ChainCtx(
+            port, scales, dtype=recipe.dtype, join_dtype=recipe.join_dtype, impl="plain"))(xt)
+    assert set(rec.maps["port"]) == set(rec.maps["jax"])
+    n_int8, float_err = 0, 0.0
+    for path, g in rec.maps["port"].items():
+        w = rec.maps["jax"][path]
+        if g.dtype == np.int8:
+            np.testing.assert_array_equal(g, w, err_msg=path)
+            n_int8 += 1
+        else:
+            np.testing.assert_allclose(g, w, rtol=0, atol=FLOAT_MAP_ULPS * np.abs(w).max(),
+                                       err_msg=path)
+            float_err = max(float_err, float(np.abs(g - w).max()))
+    record_property("int8_maps", n_int8)
+    record_property("float_maps_max_abs_err", float_err)
+    for field in ("classification", "box_encoding", "mask_coeff", "mask_prototype"):
+        np.testing.assert_array_equal(getattr(got, field).float().numpy(),
+                                      np.asarray(getattr(want, field)).astype(np.float32),
+                                      err_msg=field)

@@ -6,8 +6,12 @@ which needs more than 16 rows: below that it adds zero rows up to 32 and
 slices them off.  ``torch._int_mm`` also runs on the CPU, so the route is
 held here to the float64 convolution ``conv2d_int8_f64`` (the CPU path and
 the reference on the card) at 1-17 rows, kernel sizes 1 and 3, strides 1
-and 2: exactly, since integer sums are exact in any order.  The card
-repeats the check on ``conv2d_int8`` (``test_torch_kernels_cuda.py``).
+and 2: exactly, since integer sums are exact in any order.  A conv whose
+output channels are not a multiple of 8 (the CenterNet chain's heads: 1,
+2 and 4) runs with zero output channels up to the next multiple, sliced
+off after: held at N = 1, 2, 4 and 16 at batch 1, at the heads' 90x160
+map and at a few pixels.  The card repeats the check on ``conv2d_int8``
+(``test_torch_kernels_cuda.py``).
 """
 
 import numpy as np
@@ -47,8 +51,9 @@ def test_torch_conv2d_int8_im2col_batch_and_rows_above_padding():
 
 
 def test_torch_conv2d_int8_im2col_rejects_unaligned_depth():
-    """torch._int_mm on the card needs K and N multiples of 8; the route
-    raises on the CPU too, as it would there."""
+    """torch._int_mm on the card needs K and N multiples of 8: the route
+    pads N, and raises on a K that is not (no chain conv has one), on the
+    CPU too, as it would there."""
     q = _codes((1, 4, 4, 4), 5)
     with pytest.raises(ValueError):
         conv2d_int8_im2col(q, _codes((3, 3, 4, 8), 6), 1, 1)     # K = 36
@@ -57,3 +62,17 @@ def test_torch_conv2d_int8_im2col_rejects_unaligned_depth():
     # conv2d_int8 on a CPU tensor takes the float64 route, which has no such rule.
     assert torch.equal(conv2d_int8(q, _codes((3, 3, 4, 8), 6), 1, 1),
                        conv2d_int8_f64(q, _codes((3, 3, 4, 8), 6), 1, 1))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 16])
+@pytest.mark.parametrize("hw,k", [((90, 160), 1), ((3, 5), 1), ((4, 6), 3)],
+                         ids=["head_90x160", "rows_15", "k3_rows_24"])
+def test_torch_conv2d_int8_im2col_pads_output_channels(n, hw, k):
+    """Batch 1, K = 256 (a head's out conv) or 9 x 32: exact at every N."""
+    c = 256 if k == 1 else 32
+    q = _codes((1, *hw, c), n)
+    qk = _codes((k, k, c, n), 200 + n)
+    got = conv2d_int8_im2col(q, qk, 1, (k - 1) // 2)
+    want = conv2d_int8_f64(q, qk, 1, (k - 1) // 2)
+    assert got.shape == want.shape == (1, *hw, n) and got.dtype == torch.int32
+    assert torch.equal(got, want)

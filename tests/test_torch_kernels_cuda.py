@@ -19,7 +19,11 @@ Exact: the int8 transposed conv (integer sums, the same fused
 multiply-add epilogue; at the served shapes and at ragged column and
 channel tiles), the chain's integer conv core against the
 float64 conv (also at 1-17 rows, where ``torch._int_mm`` takes zero
-rows added), and probe P2 (small integers).
+rows added, and at 1, 2 and 4 output channels, padded to 8), and probe
+P2 (small integers).  The CenterNet int8 chain at 640x360, batch 2, on
+the kernels against the plain versions: kernels C and E in bf16 at each
+of its calls, on the chain's own inputs, within the bars above, and with
+plain IDA every int8 code and head equal.
 """
 
 import numpy as np
@@ -27,7 +31,12 @@ import pytest
 import torch
 
 from tauv_vision_tpu_torch import kernels
-from tauv_vision_tpu_torch.configs import centernet_config, keypoints_config
+from tauv_vision_tpu_torch.configs import (
+    CHAIN_INT8,
+    DCN_CHAIN_INT8,
+    centernet_config,
+    keypoints_config,
+)
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34, DeformConvBlock
 from tauv_vision_tpu_torch.models.layers import init_parameters
 from tauv_vision_tpu_torch.ops.conv_transpose import (
@@ -45,6 +54,9 @@ from tauv_vision_tpu_torch.ops.transpose_conv import (
 )
 from tauv_vision_tpu_torch.scripts import op_probe
 from tauv_vision_tpu_torch.scripts.int8_dot_probe import dot_probe, dot_probe_cuda, inputs
+from tauv_vision_tpu_torch.serving import quantize_chain
+from tauv_vision_tpu_torch.serving.quantize import calibrate
+from tauv_vision_tpu_torch.weights import centerpoint_calibration_paths, centerpoint_flax_path
 
 pytestmark = pytest.mark.cuda
 
@@ -385,6 +397,81 @@ def test_torch_conv2d_int8_few_rows_on_card(cuda, b, h, w, c, k, stride, padding
     want = conv2d_int8_f64(q, qk, stride, padding)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("b,h,w,c,k", [
+    (1, 90, 160, 256, 1),    # a CenterNet head's out conv, one camera frame
+    (2, 90, 160, 256, 1),
+    (1, 3, 5, 256, 1),       # 15 rows as well
+    (1, 90, 160, 64, 3),
+])
+def test_torch_conv2d_int8_narrow_outputs_on_card(cuda, b, h, w, c, k, n):
+    q, qk = _codes((b, h, w, c), 24).to(cuda), _codes((k, k, c, n), 25).to(cuda)
+    got = conv2d_int8(q, qk, 1, (k - 1) // 2)
+    want = conv2d_int8_f64(q, qk, 1, (k - 1) // 2)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (b, h, w, n) and torch.equal(got, want)
+
+
+def _chain_calls(forward, model, img):
+    """One chain forward's kernel C inputs (x, weight, factor) and kernel E
+    inputs (x, offset, mask, weight, bias), recorded on its plain
+    versions."""
+    up_calls, dcn_calls = [], []
+    plain = quantize_chain.depthwise_upsample
+
+    def record(x, w, f):
+        up_calls.append((x.clone(), w, f))
+        return plain(x, w, f)
+
+    hooks = [m.register_forward_pre_hook(lambda m, a: dcn_calls.append(
+        (*(t.clone() for t in a), m.weight.detach().to(a[0].dtype), m.bias.detach())))
+        for m in model.deform_convs()]
+    quantize_chain.depthwise_upsample = record
+    try:
+        heads = forward(img)
+    finally:
+        quantize_chain.depthwise_upsample = plain
+        for h in hooks:
+            h.remove()
+    return heads, up_calls, dcn_calls
+
+
+@pytest.mark.parametrize("recipe", [CHAIN_INT8, DCN_CHAIN_INT8], ids=["plain_ida", "dcn"])
+def test_torch_centernet_chain_kernels_on_card(cuda, recipe):
+    oc, mc = centernet_config()
+    net = CenterpointDLA34(oc, generator=torch.Generator().manual_seed(0), device=cuda,
+                           **recipe.centernet_kwargs()).eval()
+    img = _normal((2, 3, mc.in_h, mc.in_w), 30).to(cuda).to(recipe.input_dtype)
+    scales = calibrate(net, [img], paths_of=centerpoint_calibration_paths)
+    forward = {impl: quantize_chain.dla34_chain_forward(quantize_chain.ChainCtx(
+        net, scales, dtype=recipe.input_dtype, join_dtype=None, impl=impl,
+        path_of=centerpoint_flax_path)) for impl in ("kernel", "plain")}
+    plain_heads, up_calls, dcn_calls = _chain_calls(forward["plain"], net, img)
+    assert len(up_calls) == 8 and len(dcn_calls) == (16 if recipe.centernet.deform else 0)
+    for x, w, f in up_calls:
+        assert x.dtype == torch.bfloat16
+        got, want = depthwise_upsample_cuda(x, w, f), depthwise_upsample(x, w, f)
+        mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        assert bool(((got.float() - want.float()).abs() <= ulp).all())
+    for x, offset, mask, w, bias in dcn_calls:
+        assert x.dtype == mask.dtype == torch.bfloat16 and offset.dtype == torch.float32
+        assert_dcn_close(deform_conv2d_cuda(x, offset, mask, w, bias),
+                         deform_conv2d(x, offset, mask, w, bias), x.shape[1])
+    before = dict(kernels.ENTRY_LAUNCHES)
+    with torch.inference_mode():
+        heads = forward["kernel"](img)
+    torch.cuda.synchronize()
+    for entry, n in (("tauv_depthwise_upsample_bf16", 8),
+                     ("tauv_deform_conv_bf16", len(dcn_calls))):
+        assert kernels.ENTRY_LAUNCHES[entry] == before[entry] + n, entry
+    for name in ("heatmap", "size", "offset"):
+        got, want = getattr(heads, name), getattr(plain_heads, name)
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        if not recipe.centernet.deform:
+            assert torch.equal(got, want), name
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])

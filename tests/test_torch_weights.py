@@ -9,6 +9,14 @@
   torch; there every leaf is random, so a transposition cannot hide.
 - ``yolact_state_dict_from_flax`` equals the JAX package's
   ``export_yolact_state_dict`` and loads into the port strictly.
+- ``centerpoint_flax_path`` is the inverse of the importer's naming: every
+  conv, BatchNorm, depthwise upsample and DCN block (with its offset,
+  mask and BatchNorm) of the plain, DCN and keypoint nets maps to a flax
+  module of the net's tree that names it back, and
+  ``centerpoint_calibration_paths`` keys a conv as JAX ``calibrate``
+  does (its values and its keys against JAX's are held in
+  ``tests/test_torch_centernet_chain.py`` and
+  ``tests/test_torch_dcn_chain.py``, which run JAX ``calibrate``).
 - The port, ``chip_smoke.py`` and the card-only tests import no JAX and
   nothing of the JAX package; the port's copies of the configuration
   dataclasses equal the JAX package's field by field for the served
@@ -44,7 +52,11 @@ from tauv_vision_tpu_torch.serving.pipeline import (
     make_combined_pipeline,
     make_yolact_pipeline,
 )
+from tauv_vision_tpu_torch.models.centerpoint_dla import DeformConvBlock, DepthwiseUpsample
 from tauv_vision_tpu_torch.weights import (
+    _centerpoint_name,
+    centerpoint_calibration_paths,
+    centerpoint_flax_path,
     centerpoint_state_dict_from_flax,
     yolact_state_dict_from_flax,
 )
@@ -154,6 +166,56 @@ def test_torch_keypoint_centerpoint_weights_round_trip():
     assert rebuilt.keys() == want.keys()
     for path, leaf in want.items():
         np.testing.assert_array_equal(np.asarray(rebuilt[path]), leaf, err_msg=str(path))
+
+
+def _flax_modules(variables):
+    """The paths of the flax modules that hold parameters, "model/...",
+    and the leaves of each."""
+    modules = {}
+    for path, _ in _flat(variables["params"]):
+        modules.setdefault("/".join(path[:-1]), set()).add(path[-1])
+    return modules
+
+
+@pytest.mark.parametrize("net", ["plain", "dcn", "keypoints"])
+def test_torch_centerpoint_flax_path_round_trips(net, centernet_variables, dcn_variables):
+    if net == "keypoints":
+        oc, _, _ = keypoints_config()
+        variables = random_variables(JaxCenterpointDLA34(
+            object_config=jax_object_config(oc), deform=False), (1, 32, 32, 3), 4)
+    else:
+        oc, variables = centernet_variables if net == "plain" else dcn_variables
+    port = CenterpointDLA34(oc, device="cpu", deform=net == "dcn")
+    modules = _flax_modules(variables)
+    seen = set()
+    for name, m in port.named_modules():
+        if isinstance(m, DeformConvBlock) and not m.deform:
+            continue
+        if not isinstance(m, (torch.nn.Conv2d, torch.nn.BatchNorm2d, DepthwiseUpsample,
+                              DeformConvBlock)):
+            continue
+        path = centerpoint_flax_path(name)
+        assert path in modules, (name, path)
+        if isinstance(m, DeformConvBlock):
+            assert modules[path] == {"weight", "bias"}, path
+        assert _centerpoint_name(tuple(path.split("/")[1:])) == name
+        seen.add(path)
+    assert seen == set(modules)
+    calibrated = {}
+    for name, m in port.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            paths = centerpoint_calibration_paths(name)
+            calibrated[name] = () if paths is None else (
+                (paths,) if isinstance(paths, str) else paths)
+    offset_mask = [n for n in calibrated if n.endswith((".offset", ".mask"))]
+    assert len(offset_mask) == (32 if net == "dcn" else 0)
+    assert all(calibrated[n] == () for n in offset_mask)
+    doubled = {n: p for n, p in calibrated.items() if len(p) == 2}
+    assert doubled == {f"model.base.level{i}.tree1.project.0": (
+        f"model/base/level{i}/tree1/project_conv", f"model/base/level{i}/project_conv")
+        for i in (3, 4)}
+    for name, paths in calibrated.items():
+        assert all(p in modules for p in paths), name
 
 
 def test_torch_yolact_weights_match_export():

@@ -136,3 +136,51 @@ def random_variables(model, in_shape, seed):
         return out
 
     return fill(shapes)
+
+
+class ChainRecorder:
+    """Record what every ``run_layer`` of a JAX chain and of the port's
+    returns, by path (int8 maps as int8, float maps as f32 numpy; a path
+    run again, as the YOLACT head's on each FPN level, as "path#1", ...),
+    and start both from JAX's stem output: while active, the port's
+    ``stem`` layer returns what JAX's returned (the one float op the port
+    sums in another order).  A port run must follow a JAX run of the same
+    input; ``clear()`` between pairs."""
+
+    def __init__(self, jax_chain, port_chain, stem: str):
+        self.jax_chain, self.port_chain, self.stem = jax_chain, port_chain, stem
+        self.clear()
+
+    def clear(self):
+        self.maps = {"jax": {}, "port": {}}
+        self.stems = {}
+
+    @staticmethod
+    def _numpy(y):
+        if isinstance(y, torch.Tensor):
+            return y.numpy().copy() if y.dtype == torch.int8 else y.float().numpy()
+        return np.asarray(y) if y.dtype == jnp.int8 else np.asarray(y.astype(jnp.float32))
+
+    def _wrap(self, run_layer, side):
+        def run(ctx, inp, path, **kwargs):
+            y = run_layer(ctx, inp, path, **kwargs)
+            if path == self.stem:
+                self.stems[side] = self._numpy(y)
+                if side == "port":
+                    y = torch.from_numpy(self.stems["jax"].copy()).to(y.dtype)
+            maps, key, n = self.maps[side], path, 0
+            while key in maps:
+                n += 1
+                key = f"{path}#{n}"
+            maps[key] = self._numpy(y)
+            return y
+        return run
+
+    def __enter__(self):
+        self._saved = (self.jax_chain.ChainCtx.run_layer, self.port_chain.ChainCtx.run_layer)
+        self.jax_chain.ChainCtx.run_layer = self._wrap(self._saved[0], "jax")
+        self.port_chain.ChainCtx.run_layer = self._wrap(self._saved[1], "port")
+        return self
+
+    def __exit__(self, *exc):
+        self.jax_chain.ChainCtx.run_layer, self.port_chain.ChainCtx.run_layer = self._saved
