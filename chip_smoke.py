@@ -144,10 +144,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -168,13 +170,19 @@ from tauv_vision_tpu_torch.configs import (
     keypoints_config,
     yolact_config,
 )
+from tauv_vision_tpu_torch.configs import samples_torpedo
+from tauv_vision_tpu_torch.data.synthetic import (
+    SquareDatasetConfig,
+    generate_square_batch,
+    square_object_config,
+)
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
 from tauv_vision_tpu_torch.models.yolact import Yolact
 from tauv_vision_tpu_torch.ops.conv_transpose import (
     depthwise_upsample,
     depthwise_upsample_cuda,
 )
-from tauv_vision_tpu_torch.ops import deform_conv
+from tauv_vision_tpu_torch.ops import conv_transpose, deform_conv
 from tauv_vision_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_cuda
 from tauv_vision_tpu_torch.ops.image import normalize_image, preprocess, resize_frames
 from tauv_vision_tpu_torch.ops.int8_conv import conv2d_int8_f64
@@ -217,6 +225,12 @@ from tauv_vision_tpu_torch.serving.quantize_chain import (
     yolact_chain_forward,
 )
 from tauv_vision_tpu_torch.serving.yolact_decode import decode_yolact
+from tauv_vision_tpu_torch.train import steps as train_steps
+from tauv_vision_tpu_torch.train.checkpoint import CheckpointManager
+from tauv_vision_tpu_torch.train.metrics import MultiWriter, StdoutWriter
+from tauv_vision_tpu_torch.train.state import TrainState, adam_with_clip
+from tauv_vision_tpu_torch.train.steps import make_centernet_train_step, model_mode
+from tauv_vision_tpu_torch.train.trainer import Trainer, TrainerConfig
 from tauv_vision_tpu_torch.weights import centerpoint_calibration_paths, centerpoint_flax_path
 
 FRAME_H, FRAME_W = 480, 640
@@ -329,7 +343,9 @@ PATHS = ("plain_ida", "dcn_ida", "int8_chain", "north_star", "dcn_north_star")
 # two requests on the same frames (bench.py:1620-1627), and so do these.
 CHAIN_PAIRS = {"chain_int8": (CHAIN_INT8, "plain_ida"), "dcn_chain_int8": (DCN_CHAIN_INT8, "dcn_ida")}
 KP_INT8 = "keypoints_int8"
-ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8,)
+# The paths whose launches the kernels line reports: the served paths and
+# the trainer's run.
+ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8, "train")
 PAIR_ITERS = 5        # timed repetitions of a pair path's request at batch 32
 CHAIN_ITERS = 5       # of each of a chain pair's two requests
 # The paths beside an int8-chain YOLACT, and its recipe on each.
@@ -1474,6 +1490,46 @@ def serve_chain_pair(path, chains, nets, cn_cfg, yl, yl_cfg, yl_scales):
     return launches, entries, variants
 
 
+def report_flax_init(cn_cfg):
+    """The ``report`` lines of ``dcn_north_star`` and ``dcn_chain_int8``
+    (the bf16 and the int8-chain DCN CenterNets' decodes against the f32
+    DCN CenterNet's on the same weights and frames, at score threshold 0,
+    not gated) on weights drawn by the JAX package's initialisers
+    (``init="flax"``: offset and mask convs zero), beside the served
+    paths' LeCun-normal draw, whose offsets reach many cells."""
+    device = torch.device("cuda")
+    oc, _ = centernet_config()
+    f32_cn = CenterpointDLA34(oc, generator=torch.Generator().manual_seed(2), device=device,
+                              deform=True, init="flax").eval()
+    bf16 = CenterpointDLA34(oc, device=device, **DCN_NORTH_STAR.centernet_kwargs()).eval()
+    chain = CenterpointDLA34(oc, device=device, **DCN_CHAIN_INT8.centernet_kwargs()).eval()
+    for net in (bf16, chain):
+        net.load_state_dict(f32_cn.state_dict())
+    cal = request_frames(0, (N_CALIBRATION, FRAME_H, FRAME_W, 3)).to(device)
+    scales = calibrate(chain, [preprocess(cal, (cn_cfg.in_h, cn_cfg.in_w), IMAGENET_MEAN,
+                                          IMAGENET_STDDEV, DCN_CHAIN_INT8.input_dtype)],
+                       paths_of=centerpoint_calibration_paths)
+    requests = [request_frames(0, (N_REQUESTS, CHECK_BATCH, FRAME_H, FRAME_W, 3))[i]
+                for i in range(N_REQUESTS)]
+    f32 = make_centernet_pipeline(f32_cn, cn_cfg, device)
+    for path, pipe in (
+            ("dcn_north_star", make_centernet_pipeline(bf16, cn_cfg, device,
+                                                       dtype=DCN_NORTH_STAR.input_dtype)),
+            ("dcn_chain_int8", make_centernet_chain_pipeline(chain, cn_cfg, scales, device,
+                                                             dtype=DCN_CHAIN_INT8.input_dtype))):
+        stats = [detection_deltas(f32(r), pipe(r), score_threshold=0.0) for r in requests]
+        total = sum(st["total"] for st in stats)
+        worst = {key: max(st.get(key, 0.0) for st in stats)
+                 for key in ("center_delta_p95", "score_delta_p95", "size_delta_p95")}
+        print(f"report {path}, init=\"flax\": its CenterNet decode against the f32 CenterNet "
+              f"on the same weights and frames (random weights, offset and mask convs zero, "
+              f"not gated): "
+              f"{sum(st['matched_fraction'] * st['total'] for st in stats) / max(total, 1):.4f}"
+              f" of {total} matched at score threshold 0, worst request p95 {worst}")
+    del f32_cn, bf16, chain
+    torch.cuda.empty_cache()
+
+
 def serve_keypoints_int8(kp_net, kp_scales):
     """Serve the keypoint chain's 2 requests of 16 frames and one of 1 frame,
     and hold them to the plain versions: int8 codes equal, detections 100%
@@ -2349,6 +2405,351 @@ def time_chain_paths(chains, nets, cn_cfg, yl, yl_cfg, yl_scales, kp_net, kp_sca
           f"device idle {idle} ({card})")
 
 
+# ---- phase 6: train ----------------------------------------------------
+
+TRAIN_BATCH = 32          # samples_torpedo's batch, at its 360x640
+TRAIN_F32_BATCH = 8
+TRAIN_OBJECTS = 16        # squares a frame at most: 64 keypoint slots, max_keypoints' default
+OVERFIT_STEPS = 20
+TRAIN_TIMED_STEPS = 3
+# A train step is sensitive to its last bits (training BatchNorm on the
+# deepest levels, ReLU kinks, the DCN): the kernel path is held to the
+# plain path within the larger of a bar and YARDSTICK times the plain
+# path's own move when the input is scaled by 1 +- NUDGE (the larger of
+# the two moves); tests/test_torch_train_step.py does the same against
+# JAX.  Bars (losses relative, gradients relative L2): f32 as the CPU
+# tests against JAX; bf16 at ~1/4 and ~2.5 of its 2^-8 step.
+NUDGE = 1e-6
+YARDSTICK = 8.0
+TRAIN_BARS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
+# Parameters with no gradient by construction: the projections that the
+# JAX model computes and discards and the port never runs, and the heads
+# whose loss lambda is 0 (samples_torpedo's offset head).
+DISCARDED = ("model.base.level3.project.", "model.base.level4.project.")
+
+
+def train_setup():
+    """(object, model and train configs; numpy frames and truth of the
+    synthetic squares at 360x640, batch 32)."""
+    oc = square_object_config()
+    mc, tc = samples_torpedo.model_config, samples_torpedo.train_config
+    img, truth = generate_square_batch(np.random.default_rng(0), TRAIN_BATCH, SquareDatasetConfig(
+        in_h=mc.in_h, in_w=mc.in_w, max_objects=TRAIN_OBJECTS, keypoints=True))
+    return oc, mc, tc, img, truth
+
+
+def train_model(oc, dtype, impl="kernel", seed=0):
+    """The DCN CenterpointDLA34 as the JAX package trains it (dtype, f32
+    BatchNorm outputs, bf16 stem), with the flax init from a seed."""
+    return CenterpointDLA34(oc, up_impl=impl, dcn_impl=impl, deform=True, dtype=dtype,
+                            init="flax", generator=torch.Generator().manual_seed(seed),
+                            device="cuda")
+
+
+def on_card(img, truth, batch):
+    return (torch.from_numpy(img[:batch]).cuda().permute(0, 3, 1, 2).contiguous(),
+            dataclasses.replace(truth, **{f.name: getattr(truth, f.name)[:batch]
+                                          for f in dataclasses.fields(truth)
+                                          if getattr(truth, f.name) is not None}).to("cuda"))
+
+
+def zero_grad_by_construction(name, tc):
+    # The heads: heatmap, keypoint heatmap and affinity, size, offset, ...
+    offset_head = "model.4."
+    return name.startswith(DISCARDED) or (tc.loss_lambda_offset == 0
+                                          and name.startswith(offset_head))
+
+
+def step_grads(model, img, truth, mc, tc, oc):
+    """(losses, {name: gradient}) of one train step from ``model``, whose
+    clip never bites (max norm inf), so that .grad keeps the raw
+    gradients."""
+    state = TrainState(model, adam_with_clip(model.parameters(), tc.lr, float("inf")))
+    _, losses = make_centernet_train_step(mc, tc, oc)(state, img, truth)
+    return losses, {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+
+def rel(a, b) -> float:
+    """|a - b| / |b| by L2, in f64."""
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+
+def check_train_step(dtype, batch, data):
+    """The kernel path's train step against the plain path's from the same
+    weights and batch (see NUDGE), the launches of its forward, and every
+    trained parameter's gradient finite and non-zero.  The two paths'
+    backwards are the same code (the plain versions recomputed), so what
+    differs is C's and E's forward outputs, carried through the step."""
+    oc, mc, tc, img_np, truth_np = data
+    img, truth = on_card(img_np, truth_np, batch)
+    entry = "bf16" if dtype == torch.bfloat16 else "f32"
+    loss_bar, grad_bar = TRAIN_BARS[dtype]
+    failures = []
+    kernel = train_model(oc, dtype)
+    plain = train_model(oc, dtype, "plain")
+    start = {k: v.clone() for k, v in plain.state_dict().items()}
+    kernels.reset_launch_counts()
+    k_losses, k_grads = step_grads(kernel, img, truth, mc, tc, oc)
+    torch.cuda.synchronize()
+    counts = (kernels.ENTRY_LAUNCHES[f"tauv_depthwise_upsample_{entry}"],
+              kernels.ENTRY_LAUNCHES[f"tauv_deform_conv_{entry}"])
+    require(counts == (8, N_DCN) and sum(kernels.LAUNCHES.values()) == 8 + N_DCN,
+            f"train step {entry}: launches {dict(kernels.LAUNCHES)}, expected C 8 and E {N_DCN}")
+    p_losses, p_grads = step_grads(plain, img, truth, mc, tc, oc)
+    nudged = []
+    for sign in (1, -1):
+        model = train_model(oc, dtype, "plain")
+        model.load_state_dict(start)
+        nudged.append(step_grads(model, img * (1 + sign * NUDGE), truth, mc, tc, oc))
+        del model
+
+    def held(what, k, p, ns, base):
+        err = rel(k, p)
+        yard = max(rel(n, p) for n in ns)
+        if err > max(base, YARDSTICK * yard):
+            failures.append(f"{what} {err:.3g} > max({base}, {YARDSTICK} x {yard:.3g})")
+        return err, yard
+
+    for field in dataclasses.fields(k_losses):
+        k, p = getattr(k_losses, field.name), getattr(p_losses, field.name)
+        require(bool(torch.isfinite(k)), f"train {entry}: loss {field.name} not finite")
+        if not p.any():
+            require(not k.any(), f"train {entry}: loss {field.name} {k.item()} where plain is 0")
+            continue
+        held(f"loss {field.name}", k, p, [getattr(n[0], field.name) for n in nudged], loss_bar)
+    errs, yards, zero = [], [], []
+    for name in p_grads.keys() | k_grads.keys() | dict(plain.named_parameters()).keys():
+        kg, pg = k_grads.get(name), p_grads.get(name)
+        if zero_grad_by_construction(name, tc):
+            require(kg is None or not kg.any(), f"train {entry}: {name} has a gradient")
+            zero.append(name)
+            continue
+        require(kg is not None and bool(torch.isfinite(kg).all()) and bool(kg.any()),
+                f"train {entry}: {name}'s gradient is missing, not finite or zero")
+        if name.endswith("conv.bias"):
+            # A DCN's bias, just before its BatchNorm on batch statistics: 0
+            # in exact arithmetic, so held by its size against its weight's.
+            weight = name[:-len("bias")] + "weight"
+            for g, w in ((kg, k_grads[weight]), (pg, p_grads[weight])):
+                if g.double().norm().item() > grad_bar * w.double().norm().item():
+                    failures.append(f"{name} {g.norm().item():.3g} against its weight's "
+                                    f"{w.norm().item():.3g}")
+            continue
+        err, yard = held(f"gradient of {name}", kg, pg, [n[1][name] for n in nudged], grad_bar)
+        errs.append(err)
+        yards.append(yard)
+    moved = np.asarray(yards) > 0
+    ratio = np.asarray(errs)[moved] / np.asarray(yards)[moved]
+    print(f"train check {entry} batch {batch}, one train step (training BatchNorm), kernel "
+          f"path against plain path from the same weights and batch: total loss "
+          f"{float(k_losses.total):.7g} against {float(p_losses.total):.7g}; {len(errs)} "
+          f"gradients finite and non-zero (upsamples and DCN weights included; {len(zero)} "
+          f"zero by construction: {DISCARDED} and the zero-lambda offset head), relative L2 "
+          f"median {np.median(errs):.3g} max {max(errs):.3g}; the plain path's own move under "
+          f"the input x(1 +- {NUDGE}): median {np.median(yards):.3g} max {max(yards):.3g}; "
+          f"err / move median {np.median(ratio):.3g} max {ratio.max():.3g} where it moved "
+          f"({int(moved.sum())}) (bars: losses "
+          f"{loss_bar}, gradients {grad_bar}, or {YARDSTICK}x the move); forward launches "
+          f"C {counts[0]}, E {counts[1]}")
+    require(not failures, f"train {entry} batch {batch}: {len(failures)} outside their bars: "
+                          f"{failures[:8]}")
+    del kernel, plain, nudged, k_grads, p_grads
+    torch.cuda.empty_cache()
+
+
+def check_train_kernel_calls(errs, data, state_dict):
+    """Kernels C and E bf16 against their plain versions at the 8 and 16
+    calls of one training forward at batch 32 of a model holding
+    ``state_dict`` (phase 3's tolerances); the worst errors join ``errs``."""
+    oc, _, _, img_np, truth_np = data
+    img, _ = on_card(img_np, truth_np, TRAIN_BATCH)
+    probe = train_model(oc, torch.bfloat16, "plain")
+    probe.load_state_dict(state_dict)
+    ups, dcns = [], []
+    hooks = [m.register_forward_pre_hook(lambda m, a: ups.append(
+                 (a[0].to(m.dtype).clone(), m.weight.detach().to(m.dtype), m.factor)))
+             for m in probe.depthwise_upsamples()]
+    hooks += [m.register_forward_pre_hook(lambda m, a: dcns.append(
+                  (*(t.clone() for t in a), m.weight.detach().to(a[0].dtype), m.bias.detach())))
+              for m in probe.deform_convs()]
+    with torch.no_grad(), model_mode(probe, True):
+        probe(img)
+    for h in hooks:
+        h.remove()
+    del probe
+    require(len(ups) == 8 and len(dcns) == N_DCN, f"train calls: {len(ups)} C, {len(dcns)} E")
+    c_err = e_err = 0.0
+    for x, w, f in ups:
+        got, want = depthwise_upsample_cuda(x, w, f), depthwise_upsample(x, w, f)
+        diff = (got.float() - want.float()).abs()
+        ulps = (diff / bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))).max()
+        require(ulps.item() <= 1.0, f"train C {tuple(x.shape)}: {ulps.item()} ulps")
+        c_err = max(c_err, diff.max().item())
+    for x, offset, mask, w, bias in dcns:
+        got = deform_conv2d_cuda(x, offset, mask, w, bias)
+        want = deform_conv2d(x, offset, mask, w, bias)
+        diff = (got.float() - want.float()).abs()
+        big = torch.maximum(got.float().abs(), want.float().abs())
+        bar = bf16_ulp(big) + 9 * x.shape[1] * 2.0 ** -24 * want.float().abs().max()
+        require(not (diff > bar).any().item(), f"train E {tuple(x.shape)}: err "
+                                               f"{diff.max().item()}")
+        e_err = max(e_err, diff.max().item())
+    torch.cuda.synchronize()
+    print(f"check train calls at batch {TRAIN_BATCH} (training BatchNorm): "
+          f"depthwise_upsample_bf16 x8 max_abs_err {c_err:.3g} (one bf16 ulp), "
+          f"deform_conv_bf16 x{N_DCN} (offsets |.| <= "
+          f"{max(c[1].abs().max().item() for c in dcns):.3g}) max_abs_err {e_err:.3g} (one "
+          f"bf16 ulp + 9 C 2^-24 max|plain|)")
+    errs["depthwise_upsample_bf16"] = max(errs["depthwise_upsample_bf16"], c_err)
+    errs["deform_conv_bf16"] = max(errs["deform_conv_bf16"], e_err)
+    del ups, dcns
+    torch.cuda.empty_cache()
+
+
+class _Totals:
+    """A metric writer that keeps each step's total loss."""
+
+    def __init__(self):
+        self.totals = []
+
+    def log(self, metrics, step):
+        self.totals.append(metrics["train/total"])
+
+    def close(self):
+        pass
+
+
+def train_phase(errs, card):
+    """Train the DCN CenterNet on the card (see the module docstring);
+    returns the trainer run's launch counts (by kernel, by entry point, by
+    variant)."""
+    t0 = time.perf_counter()
+    data = train_setup()
+    oc, mc, tc, img_np, truth_np = data
+    n_objects = int(truth_np.valid.sum())
+    print(f"train data: {TRAIN_BATCH} synthetic 360x640 frames, {n_objects} squares, "
+          f"{int(truth_np.keypoint_valid.sum())} keypoints ({time.perf_counter() - t0:.1f} s)")
+    check_train_step(torch.float32, TRAIN_F32_BATCH, data)
+    check_train_step(torch.bfloat16, TRAIN_BATCH, data)
+
+    # The overfit: Trainer on one batch, as the CLI's --overfit runs it.
+    model = train_model(oc, torch.bfloat16)
+    state = TrainState(model, adam_with_clip(model.parameters(), tc.lr, tc.grad_max_norm))
+    totals = _Totals()
+    trainer = Trainer(make_centernet_train_step(mc, tc, oc), None,
+                      state, TrainerConfig(n_epochs=1, epoch_n_batches=OVERFIT_STEPS,
+                                           overfit_single_batch=True),
+                      writer=MultiWriter(StdoutWriter("train "), totals))
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    state = trainer.fit(lambda: itertools.repeat((img_np, truth_np), OVERFIT_STEPS))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    launches = (dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES),
+                dict(kernels.VARIANT_LAUNCHES))
+    want = {"depthwise_upsample": 8 * OVERFIT_STEPS, "deform_conv": N_DCN * OVERFIT_STEPS}
+    require({k: v for k, v in launches[0].items() if v} == want,
+            f"train: launch counts {launches[0]}, expected {want}")
+    t = totals.totals
+    require(len(t) == OVERFIT_STEPS and all(np.isfinite(t)), f"train: losses {t}")
+    require(t[-1] < 0.5 * t[0], f"train: the overfit's last loss {t[-1]} is not below half "
+                                f"its first {t[0]}: {t}")
+    print(f"train overfit: {OVERFIT_STEPS} bf16 steps at batch {TRAIN_BATCH} through Trainer, "
+          f"loss {t[0]:.6g} -> {t[-1]:.6g} ({t[-1] / t[0]:.3f} of the first), {fit_s:.1f} s, "
+          f"launches {want}")
+    # The kernels at the trained net's calls, whose offsets have moved off 0.
+    check_train_kernel_calls(errs, data, state.model.state_dict())
+
+    # Checkpoint: save, restore into a fresh model and optimizer (the same
+    # parameters, statistics, moments and count), and the next step's loss
+    # equals the uninterrupted run's.  Only that first loss can be
+    # bit-equal: a backward's scatter-adds sum in another order each run.
+    img, truth = on_card(img_np, truth_np, TRAIN_BATCH)
+    step = make_centernet_train_step(mc, tc, oc)
+    saved_model = {k: v.clone() for k, v in state.model.state_dict().items()}
+    saved_opt = state.optimizer.state_dict()
+    saved_opt = {"count": saved_opt["param_groups"][0]["count"],
+                 "state": {i: {k: v.clone() for k, v in s.items()}
+                           for i, s in saved_opt["state"].items()}}
+    with tempfile.TemporaryDirectory() as directory:
+        manager = CheckpointManager(pathlib.Path(directory))
+        manager.save_configs({"model_config": mc, "train_config": tc})
+        manager.save(state.step, state, metrics={"loss": t[-1]})
+        going = float(step(state, img, truth)[1].total)
+        fresh_model = train_model(oc, torch.bfloat16, seed=1)
+        fresh = manager.restore(TrainState(fresh_model, adam_with_clip(
+            fresh_model.parameters(), tc.lr, tc.grad_max_norm)))
+    restored_opt, restored_at = fresh.optimizer.state_dict(), fresh.step
+    require(restored_at == OVERFIT_STEPS
+            and all(torch.equal(v, saved_model[k]) for k, v in fresh_model.state_dict().items())
+            and restored_opt["param_groups"][0]["count"] == saved_opt["count"]
+            and all(torch.equal(v, saved_opt["state"][i][k])
+                    for i, s in restored_opt["state"].items() for k, v in s.items()),
+            "train checkpoint: the restored state differs from the saved one")
+    resumed = float(step(fresh, img, truth)[1].total)
+    require(resumed == going, f"train checkpoint: next loss {resumed} against {going}")
+    print(f"train checkpoint: restored step {restored_at} into a fresh model and optimizer "
+          f"(parameters, statistics, Adam's moments and count equal the saved ones); the next "
+          f"loss {resumed!r} equals the uninterrupted run's")
+    del fresh, fresh_model
+    torch.cuda.empty_cache()
+    time_train(state, img, truth, step, card)
+    print(f"train phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def time_train(state, img, truth, step, card):
+    """Steps/s, images/s and peak memory of the bf16 train step at batch 32
+    (CUDA events, after warm-up), and its device split from
+    ``torch.profiler``: forward, E's and C's recomputed backward, the rest
+    of the backward, the optimizer."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, img, truth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: step(state, img, truth), TRAIN_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"time train step bf16 batch {TRAIN_BATCH}: {ms:.3f} ms a step = {1000 / ms:.4f} "
+          f"steps/s = {TRAIN_BATCH * 1000 / ms:.2f} images/s; peak memory allocated "
+          f"{peak:.2f} GiB ({card})")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, img, truth)
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    ranges = (train_steps.FORWARD, train_steps.OPTIMIZER, deform_conv.BACKWARD_RANGE,
+              conv_transpose.BACKWARD_RANGE)
+    kernel_rows = [e for e in rows if e.device_type == DeviceType.CUDA and e.key not in ranges]
+    if not kernel_rows:
+        print("time train split: not measured (the profiler recorded no device activity)")
+        return
+
+    def range_ms(name):
+        return sum(e.device_time_total for e in rows
+                   if e.device_type == DeviceType.CPU and e.key == name) / 1e3
+
+    def kernels_ms(*parts):
+        return sum(e.self_device_time_total for e in kernel_rows
+                   if any(p in e.key for p in parts)) / 1e3
+
+    busy = sum(e.self_device_time_total for e in kernel_rows) / 1e3
+    split = {"forward": range_ms(train_steps.FORWARD),
+             "E forward": kernels_ms("deform_conv_kernel", "deform_conv_reduce", "nchw_to_nhwc"),
+             "C forward": kernels_ms("depthwise_upsample_kernel"),
+             "E backward (plain, recomputed)": range_ms(deform_conv.BACKWARD_RANGE),
+             "C backward (plain, recomputed)": range_ms(conv_transpose.BACKWARD_RANGE),
+             "optimizer": range_ms(train_steps.OPTIMIZER)}
+    split["rest of backward"] = busy - sum(split[k] for k in (
+        "forward", "E backward (plain, recomputed)", "C backward (plain, recomputed)",
+        "optimizer"))
+    print(f"time train split (torch.profiler, one step, device ms): "
+          f"{ {k: round(v, 3) for k, v in split.items()} }, device busy {busy:.3f} of the "
+          f"step's {ms:.3f} ms back to back; E backward is "
+          f"{split['E backward (plain, recomputed)'] / busy:.1%} of the busy time ({card})")
+
+
 # The north_star CenterNet's early trunk at batch 32, each conv alone in
 # cuDNN: (name, C_in, C_out, kernel, stride, input H, W, dtype).
 EARLY_CONVS = (
@@ -2460,9 +2861,10 @@ def main(argv=None) -> int:
                                         chain_yl_scales)
     served[KP_INT8] = serve_keypoints_int8(kp_net, kp_scales)
     errs["mask_assembly"] = max(errs["mask_assembly"], node_phase(kp_net, yl, yl_cfg))
+    report_flax_init(cn_cfg)
     for name in ("peak_decode", "mask_assembly", "depthwise_upsample", "deform_conv",
                  "transpose_conv"):
-        require(any(served[path][0][name] for path in ALL_PATHS), f"{name} never launched")
+        require(any(served[path][0][name] for path in served), f"{name} never launched")
     for path, entry in (("dcn_ida", "tauv_deform_conv_f32"),
                         ("dcn_north_star", "tauv_deform_conv_bf16"),
                         ("dcn_chain_int8", "tauv_deform_conv_bf16")):
@@ -2471,6 +2873,7 @@ def main(argv=None) -> int:
                        args.profile, kp_net, kp_maps)
     time_chain_paths(cn_chains, nets, cn_cfg, yl, yl_cfg, chain_yl_scales, kp_net, kp_scales,
                      card, args.profile)
+    served["train"] = train_phase(errs, card)
 
     def launches(path, row):
         kernel, entry = ROWS[row]

@@ -28,6 +28,7 @@ import torch
 from tauv_vision_tpu_torch.configs.centernet import (
     AngleConfig,
     CenternetModelConfig,
+    CenternetTrainConfig,
     ObjectConfig,
     ObjectConfigSet,
     get_head_channels,
@@ -38,6 +39,7 @@ __all__ = [
     "AngleConfig",
     "CHAIN_INT8",
     "CenternetModelConfig",
+    "CenternetTrainConfig",
     "ClassConfig",
     "ClassConfigSet",
     "DCN_CHAIN_INT8",

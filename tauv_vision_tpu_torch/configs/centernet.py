@@ -1,7 +1,8 @@
 """CenterNet configuration: the part of ``tauv_vision_tpu/configs/centernet.py``
 that the port uses, copied so the port imports nothing of the JAX package.
 
-Frozen dataclasses with the same fields, defaults and derived properties;
+Frozen dataclasses with the same fields, defaults and derived properties
+(the training hyperparameters included, ``CenternetTrainConfig``);
 ``ObjectConfig`` flags derive the network's head structure through
 ``get_head_channels``, and ``ObjectConfigSet`` carries the keypoint-index
 codec that the keypoint decode's matcher reads.  The JSON round trip of
@@ -43,6 +44,46 @@ class CenternetModelConfig:
     @property
     def out_w(self) -> int:
         return self.in_w // self.downsample_ratio
+
+
+@dataclass(frozen=True)
+class CenternetTrainConfig:
+    """Training hyperparameters."""
+
+    lr: float
+
+    batch_size: int
+    n_batches: int
+    n_epochs: int
+
+    heatmap_focal_loss_a: float
+    heatmap_focal_loss_b: float
+    heatmap_sigma_factor: float
+
+    keypoint_heatmap_sigma: float
+    keypoint_affinity_sigma: float
+
+    loss_lambda_keypoint_heatmap: float
+    loss_lambda_keypoint_affinity: float
+    loss_lambda_size: float
+    loss_lambda_offset: float
+    loss_lambda_angle: float
+    loss_lambda_depth: float
+
+    n_workers: int = 0
+    weight_save_interval: int = 10
+    grad_max_norm: float = 1.0
+
+    # Penalise DCN offsets beyond dcn_offset_range (0 disables), so that
+    # kernels with a bounded sampling window stay exact.
+    loss_lambda_dcn_offset: float = 0.0
+    dcn_offset_range: float = 1.0
+
+    # Padded objects and keypoints a sample, so every batch has one shape,
+    # and the compute dtype.
+    max_objects: int = 16
+    max_keypoints: int = 64
+    compute_dtype: str = "bfloat16"
 
 
 @dataclass(frozen=True)

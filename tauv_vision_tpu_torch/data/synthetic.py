@@ -1,0 +1,132 @@
+"""Synthetic square-detection data (counterpart of the CenterNet half of
+``tauv_vision_tpu/data/synthetic.py``): rotated squares painted on noise,
+labelled with centre, size, yaw modulo pi/2 and, optionally, the four
+corners as keypoints.  Numpy on the host, bit-equal to the JAX package's
+on the same generator; the batch goes to the device at the step
+(``CenternetTruth.to``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from math import pi
+from typing import Optional, Tuple
+
+import numpy as np
+
+from tauv_vision_tpu_torch.configs.centernet import AngleConfig, ObjectConfig, ObjectConfigSet
+from tauv_vision_tpu_torch.train.centernet_task import CenternetTruth
+
+
+@dataclass
+class SquareDatasetConfig:
+    in_h: int = 64
+    in_w: int = 64
+    max_objects: int = 2
+    min_side: int = 10
+    max_side: int = 24
+    noise_level: float = 0.3
+    rotate: bool = True
+    keypoints: bool = False  # emit the 4 square corners as keypoints
+
+
+# Unit-square corner offsets ((y, x) in half-side units, object frame): the
+# 4 keypoints of an object, in a fixed order so that the flat keypoint
+# index is defined.
+SQUARE_CORNERS = ((-0.5, -0.5), (-0.5, 0.5), (0.5, 0.5), (0.5, -0.5))
+
+
+def square_object_config(keypoints: bool = True) -> ObjectConfigSet:
+    """The objects of the synthetic squares: one class ``square``, its yaw
+    trained modulo pi/2 (a square turned by a quarter looks the same), no
+    roll, pitch or depth, and (``keypoints``) the 4 corners as keypoints
+    (y, x, 0) in ``SQUARE_CORNERS`` order."""
+    return ObjectConfigSet(configs=(ObjectConfig(
+        id="square",
+        yaw=AngleConfig(train=True, modulo=pi / 2),
+        pitch=AngleConfig(train=False, modulo=None),
+        roll=AngleConfig(train=False, modulo=None),
+        train_depth=False,
+        train_keypoints=keypoints,
+        keypoints=tuple((y, x, 0.0) for y, x in SQUARE_CORNERS) if keypoints else None,
+    ),))
+
+
+def _paint_square(img: np.ndarray, cy: float, cx: float, side: float, theta: float) -> None:
+    h, w, _ = img.shape
+    y, x = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    dy = y - cy
+    dx = x - cx
+    ry = np.cos(theta) * dy - np.sin(theta) * dx
+    rx = np.sin(theta) * dy + np.cos(theta) * dx
+    inside = (np.abs(ry) <= side / 2) & (np.abs(rx) <= side / 2)
+    img[inside] = 1.0
+
+
+def generate_square_batch(
+    rng: np.random.Generator,
+    batch_size: int,
+    config: Optional[SquareDatasetConfig] = None,
+) -> Tuple[np.ndarray, CenternetTruth]:
+    """(img [B, H, W, 3] f32 in [0, 1], truth of numpy arrays)."""
+    cfg = config or SquareDatasetConfig()
+    h, w, n = cfg.in_h, cfg.in_w, cfg.max_objects
+
+    img = rng.uniform(0, cfg.noise_level, (batch_size, h, w, 3)).astype(np.float32)
+    valid = np.zeros((batch_size, n), bool)
+    label = np.zeros((batch_size, n), np.int32)
+    center = np.zeros((batch_size, n, 2), np.float32)
+    size = np.zeros((batch_size, n, 2), np.float32)
+    yaw = np.zeros((batch_size, n), np.float32)
+    k_slots = 4 * n
+    kp_valid = np.zeros((batch_size, k_slots), bool)
+    kp_label = np.zeros((batch_size, k_slots), np.int32)
+    kp_center = np.zeros((batch_size, k_slots, 2), np.float32)
+    kp_object = np.zeros((batch_size, k_slots), np.int32)
+
+    for b in range(batch_size):
+        n_objects = int(rng.integers(1, n + 1))
+        for i in range(n_objects):
+            side = float(rng.uniform(cfg.min_side, cfg.max_side))
+            margin = side
+            cy = float(rng.uniform(margin, h - margin))
+            cx = float(rng.uniform(margin, w - margin))
+            theta = float(rng.uniform(0, pi / 2)) if cfg.rotate else 0.0
+
+            _paint_square(img[b], cy, cx, side, theta)
+
+            valid[b, i] = True
+            center[b, i] = (cy / h, cx / w)
+            # The axis-aligned extent of a rotated square.
+            extent = side * (abs(np.cos(theta)) + abs(np.sin(theta)))
+            size[b, i] = (extent / h, extent / w)
+            yaw[b, i] = theta
+
+            if cfg.keypoints:
+                # Corners in SQUARE_CORNERS order, rotated into image
+                # coordinates (the inverse of _paint_square's rotation).
+                ct, st = np.cos(theta), np.sin(theta)
+                for ki, (ry, rx) in enumerate(SQUARE_CORNERS):
+                    dy = (ct * ry + st * rx) * side
+                    dx = (-st * ry + ct * rx) * side
+                    slot = 4 * i + ki
+                    kp_valid[b, slot] = True
+                    kp_label[b, slot] = ki  # the flat keypoint index (1 class)
+                    kp_center[b, slot] = ((cy + dy) / h, (cx + dx) / w)
+                    kp_object[b, slot] = i
+
+    truth = CenternetTruth(
+        valid=valid,
+        label=label,
+        center=center,
+        size=size,
+        yaw=yaw,
+        roll=np.zeros_like(yaw),
+        pitch=np.zeros_like(yaw),
+        depth=np.ones_like(yaw),
+        keypoint_valid=kp_valid if cfg.keypoints else None,
+        keypoint_label=kp_label if cfg.keypoints else None,
+        keypoint_center=kp_center if cfg.keypoints else None,
+        keypoint_object_index=kp_object if cfg.keypoints else None,
+    )
+    return img, truth

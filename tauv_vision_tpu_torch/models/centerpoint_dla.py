@@ -25,7 +25,8 @@ heads ``{idx}.0`` / ``{idx}.2``), so one state dict serves both stacks.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import contextlib
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,12 +40,13 @@ from tauv_vision_tpu_torch.models.layers import (
     Conv2d,
     batch_norm,
     cast_parameter,
+    flax_init_parameters,
     init_parameters,
 )
 from tauv_vision_tpu_torch.ops.conv_transpose import (
     bilinear_kernel,
     depthwise_upsample,
-    depthwise_upsample_cuda,
+    depthwise_upsample_train,
 )
 from tauv_vision_tpu_torch.ops.deform_conv import DeformConv2d
 
@@ -55,6 +57,7 @@ LAST_LEVEL = 5
 HEAD_CONV = 256
 HEATMAP_BIAS = -2.19
 UP_IMPLS = ("kernel", "plain")
+INITS = {"lecun": init_parameters, "flax": flax_init_parameters}
 # Stage names of ``f32_stages``: DLATrunk's ("early" is stem, level0 and
 # level1) and DLASeg's.
 TRUNK_STAGES = ("stem", "level0", "level1", "level2", "level3", "level4", "level5")
@@ -250,7 +253,11 @@ class DeformConvBlock(nn.Module):
     its comment says), the tanh bound and the sigmoid in bf16 (the
     sigmoid op by op, as XLA expands it), and the
     DCN with x, weight and mask in bf16 and the offsets in f32 (kernel
-    E's bf16 entry point)."""
+    E's bf16 entry point).  Under ``flax_init_parameters`` the offset
+    and mask convs start at zero, as the JAX block's do.  Inside
+    ``sow_dcn_offsets`` the block hands its offsets (after the bound, in
+    the convs' dtype) to the collector, as the JAX block sows them into
+    "intermediates"."""
 
     def __init__(self, in_channels: int, out_channels: int, deform: bool = False,
                  offset_bound: Optional[float] = None, dcn_impl: str = "kernel",
@@ -262,9 +269,11 @@ class DeformConvBlock(nn.Module):
         if deform:
             self.offset = Conv2d(in_channels, 18, 3, padding=1, compute_dtype=dtype)
             self.mask = Conv2d(in_channels, 9, 3, padding=1, compute_dtype=dtype)
+            self.offset.zero_init = self.mask.zero_init = True
             self.conv = DeformConv2d(in_channels, out_channels, dcn_impl)
         else:
             self.conv = Conv2d(in_channels, out_channels, 3, padding=1, compute_dtype=dtype)
+        self.sow = None
         self.actf = nn.Sequential(batch_norm(out_channels, bn_out), nn.ReLU(inplace=True))
 
     def modulation(self, offset: torch.Tensor, mask: torch.Tensor):
@@ -273,6 +282,8 @@ class DeformConvBlock(nn.Module):
         set, the mask through the sigmoid, both in the convs' dtype."""
         if self.offset_bound is not None:
             offset = self.offset_bound * torch.tanh(offset / self.offset_bound)
+        if self.sow is not None:
+            self.sow(offset)
         if mask.dtype == torch.float32:
             mask = torch.sigmoid(mask)
         else:
@@ -288,13 +299,30 @@ class DeformConvBlock(nn.Module):
         return self.actf(self.conv(x.to(self.dtype), offset, mask))
 
 
+@contextlib.contextmanager
+def sow_dcn_offsets(model: nn.Module) -> Iterator[List[torch.Tensor]]:
+    """A list that collects the offsets of every deformable block of
+    ``model`` on each forward inside the ``with``; the blocks stop handing
+    them over when it ends."""
+    offsets: List[torch.Tensor] = []
+    blocks = [m for m in model.modules() if isinstance(m, DeformConvBlock) and m.deform]
+    for block in blocks:
+        block.sow = offsets.append
+    try:
+        yield offsets
+    finally:
+        for block in blocks:
+            block.sow = None
+
+
 class DepthwiseUpsample(nn.Module):
     """groups=C ConvTranspose(kernel 2f, stride f, padding f//2, no bias),
     initialised to bilinear interpolation and trainable.
 
-    ``impl="kernel"`` runs ``depthwise_upsample_cuda`` (kernel C on a CUDA
-    tensor, the plain version on a CPU one); ``impl="plain"`` always runs
-    the plain version, for comparisons on the card.  It computes in
+    ``impl="kernel"`` runs ``depthwise_upsample_train`` (kernel C on a CUDA
+    tensor, the plain version on a CPU one, gradients by the plain
+    version); ``impl="plain"`` always runs the plain version, for
+    comparisons on the card.  It computes in
     ``dtype`` (f32 or bf16) with the weight cast to it, as the JAX
     module's dilated lowering does."""
 
@@ -312,7 +340,7 @@ class DepthwiseUpsample(nn.Module):
         )))
 
     def forward(self, x):
-        fn = depthwise_upsample_cuda if self.impl == "kernel" else depthwise_upsample
+        fn = depthwise_upsample_train if self.impl == "kernel" else depthwise_upsample
         return fn(x.to(self.dtype), cast_parameter(self, "weight", self.dtype), self.factor)
 
 
@@ -420,7 +448,12 @@ class CenterpointDLA34(nn.Module):
     """Head-order wrapper emitting a ``Prediction`` with NHWC fields.
 
     Weights are drawn from ``generator`` (the torch default generator
-    when None), the heatmap heads' biases start at -2.19, and the module
+    when None): ``init="lecun"`` draws every conv LeCun normal, the DCN
+    offset convs included (``layers.init_parameters``: the served paths'
+    seeded weights, whose offsets reach a few cells), ``init="flax"`` by
+    the JAX package's initialisers (``layers.flax_init_parameters``: the
+    offset and mask convs at zero), as training starts.  The heatmap
+    heads' biases start at -2.19, and the module
     is moved to ``device`` (the card unless the caller passes "cpu"); call
     ``.eval()`` to serve.  ``deform``, ``offset_bound``, ``dtype``,
     ``bn_out`` and ``f32_stages`` mean what they mean in the JAX package,
@@ -434,8 +467,10 @@ class CenterpointDLA34(nn.Module):
                  device=DEFAULT_DEVICE,
                  deform: bool = False, offset_bound: Optional[float] = None,
                  dcn_impl: str = "kernel", dtype=torch.float32,
-                 bn_out=torch.float32, f32_stages: Sequence[str] = ()):
+                 bn_out=torch.float32, f32_stages: Sequence[str] = (), init: str = "lecun"):
         super().__init__()
+        if init not in INITS:
+            raise ValueError(f"init must be one of {sorted(INITS)}, got {init!r}")
         device = resolve_device(device)
         self.object_config = object_config
         self.model = DLASeg(get_head_channels(object_config), up_impl=up_impl,
@@ -444,7 +479,7 @@ class CenterpointDLA34(nn.Module):
                             f32_stages=f32_stages)
         if generator is None:
             generator = torch.default_generator
-        init_parameters(self, generator)
+        INITS[init](self, generator)
         heatmap_heads = (0, 1) if object_config.train_keypoints else (0,)
         with torch.no_grad():
             for i in heatmap_heads:

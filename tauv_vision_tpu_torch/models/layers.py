@@ -13,20 +13,26 @@ from tauv_vision_tpu_torch.ops.deform_conv import DeformConv2d
 from tauv_vision_tpu_torch.params import cast_parameter, derived
 
 BN_EPS = 1e-5
-BN_MOMENTUM = 0.1  # torch convention; the JAX package's 0.9
+BN_MOMENTUM = 0.1  # torch convention: the JAX package's momentum 0.9
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose inference output is rounded once to
-    ``out_dtype``, as the JAX package's ``_bn``: the normalisation runs in
-    f32 on any input and only the output is rounded.
+    """``nn.BatchNorm2d`` whose output is rounded once to ``out_dtype``, as
+    the JAX package's ``_bn``: the normalisation runs in f32 on any input
+    and only the output is rounded.
 
-    f32 in and out is ``F.batch_norm``, one pass, as the f32 slices serve
-    it.  Otherwise the op order is flax's, y = (x - mean) * (rsqrt(var +
-    eps) * scale) + bias in f32, so that the rounding to bf16 falls where
-    flax's does: three passes (the sub promotes the bf16 input, the add
-    writes ``out_dtype``).  The rsqrt is correctly rounded (an f64 root);
-    XLA's is within one ulp of it.  The state dict is
+    Training (flax's ``nn.BatchNorm(use_running_average=False)``): the
+    batch mean and biased variance in f32, by flax's formulas, normalise
+    the input, and the running statistics take them with momentum 0.9,
+    the biased variance included (torch's own training branch would take
+    the unbiased one).
+
+    Inference: f32 in and out is ``F.batch_norm``, one pass, as the f32
+    slices serve it.  Otherwise the op order is flax's, y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias in f32, so that the rounding to bf16
+    falls where flax's does: three passes (the sub promotes the bf16
+    input, the add writes ``out_dtype``).  The rsqrt is correctly rounded
+    (an f64 root); XLA's is within one ulp of it.  The state dict is
     ``nn.BatchNorm2d``'s."""
 
     def __init__(self, channels: int, out_dtype=torch.float32):
@@ -44,9 +50,24 @@ class BatchNorm2d(nn.BatchNorm2d):
         return derived(self, "affine", (self.running_mean, self.running_var, self.weight,
                                         self.bias), build)
 
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's batch statistics, in the graph: mean and E[x^2] - mean^2
+        (its ``use_fast_variance``, clamped at 0) in f32, and its
+        normalisation (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+        x = x.float()
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(self.out_dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            return super().forward(x).to(self.out_dtype)
+            return self._train_forward(x)
         if x.dtype == self.out_dtype == torch.float32:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
@@ -87,15 +108,54 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     Conv, transposed-conv and deformable-conv weights are normal with std
     1/sqrt(fan_in) (LeCun normal), drawn from ``generator``; biases are
     zero.  BatchNorm keeps identity statistics.  Parameters that are not
-    conv weights (the bilinear depthwise upsamples) keep their init.
+    conv weights (the bilinear depthwise upsamples) keep their init.  A
+    DCN block's offset conv is drawn like any other, so its offsets reach
+    a few cells (kernel E samples off the grid); ``flax_init_parameters``
+    is the JAX package's init, for training.
     """
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, DeformConv2d)):
             w = m.weight
-            if isinstance(m, nn.ConvTranspose2d):
-                fan_in = w.shape[0] // m.groups * w.shape[2] * w.shape[3]
-            else:
-                fan_in = w.shape[1] * w.shape[2] * w.shape[3]
-            w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+            w.normal_(0.0, 1.0 / math.sqrt(_fan_in(m)), generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+
+
+def _fan_in(m: nn.Module) -> int:
+    w = m.weight
+    if isinstance(m, nn.ConvTranspose2d):
+        return w.shape[0] // m.groups * w.shape[2] * w.shape[3]
+    return w.shape[1] * w.shape[2] * w.shape[3]
+
+
+# flax's truncated normal: drawn in [-2, 2] standard deviations and
+# rescaled by this factor so that the variance stays scale / fan_in.
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def flax_init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init of every conv under ``module`` by the JAX package's
+    initialisers (equal in distribution, not in bits), flax's
+    ``variance_scaling(scale, "fan_in", "truncated_normal")``:
+
+    - conv and transposed-conv weights LeCun normal (flax's ``nn.Conv``
+      default, scale 1), biases zero;
+    - deformable-conv weights He normal (scale 2), biases zero;
+    - the offset and mask convs of a DCN block (``zero_init``) all zero, so
+      that offsets start at exactly 0 and the mask at 1/2.
+
+    BatchNorm keeps identity statistics, the depthwise upsamples their
+    bilinear kernels, and a head's bias is set by its model (the heatmap
+    heads' -2.19)."""
+    for m in module.modules():
+        if getattr(m, "zero_init", False):
+            m.weight.zero_()
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, DeformConv2d)):
+            scale = 2.0 if isinstance(m, DeformConv2d) else 1.0
+            std = math.sqrt(scale / _fan_in(m)) / _TRUNCATED_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        else:
+            continue
+        if m.bias is not None:
+            m.bias.zero_()

@@ -1,17 +1,17 @@
-"""Two-bin angle codec, the decode half (counterpart of ``angle_get_bins``,
-``angle_in_range`` and ``angle_decode`` in ``tauv_vision_tpu/ops/angles.py``).
+"""Two-bin angle codec (counterpart of ``tauv_vision_tpu/ops/angles.py``).
 
 An angle, reduced modulo the per-class ``theta_range``, is mapped to
 [0, 2 pi) and classified into two overlapping half-circle bins, and
 regressed as (sin, cos) offsets from each bin centre.  Predictions carry
 4 bin logits ([outside, inside] per bin) and 4 offsets ([sin0, cos0,
 sin1, cos1]).  JAX's ``%`` is a floored modulo: ``torch.remainder``, not
-``torch.fmod``.  The encode and the loss go with training.
+``torch.fmod``.
 """
 
 from __future__ import annotations
 
 from math import pi
+from typing import Tuple
 
 import torch
 
@@ -33,6 +33,57 @@ def angle_in_range(angles: torch.Tensor, range_min: float, range_max: float) -> 
     if range_min < range_max:
         return (range_min <= angles) & (angles <= range_max)
     return (range_min <= angles) | (angles <= range_max)
+
+
+def angle_encode(truth: torch.Tensor, theta_range: torch.Tensor,
+                 bin_overlap: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Targets of the two-bin codec.
+
+    Args:
+      truth: [...] angles (radians).
+      theta_range: [...] the modulo of each element (2 pi, or pi/2 for a
+        square-symmetric object).
+    Returns:
+      inside: [..., 2] int32 {0, 1} bin membership,
+      offsets: [..., 2, 2] (sin, cos) offsets from each bin centre.
+    """
+    truth = torch.remainder(truth, theta_range)
+    truth = truth * (2 * pi / theta_range)
+    (c0, lo0, hi0), (c1, lo1, hi1) = angle_get_bins(bin_overlap)
+    inside = torch.stack((angle_in_range(truth, lo0, hi0),
+                          angle_in_range(truth, lo1, hi1)), dim=-1).to(torch.int32)
+    offsets = torch.stack((
+        torch.stack((torch.sin(truth - c0), torch.cos(truth - c0)), dim=-1),
+        torch.stack((torch.sin(truth - c1), torch.cos(truth - c1)), dim=-1),
+    ), dim=-2)
+    return inside, offsets
+
+
+def angle_loss(predicted_bin: torch.Tensor, predicted_offset: torch.Tensor,
+               truth: torch.Tensor, theta_range: torch.Tensor,
+               bin_overlap: float) -> torch.Tensor:
+    """Per-element two-bin loss: cross entropy on each bin's [outside,
+    inside] logits, plus L1 on the (sin, cos) offsets of the bins that hold
+    the truth.
+
+    Args:
+      predicted_bin: [..., 4] logits.
+      predicted_offset: [..., 4] offsets.
+      truth, theta_range: [...].
+    Returns:
+      [...] loss.
+    """
+    inside, offsets = angle_encode(truth, theta_range, bin_overlap)
+
+    def bin_ce(logits2, label):
+        logp = torch.log_softmax(logits2, dim=-1)
+        return -torch.gather(logp, -1, label[..., None].long())[..., 0]
+
+    ce0 = bin_ce(predicted_bin[..., 0:2], inside[..., 0])
+    ce1 = bin_ce(predicted_bin[..., 2:4], inside[..., 1])
+    l1_0 = torch.abs(predicted_offset[..., 0:2] - offsets[..., 0, :]).sum(dim=-1)
+    l1_1 = torch.abs(predicted_offset[..., 2:4] - offsets[..., 1, :]).sum(dim=-1)
+    return ce0 + ce1 + inside[..., 0].float() * l1_0 + inside[..., 1].float() * l1_1
 
 
 def angle_decode(

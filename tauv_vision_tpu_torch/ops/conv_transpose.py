@@ -3,7 +3,8 @@
 A groups=C ``ConvTranspose2d(kernel=2f, stride=f, padding=f//2,
 bias=False)``.  ``depthwise_upsample`` is the plain version;
 ``depthwise_upsample_cuda`` wraps ``csrc/depthwise_upsample.cu``, the
-counterpart of ``tauv_vision_tpu/ops/pallas/depthwise_upsample.py``.
+counterpart of ``tauv_vision_tpu/ops/pallas/depthwise_upsample.py``;
+``depthwise_upsample_train`` is that wrapper under autograd.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from tauv_vision_tpu_torch import kernels
 
@@ -29,6 +31,7 @@ def bilinear_kernel(k: int) -> np.ndarray:
 ENTRY_POINTS = {torch.float32: "tauv_depthwise_upsample_f32",
                 torch.bfloat16: "tauv_depthwise_upsample_bf16"}
 CARD_FACTORS = (1, 2, 4, 8)   # the divisors of the kernel's 8-output run
+BACKWARD_RANGE = "depthwise_upsample/backward"
 
 
 def depthwise_upsample(x: torch.Tensor, weight: torch.Tensor, factor: int) -> torch.Tensor:
@@ -78,3 +81,38 @@ def depthwise_upsample_cuda(
         x.data_ptr(), weight.data_ptr(), out.data_ptr(), b, c, h, w, factor,
     )
     return out
+
+
+class _DepthwiseUpsampleFunction(torch.autograd.Function):
+    """Kernel C under autograd.  The forward is ``depthwise_upsample_cuda``
+    (the kernel on a CUDA tensor, the plain version on a CPU one) and
+    saves only its inputs.  The backward recomputes the plain version from
+    them under ``torch.enable_grad()`` and takes ``torch.autograd.grad``
+    of it, to x and to the weight as they need: stock PyTorch autograd,
+    the counterpart of XLA's autodiff of the dilated conv that the JAX
+    package trains through (it has no backward kernel).  It is not a
+    fallback: the forward on the card is the kernel or raises.  The
+    backward is the ``torch.profiler`` range ``BACKWARD_RANGE``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, factor):
+        ctx.save_for_backward(x, weight)
+        ctx.factor = factor
+        return depthwise_upsample_cuda(x, weight, factor)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:2]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip((x, weight), needs)]
+        with record_function(BACKWARD_RANGE), torch.enable_grad():
+            out = depthwise_upsample(*inputs, ctx.factor)
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if n else None for n in needs) + (None,)
+
+
+def depthwise_upsample_train(x: torch.Tensor, weight: torch.Tensor, factor: int) -> torch.Tensor:
+    """``depthwise_upsample_cuda`` with gradients to x and weight (see
+    ``_DepthwiseUpsampleFunction``)."""
+    return _DepthwiseUpsampleFunction.apply(x, weight, factor)

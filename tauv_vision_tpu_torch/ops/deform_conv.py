@@ -24,18 +24,21 @@ Two dtypes, as the JAX package serves them:
 ``deform_conv2d`` is the plain version; ``deform_conv2d_cuda`` wraps
 ``csrc/deform_conv.cu`` (kernel E, entry points ``tauv_deform_conv_f32``
 and ``tauv_deform_conv_bf16``), the counterpart of
-``tauv_vision_tpu/ops/pallas/deform_conv.deform_conv2d_pallas``.
+``tauv_vision_tpu/ops/pallas/deform_conv.deform_conv2d_pallas``;
+``deform_conv2d_train`` is that wrapper under autograd.
 ``DeformConv2d`` holds the weight and bias under the reference's
 ``DeformConv2d`` names.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from tauv_vision_tpu_torch import kernels
 from tauv_vision_tpu_torch.params import cast_parameter
@@ -48,6 +51,7 @@ MAX_O = 256
 # and BM pixels, 128 where O fits in 64 and the call has pixels enough.
 TILE_N = (64, 128, 256)
 MIN_SPLIT_STEPS = 8     # K steps a split keeps at least
+BACKWARD_RANGE = "deform_conv/backward"
 
 
 def _check_shapes(x, offset, mask, weight, bias) -> None:
@@ -163,7 +167,7 @@ def kernel_weights(weight: torch.Tensor, dtype=None) -> torch.Tensor:
     BN output channels."""
     o = weight.shape[0]
     bn = next((n for n in TILE_N if o <= n), o)
-    taps = weight.detach().to(dtype or weight.dtype).permute(2, 3, 0, 1).reshape(
+    taps = weight.to(dtype or weight.dtype).permute(2, 3, 0, 1).reshape(
         N_TAPS, o, -1)
     return torch.nn.functional.pad(taps, (0, 0, 0, bn - o)).contiguous()
 
@@ -250,17 +254,62 @@ def deform_conv2d_cuda(x: torch.Tensor, offset: torch.Tensor,
     return out
 
 
+class _DeformConvFunction(torch.autograd.Function):
+    """A DCN under autograd.  The forward is ``forward``: kernel E's wrapper
+    (``deform_conv2d_cuda``: the kernel on a CUDA tensor, the plain version
+    on a CPU one) or the plain version itself; it saves only its inputs.
+    The backward recomputes the plain version from them under
+    ``torch.enable_grad()`` and takes ``torch.autograd.grad`` of it, to x,
+    offset, mask, weight and bias as they need: stock PyTorch autograd,
+    the counterpart of XLA's autodiff of ``deform_conv2d_shift`` that the
+    JAX package trains through (it has no backward kernel).  Recomputing
+    keeps one call's intermediates alive at a time, not every block's
+    (the plain version keeps ~10 f32 copies of its input a tap).  It is
+    not a fallback: the kernel's forward on the card is the kernel or
+    raises.  The backward is the ``torch.profiler`` range
+    ``BACKWARD_RANGE``."""
+
+    @staticmethod
+    def forward(ctx, forward, x, offset, mask, weight, bias):
+        ctx.save_for_backward(x, offset, mask, weight, bias)
+        return forward(x, offset, mask, weight, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[1:]
+        inputs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(saved, needs)]
+        with record_function(BACKWARD_RANGE), torch.enable_grad():
+            out = deform_conv2d(*inputs)
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (None,) + tuple(next(grads) if n else None for n in needs)
+
+
+def deform_conv2d_train(x: torch.Tensor, offset: torch.Tensor, mask: Optional[torch.Tensor],
+                        weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                        taps: Optional[torch.Tensor] = None, plain: bool = False) -> torch.Tensor:
+    """``deform_conv2d_cuda`` (``plain``: ``deform_conv2d``) with gradients
+    to every input, the plain version recomputed in the backward (see
+    ``_DeformConvFunction``)."""
+    forward = deform_conv2d if plain else functools.partial(deform_conv2d_cuda, taps=taps)
+    return _DeformConvFunction.apply(forward, x, offset, mask, weight, bias)
+
+
 class DeformConv2d(nn.Module):
     """The deformable 3x3 conv of a DCN block: ``weight`` [O, C, 3, 3] and
     ``bias`` [O], the reference's ``DeformConv2d`` parameters, kept f32.
 
     It computes in its input's dtype (f32 or bf16), with the weight cast
-    to it; the cast, and kernel E's layout of it, are made once and kept
-    until the weight changes (``params.cast_parameter``).
-    ``impl="kernel"`` runs ``deform_conv2d_cuda`` (kernel E on a CUDA
-    tensor, the plain version on a CPU one); ``impl="plain"`` always runs
-    the plain version, for comparisons on the card.  A call's ``impl``
-    overrides the module's (the int8 chain passes its own)."""
+    to it (``params.cast_parameter``: made once and kept until the weight
+    changes, or built in the graph where autograd records, with kernel E's
+    layout of it).  ``impl="kernel"`` runs kernel E on a CUDA tensor (the
+    plain version on a CPU one), ``impl="plain"`` always the plain
+    version, for comparisons on the card; either way through
+    ``deform_conv2d_train``, whose backward recomputes the plain version.
+    A call's ``impl`` overrides the module's (the int8 chain passes its
+    own)."""
 
     def __init__(self, in_channels: int, out_channels: int, impl: str = "kernel"):
         super().__init__()
@@ -273,7 +322,8 @@ class DeformConv2d(nn.Module):
 
     def forward(self, x, offset, mask, impl: Optional[str] = None):
         weight = cast_parameter(self, "weight", x.dtype)
-        if (impl or self.impl) == "plain" or x.device.type == "cpu":
-            return deform_conv2d(x, offset, mask, weight, self.bias)
-        taps = cast_parameter(self, "weight", x.dtype, layout=kernel_weights)
-        return deform_conv2d_cuda(x, offset, mask, weight, self.bias, taps=taps)
+        plain = (impl or self.impl) == "plain"
+        taps = None
+        if not plain and x.device.type != "cpu":
+            taps = cast_parameter(self, "weight", x.dtype, layout=kernel_weights)
+        return deform_conv2d_train(x, offset, mask, weight, self.bias, taps=taps, plain=plain)

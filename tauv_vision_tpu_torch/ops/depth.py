@@ -1,5 +1,5 @@
-"""Inverse-sigmoid depth codec (counterpart of ``depth_decode`` and
-``depth_encode`` in ``tauv_vision_tpu/ops/depth.py``).
+"""Inverse-sigmoid depth codec and its loss (counterpart of
+``tauv_vision_tpu/ops/depth.py``).
 
 The network emits a raw logit; the decoded depth is ``1/sigmoid(logit)
 - 1``, which maps (-inf, inf) to (0, inf).
@@ -17,3 +17,8 @@ def depth_decode(prediction: torch.Tensor) -> torch.Tensor:
 def depth_encode(depth: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`depth_decode` (logit of 1/(depth+1))."""
     return torch.logit(1.0 / (depth + 1.0))
+
+
+def depth_loss(prediction: torch.Tensor, truth: torch.Tensor) -> torch.Tensor:
+    """Elementwise L1 between the decoded depth and the truth."""
+    return torch.abs(depth_decode(prediction) - truth)

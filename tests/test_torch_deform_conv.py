@@ -347,19 +347,26 @@ def test_torch_deform_conv_plan(b, c, h, w, o, sms, want):
 
 def test_torch_deform_conv_module_keeps_kernel_layout_until_weight_changes():
     """``DeformConv2d``'s kernel layout (``cast_parameter(..., layout=
-    kernel_weights)``): built once a weight version and dtype, beside the
-    plain cast, and built again after an in-place update."""
+    kernel_weights)``): without autograd (serving), built once a weight
+    version and dtype, beside the plain cast, and built again after an
+    in-place update; where autograd records (training), built in the graph
+    from the weight on every call, so no cached copy cuts the gradient."""
     conv = DeformConv2d(32, 8)
-    taps = cast_parameter(conv, "weight", torch.bfloat16, layout=kernel_weights)
-    assert cast_parameter(conv, "weight", torch.bfloat16, layout=kernel_weights) is taps
-    assert torch.equal(taps, kernel_weights(conv.weight, torch.bfloat16))
-    cast = cast_parameter(conv, "weight", torch.bfloat16)
-    assert cast.shape == (8, 32, 3, 3) and cast_parameter(
-        conv, "weight", torch.bfloat16, layout=kernel_weights) is taps
-    f32 = cast_parameter(conv, "weight", torch.float32, layout=kernel_weights)
-    assert f32.dtype == torch.float32 and torch.equal(f32, kernel_weights(conv.weight))
     with torch.no_grad():
+        taps = cast_parameter(conv, "weight", torch.bfloat16, layout=kernel_weights)
+        assert cast_parameter(conv, "weight", torch.bfloat16, layout=kernel_weights) is taps
+        assert torch.equal(taps, kernel_weights(conv.weight, torch.bfloat16))
+        cast = cast_parameter(conv, "weight", torch.bfloat16)
+        assert cast.shape == (8, 32, 3, 3) and cast_parameter(
+            conv, "weight", torch.bfloat16, layout=kernel_weights) is taps
+        f32 = cast_parameter(conv, "weight", torch.float32, layout=kernel_weights)
+        assert f32.dtype == torch.float32 and torch.equal(f32, kernel_weights(conv.weight))
         conv.weight.mul_(2.0)
-    again = cast_parameter(conv, "weight", torch.bfloat16, layout=kernel_weights)
-    assert again is not taps
-    assert torch.equal(again, kernel_weights(conv.weight, torch.bfloat16))
+        again = cast_parameter(conv, "weight", torch.bfloat16, layout=kernel_weights)
+        assert again is not taps
+        assert torch.equal(again, kernel_weights(conv.weight, torch.bfloat16))
+    graph = cast_parameter(conv, "weight", torch.bfloat16, layout=kernel_weights)
+    assert graph is not again and graph.grad_fn is not None
+    assert torch.equal(graph, again)
+    graph.float().sum().backward()
+    assert conv.weight.grad is not None

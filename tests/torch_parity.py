@@ -1,5 +1,6 @@
 """Helpers shared by the port's parity tests (not a test module)."""
 
+import contextlib
 import dataclasses
 
 import jax
@@ -58,6 +59,54 @@ def jax_centernet_config(mc):
     return jax_configs.CenternetModelConfig(**dataclasses.asdict(mc))
 
 
+@contextlib.contextmanager
+def torch_threads(n):
+    """torch's intra-op threads set to ``n`` inside the ``with``.  The suite
+    runs one worker process a core, and torch's default of one thread a
+    core in each of them oversubscribes the cores: a small op then waits
+    on threads the other workers have descheduled (a CPU train step slows
+    ~50x)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+# The port's CenterpointDLA34 modules that the JAX model computes and
+# discards (a depth-2 tree's own projection, which its tree1 projects
+# anew) and the port never runs: their gradients are 0 in both stacks, and
+# in training only JAX updates their BatchNorm's running statistics, which
+# no forward reads.
+DISCARDED_PROJECTIONS = ("model.base.level3.project.", "model.base.level4.project.")
+
+
+def jax_train_config(tc):
+    """The JAX package's copy of a port ``CenternetTrainConfig``."""
+    return jax_configs.CenternetTrainConfig(**dataclasses.asdict(tc))
+
+
+def square_configs(in_h, in_w, all_terms=False):
+    """(port ObjectConfigSet, port CenternetModelConfig) of the synthetic
+    squares (``data.synthetic.square_object_config``: one class, yaw modulo
+    pi/2, the 4 corners as keypoints) at in_h x in_w.  ``all_terms`` also
+    trains roll (modulo 2 pi), pitch (no modulo, so 2 pi) and depth."""
+    from math import pi
+
+    from tauv_vision_tpu_torch.data.synthetic import square_object_config
+
+    oc = square_object_config()
+    if all_terms:
+        oc = port_configs.ObjectConfigSet(configs=(dataclasses.replace(
+            oc.configs[0], pitch=port_configs.AngleConfig(train=True, modulo=None),
+            roll=port_configs.AngleConfig(train=True, modulo=2 * pi), train_depth=True),))
+    mc = port_configs.CenternetModelConfig(
+        in_h=in_h, in_w=in_w, backbone_heights=(2,) * 5, backbone_channels=(128,) * 6,
+        downsamples=2, angle_bin_overlap=pi / 3)
+    return oc, mc
+
+
 PREDICTION_FIELDS = ("heatmap", "keypoint_heatmap", "keypoint_affinity", "size", "offset",
                      "roll_bin", "roll_offset", "pitch_bin", "pitch_offset", "yaw_bin",
                      "yaw_offset", "depth")
@@ -106,13 +155,14 @@ def upsample_scales(port, batches):
     return {path: np.maximum(v, 1e-6) / 127.0 for path, v in absmax.items()}
 
 
-def random_variables(model, in_shape, seed):
+def random_variables(model, in_shape, seed, offset_gain=1.5, offset_bias=1.0):
     """numpy weights for a flax model, drawn from a seed in the shapes of
     its init (``jax.eval_shape``, so nothing is compiled): conv kernels
     normal with std 1/sqrt(fan_in), biases, BatchNorm parameters and
     statistics uniform; in every DCN block the offset kernel is scaled by
-    1.5 and the offset and mask biases are uniform in +-1, so that offsets
-    reach a few cells and some samples leave the map."""
+    ``offset_gain`` and the offset and mask biases are uniform in
+    +-``offset_bias``: by default 1.5 and 1, so that offsets reach a few
+    cells and some samples leave the map."""
     rng = np.random.default_rng(seed)
     shapes = jax.eval_shape(
         lambda: model.init(jax.random.key(0), jnp.zeros(in_shape), train=False))
@@ -129,10 +179,10 @@ def random_variables(model, in_shape, seed):
         out = {k: fill(v) if isinstance(v, dict)
                else draw[k](v.shape).astype(np.float32) for k, v in node.items()}
         if "offset" in out and "weight" in out:
-            out["offset"]["kernel"] *= 1.5
+            out["offset"]["kernel"] *= offset_gain
             for name in ("offset", "mask"):
                 n = out[name]["bias"].shape
-                out[name]["bias"] = rng.uniform(-1, 1, n).astype(np.float32)
+                out[name]["bias"] = rng.uniform(-offset_bias, offset_bias, n).astype(np.float32)
         return out
 
     return fill(shapes)
