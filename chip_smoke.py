@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving paths and training once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR]
 
@@ -130,7 +130,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
    the sum of their two requests' times), their stages, the CenterNet
    chain forward's device split from ``torch.profiler`` (im2col, ``_int_mm``,
    kernels C and E, cuDNN, the rest) and the device's idle share, and
-   ``keypoints_int8`` at batch 16 beside ``keypoints`` in the same run.
+   ``keypoints_int8`` at batch 16 beside ``keypoints`` in the same run;
+6. train: the DCN CenterNet as the JAX package trains it (bf16, the
+   3-cell DCN window, the flax init) on the synthetic squares at batch 32
+   and 360x640: the kernel path's train step against the plain path's
+   (f32 at batch 8, bf16 at 32), 20 overfit steps through ``Trainer``,
+   kernels C and E at the trained net's calls, a checkpoint round trip,
+   two steps from one checkpoint run twice (with cuDNN's default and its
+   deterministic algorithms: which gradients repeat bit for bit, and the
+   step's time), the timed step and its ``torch.profiler`` split;
+7. train_cli: the training CLI (``scripts/train_centernet.py``) on two
+   dataset directories of 96 train and 32 val 640x360 PNGs each (the
+   squares with ``samples_torpedo``'s four classes, written by the port's
+   writer), ``samples_torpedo`` at full width and batch 32: two epochs of
+   3 batches with watch lines every 2 steps, then a warm start from its
+   checkpoint for one epoch; every loss finite, the restored parameters
+   and Adam moments equal to the saved ones, the watch lines covering
+   every trained parameter, 8 C and 16 E launches a forward; the CLI's
+   images/s, the loader's host ms a batch, the device's idle share over
+   the steps and the peak memory.
 
 Prints one JSON line describing the kernels, with each kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -143,9 +161,11 @@ line, ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes a
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -171,10 +191,13 @@ from tauv_vision_tpu_torch.configs import (
     yolact_config,
 )
 from tauv_vision_tpu_torch.configs import samples_torpedo
+from tauv_vision_tpu_torch.data.dataset_dir import Split
+from tauv_vision_tpu_torch.data.pose_dataset import PoseDataset, collate_pose_samples
 from tauv_vision_tpu_torch.data.synthetic import (
     SquareDatasetConfig,
     generate_square_batch,
     square_object_config,
+    write_square_pose_dataset,
 )
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
 from tauv_vision_tpu_torch.models.yolact import Yolact
@@ -194,7 +217,7 @@ from tauv_vision_tpu_torch.ops.transpose_conv import (
     transpose_conv2x_int8,
     transpose_conv2x_int8_cuda,
 )
-from tauv_vision_tpu_torch.scripts import int8_dot_probe, kernel_times, op_probe
+from tauv_vision_tpu_torch.scripts import int8_dot_probe, kernel_times, op_probe, train_centernet
 from tauv_vision_tpu_torch.scripts.kernel_times import queued_ms, time_ms
 from tauv_vision_tpu_torch.serving import quantize_chain
 from tauv_vision_tpu_torch.serving.centernet_decode import (
@@ -282,6 +305,8 @@ DCN_TOL = 1e-4        # f32 rtol and atol: 9 C (up to 4,608) 3xTF32
 # then rounded once: one bf16 ulp of the larger output plus 9 C 2^-24
 # max|plain| (the accumulation-order term).
 PLANTED_OFFSET = 40.0  # cells: past the map edge, as torch-trained offsets go
+DCN_WINDOW = 3.0      # the served and trained DCN window (bench.py, the JAX CLI)
+WINDOW_REACH = 6.0    # cells the window check scales the net's offsets to
 N_DCN = 16            # DeformConv2d calls of one DCN-IDA forward
 N_DCN_SHAPES = 7      # distinct (x shape, O) among them
 UPSAMPLES = ("protonet/upsample_1", "protonet/upsample_2")
@@ -345,7 +370,7 @@ CHAIN_PAIRS = {"chain_int8": (CHAIN_INT8, "plain_ida"), "dcn_chain_int8": (DCN_C
 KP_INT8 = "keypoints_int8"
 # The paths whose launches the kernels line reports: the served paths and
 # the trainer's run.
-ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8, "train")
+ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8, "train", "train_cli")
 PAIR_ITERS = 5        # timed repetitions of a pair path's request at batch 32
 CHAIN_ITERS = 5       # of each of a chain pair's two requests
 # The paths beside an int8-chain YOLACT, and its recipe on each.
@@ -893,23 +918,38 @@ def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img, kp_net, kp_maps):
     errs["depthwise_upsample_bf16"] = err
 
     # Kernel E: f32 at dcn_ida's calls, bf16 at dcn_north_star's (the
-    # net's own bf16 offsets and masks), each distinct shape once.
+    # net's own bf16 offsets and masks), each distinct shape once, at the
+    # path's window (dcn_ida: none; dcn_north_star: 3 cells); then the
+    # net's offsets scaled to reach WINDOW_REACH cells, so that a share of
+    # them lies past the 3-cell window, at R = 3 and at no window (the
+    # f32 calls' R = 3 is the window set on a copy of dcn_ida's call).
     for row, path in (("deform_conv", "dcn_ida"), ("deform_conv_bf16", "dcn_north_star")):
         calls = dcn_calls(nets[path][1], img)
         require(len(calls) == N_DCN, f"{path}: {len(calls)} DCN calls a forward, expected {N_DCN}")
         by_shape = dcn_shapes(calls)
         require(len(by_shape) == N_DCN_SHAPES,
                 f"{path}: {len(by_shape)} distinct DCN shapes, expected {N_DCN_SHAPES}")
+        path_window = nets[path][1].deform_convs()[0].max_offset
+        require(path_window == {"dcn_ida": None, "dcn_north_star": DCN_WINDOW}[path],
+                f"{path}: DCN window {path_window}")
         err, differ, total = 0.0, 0, 0
+        past, n_offsets, window_errs = 0, 0, {DCN_WINDOW: 0.0, None: 0.0}
         for (shape, o), ((x, offset, mask, w, bias), _) in by_shape.items():
             planted = (torch.rand(offset.shape, generator=gen, device="cuda") * 2 - 1
                        ) * PLANTED_OFFSET
             reach = offset.abs().max().item()
-            for case, args in (("net", (x, offset, mask, w, bias)),
-                               ("planted_40", (x, planted, mask, w, bias)),
-                               ("no_mask", (x, offset, None, w, bias)),
-                               ("batch_7", (x[:7], offset[:7], mask[:7], w, bias))):
-                got, want = deform_conv2d_cuda(*args), deform_conv2d(*args)
+            scaled = offset * (WINDOW_REACH / reach)
+            past += int((scaled.abs() > DCN_WINDOW).sum().item())
+            n_offsets += scaled.numel()
+            for case, args, window in (
+                    ("net", (x, offset, mask, w, bias), path_window),
+                    ("planted_40", (x, planted, mask, w, bias), path_window),
+                    ("no_mask", (x, offset, None, w, bias), path_window),
+                    ("batch_7", (x[:7], offset[:7], mask[:7], w, bias), path_window),
+                    (f"scaled_R{DCN_WINDOW:g}", (x, scaled, mask, w, bias), DCN_WINDOW),
+                    ("scaled_no_window", (x, scaled, mask, w, bias), None)):
+                got = deform_conv2d_cuda(*args, max_offset=window)
+                want = deform_conv2d(*args, max_offset=window)
                 torch.cuda.synchronize()
                 require(got.dtype == want.dtype == x.dtype and
                         got.shape == want.shape == (args[0].shape[0], o) + shape[2:],
@@ -928,12 +968,19 @@ def check_phase(nets, cn_cfg, yl_cfg, chains, yl_img, kp_net, kp_maps):
                 n = int((got != want).sum().item())
                 differ, total = differ + n, total + got.numel()
                 err = max(err, e)
-                print(f"check {row} {shape} -> O={o} {case}"
+                if case.startswith("scaled"):
+                    window_errs[window] = max(window_errs[window], e)
+                print(f"check {row} {shape} -> O={o} {case} (window {window})"
                       f"{f' (net |offset| <= {reach:.2f})' if case == 'net' else ''}: "
                       f"max_abs_err {e:.3g}, {n} of {got.numel()} outputs differ, "
                       f"max |plain| {want.abs().max().item():.3g} ({tol}), "
                       f"plan {dcn_plan(args[0].shape, o, x.dtype)}")
-        print(f"check {row}: {differ / total:.3g} of all outputs differ from the plain version")
+        print(f"check {row}: {differ / total:.3g} of all outputs differ from the plain version; "
+              f"offsets scaled to reach {WINDOW_REACH:g} cells: {past / n_offsets:.3g} of them "
+              f"past +-{DCN_WINDOW:g}, E against the plain version max_abs_err "
+              f"{window_errs[DCN_WINDOW]:.3g} at R={DCN_WINDOW:g} and "
+              f"{window_errs[None]:.3g} with no window")
+        require(past > 0, f"{row}: no scaled offset past the window")
         errs[row] = err
 
     # Kernel D: bit-equal, at both served shapes with the net's codes,
@@ -1092,8 +1139,9 @@ def check_chain_kernels(chains, cn_cfg, yl, yl_cfg, yl_scales, kp_net, kp_scales
     for (shape, o), ((x, offset, mask, w, bias), _) in by_shape.items():
         require(x.dtype == mask.dtype == torch.bfloat16 and offset.dtype == torch.float32
                 and x.is_contiguous(), f"dcn_chain_int8 DCN inputs {x.dtype} {offset.dtype}")
-        got, want = deform_conv2d_cuda(x, offset, mask, w, bias), deform_conv2d(x, offset, mask,
-                                                                                 w, bias)
+        window = DCN_CHAIN_INT8.centernet.dcn_max_offset
+        got = deform_conv2d_cuda(x, offset, mask, w, bias, max_offset=window)
+        want = deform_conv2d(x, offset, mask, w, bias, max_offset=window)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         big = torch.maximum(got.float().abs(), want.float().abs())
@@ -1103,7 +1151,8 @@ def check_chain_kernels(chains, cn_cfg, yl, yl_cfg, yl_scales, kp_net, kp_scales
         n = int((got != want).sum().item())
         differ, total = differ + n, total + got.numel()
         errs["deform_conv_bf16"] = max(errs["deform_conv_bf16"], diff.max().item())
-        print(f"check deform_conv_bf16 dcn_chain_int8 {shape} -> O={o} (net |offset| <= "
+        print(f"check deform_conv_bf16 dcn_chain_int8 {shape} -> O={o} window {window} (net "
+              f"|offset| <= "
               f"{offset.abs().max().item():.2f}): max_abs_err {diff.max().item():.3g}, {n} of "
               f"{got.numel()} outputs differ (one bf16 ulp + 9 C 2^-24 max|plain|)")
     print(f"check deform_conv_bf16 dcn_chain_int8: {differ / total:.3g} of all outputs differ")
@@ -1977,9 +2026,11 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         sum(8 * o.numel() for o in outs16), PEAK["f32"])
     library["depthwise_upsample_bf16"] = time_ms(lambda: [F.conv_transpose2d(
         x, w, stride=f, padding=f // 2, groups=x.shape[1]) for x, w, f in calls16], 50)
-    # Kernel E: f32 at dcn_ida's 16 calls, bf16 at dcn_north_star's, the
-    # weights laid out once as DeformConv2d keeps them; the NCHW input's
-    # NHWC copy is in the time.
+    # Kernel E: f32 at dcn_ida's 16 calls, bf16 at dcn_north_star's, at
+    # the path's window (none; 3 cells), the weights laid out once as
+    # DeformConv2d keeps them; the NCHW input's NHWC copy is in the time.
+    # The same calls at the other window are timed beside them (the
+    # bound is the same: the products do not change).
     dcn_rows = {}
     for row, path in (("deform_conv", "dcn_ida"), ("deform_conv_bf16", "dcn_north_star")):
         dcns = dcn_calls(nets[path][1], img)
@@ -1987,10 +2038,22 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
                  in dcn_shapes(dcns).items()] == kernel_times.E_CALLS,
                 f"{path}: kernel E's calls are not kernel_times.E_CALLS")
         taps = [deform_conv.kernel_weights(c[3]) for c in dcns]
-        timed(row, lambda: [deform_conv2d_cuda(*c, taps=t) for c, t in zip(dcns, taps)],
-              lambda: [deform_conv2d(*c) for c in dcns], 20)
+        window = nets[path][1].deform_convs()[0].max_offset
+        timed(row, lambda: [deform_conv2d_cuda(*c, taps=t, max_offset=window)
+                            for c, t in zip(dcns, taps)],
+              lambda: [deform_conv2d(*c, max_offset=window) for c in dcns], 20)
         bounds[row] = dcn_bound(dcns)
-        dcn_rows[row] = (dcns, taps)
+        dcn_rows[row] = (dcns, taps, window)
+        other = None if window is not None else DCN_WINDOW
+        o_ms, o_plain = abba(lambda: [deform_conv2d_cuda(*c, taps=t, max_offset=other)
+                                      for c, t in zip(dcns, taps)],
+                             lambda: [deform_conv2d(*c, max_offset=other) for c in dcns], 10)
+        o_dev = queued_ms(lambda: [deform_conv2d_cuda(*c, taps=t, max_offset=other)
+                                   for c, t in zip(dcns, taps)], 10)
+        print(f"time {row} at window {other} (the row's own: {window}), all {N_DCN} calls of "
+              f"one batch-{b} {path} forward: kernel {o_ms:.4f} ms ({o_dev:.4f} ms on the "
+              f"device), plain {o_plain:.4f} ms, bound {bounds[row][0]:.4f} ms "
+              f"({bounds[row][1]}) ({card})")
     d_calls = record["transpose"]
     timed("transpose_conv",
           lambda: [transpose_conv2x_int8_cuda(*c[:5], act=c[5], out_dtype=c[6], taps=c[7])
@@ -2019,7 +2082,8 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
                          f"K={kk} crop",
         "depthwise_upsample": f"all {len(calls)} calls of one batch-{b} forward",
         "deform_conv": f"all {N_DCN} calls of one batch-{b} DCN-IDA forward, f32",
-        "deform_conv_bf16": f"all {N_DCN} calls of one batch-{b} dcn_north_star forward, bf16",
+        "deform_conv_bf16": f"all {N_DCN} calls of one batch-{b} dcn_north_star forward, bf16, "
+                            f"window {DCN_WINDOW:g}",
         "transpose_conv": f"both calls of one batch-{b} int8-chain forward, int8 in and out",
         "int8_dot_probe": f"[{m},{kd}]@[{kd},{n}] x{probe['reps']} int8->int32",
         "depthwise_upsample_bf16": f"all {len(calls16)} calls of one batch-{b} north_star "
@@ -2035,16 +2099,16 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
               f"{library.get(name, float('nan')):.4f} ms ({card})")
         times[name] = {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                        "bound_by": by, "library_ms": library.get(name), "timed": what[name]}
-    for row, (dcns, _) in dcn_rows.items():
+    for row, (dcns, _, window) in dcn_rows.items():
         gflop = dcn_flop(dcns) / 1e9
         print(f"time {row}: {gflop:.2f} GFLOP in the products for {b} frames, kernel "
               f"{gflop / times[row]['device_ms']:.2f} TFLOP/s on the device, plain "
               f"{gflop / times[row]['plain_ms']:.2f} TFLOP/s ({card})")
         for (shape, o), (c, n_calls) in dcn_shapes(dcns).items():
             t = deform_conv.kernel_weights(c[3])
-            k_ms, p_ms = abba(lambda: deform_conv2d_cuda(*c, taps=t),
-                              lambda: deform_conv2d(*c), 10, timer=queued_ms)
-            print(f"time {row} {shape} -> O={o} (x{n_calls} a forward, plan "
+            k_ms, p_ms = abba(lambda: deform_conv2d_cuda(*c, taps=t, max_offset=window),
+                              lambda: deform_conv2d(*c, max_offset=window), 10, timer=queued_ms)
+            print(f"time {row} {shape} -> O={o} window {window} (x{n_calls} a forward, plan "
                   f"{dcn_plan(shape, o, c[0].dtype)}): kernel {k_ms:.4f} ms on the "
                   f"device = {dcn_flop([c]) / 1e9 / k_ms:.2f} TFLOP/s, plain {p_ms:.4f} ms "
                   f"({card})")
@@ -2426,6 +2490,9 @@ TRAIN_BARS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
 # JAX model computes and discards and the port never runs, and the heads
 # whose loss lambda is 0 (samples_torpedo's offset head).
 DISCARDED = ("model.base.level3.project.", "model.base.level4.project.")
+# The same step without the DCN window, as PERF.md section 6 records it
+# (NVIDIA H100 80GB HBM3, 700 W).
+UNWINDOWED_E_BACKWARD_MS, UNWINDOWED_STEP_MS, UNWINDOWED_PEAK_GIB = 813.3, 1057.0, 25.79
 
 
 def train_setup():
@@ -2440,10 +2507,11 @@ def train_setup():
 
 def train_model(oc, dtype, impl="kernel", seed=0):
     """The DCN CenterpointDLA34 as the JAX package trains it (dtype, f32
-    BatchNorm outputs, bf16 stem), with the flax init from a seed."""
+    BatchNorm outputs, bf16 stem, the 3-cell DCN window), with the flax
+    init from a seed."""
     return CenterpointDLA34(oc, up_impl=impl, dcn_impl=impl, deform=True, dtype=dtype,
-                            init="flax", generator=torch.Generator().manual_seed(seed),
-                            device="cuda")
+                            dcn_max_offset=DCN_WINDOW, init="flax",
+                            generator=torch.Generator().manual_seed(seed), device="cuda")
 
 
 def on_card(img, truth, batch):
@@ -2553,7 +2621,7 @@ def check_train_step(dtype, batch, data):
           f"{loss_bar}, gradients {grad_bar}, or {YARDSTICK}x the move); forward launches "
           f"C {counts[0]}, E {counts[1]}")
     require(not failures, f"train {entry} batch {batch}: {len(failures)} outside their bars: "
-                          f"{failures[:8]}")
+                          f"{failures}")
     del kernel, plain, nudged, k_grads, p_grads
     torch.cuda.empty_cache()
 
@@ -2587,8 +2655,8 @@ def check_train_kernel_calls(errs, data, state_dict):
         require(ulps.item() <= 1.0, f"train C {tuple(x.shape)}: {ulps.item()} ulps")
         c_err = max(c_err, diff.max().item())
     for x, offset, mask, w, bias in dcns:
-        got = deform_conv2d_cuda(x, offset, mask, w, bias)
-        want = deform_conv2d(x, offset, mask, w, bias)
+        got = deform_conv2d_cuda(x, offset, mask, w, bias, max_offset=DCN_WINDOW)
+        want = deform_conv2d(x, offset, mask, w, bias, max_offset=DCN_WINDOW)
         diff = (got.float() - want.float()).abs()
         big = torch.maximum(got.float().abs(), want.float().abs())
         bar = bf16_ulp(big) + 9 * x.shape[1] * 2.0 ** -24 * want.float().abs().max()
@@ -2663,8 +2731,9 @@ def train_phase(errs, card):
 
     # Checkpoint: save, restore into a fresh model and optimizer (the same
     # parameters, statistics, moments and count), and the next step's loss
-    # equals the uninterrupted run's.  Only that first loss can be
-    # bit-equal: a backward's scatter-adds sum in another order each run.
+    # equals the uninterrupted run's.  Then two steps from the checkpoint,
+    # twice: whether both steps' losses and the first step's gradients
+    # repeat bit for bit, and which gradients do not.
     img, truth = on_card(img_np, truth_np, TRAIN_BATCH)
     step = make_centernet_train_step(mc, tc, oc)
     saved_model = {k: v.clone() for k, v in state.model.state_dict().items()}
@@ -2677,26 +2746,70 @@ def train_phase(errs, card):
         manager.save_configs({"model_config": mc, "train_config": tc})
         manager.save(state.step, state, metrics={"loss": t[-1]})
         going = float(step(state, img, truth)[1].total)
-        fresh_model = train_model(oc, torch.bfloat16, seed=1)
-        fresh = manager.restore(TrainState(fresh_model, adam_with_clip(
-            fresh_model.parameters(), tc.lr, tc.grad_max_norm)))
-    restored_opt, restored_at = fresh.optimizer.state_dict(), fresh.step
-    require(restored_at == OVERFIT_STEPS
-            and all(torch.equal(v, saved_model[k]) for k, v in fresh_model.state_dict().items())
-            and restored_opt["param_groups"][0]["count"] == saved_opt["count"]
-            and all(torch.equal(v, saved_opt["state"][i][k])
-                    for i, s in restored_opt["state"].items() for k, v in s.items()),
-            "train checkpoint: the restored state differs from the saved one")
-    resumed = float(step(fresh, img, truth)[1].total)
-    require(resumed == going, f"train checkpoint: next loss {resumed} against {going}")
-    print(f"train checkpoint: restored step {restored_at} into a fresh model and optimizer "
-          f"(parameters, statistics, Adam's moments and count equal the saved ones); the next "
-          f"loss {resumed!r} equals the uninterrupted run's")
-    del fresh, fresh_model
-    torch.cuda.empty_cache()
+
+        def restored():
+            model = train_model(oc, torch.bfloat16, seed=1)
+            return manager.restore(TrainState(model, adam_with_clip(
+                model.parameters(), tc.lr, tc.grad_max_norm)))
+
+        fresh = restored()
+        restored_opt, restored_at = fresh.optimizer.state_dict(), fresh.step
+        require(restored_at == OVERFIT_STEPS
+                and all(torch.equal(v, saved_model[k])
+                        for k, v in fresh.model.state_dict().items())
+                and restored_opt["param_groups"][0]["count"] == saved_opt["count"]
+                and all(torch.equal(v, saved_opt["state"][i][k])
+                        for i, s in restored_opt["state"].items() for k, v in s.items()),
+                "train checkpoint: the restored state differs from the saved one")
+        resumed = float(step(fresh, img, truth)[1].total)
+        require(resumed == going, f"train checkpoint: next loss {resumed} against {going}")
+        print(f"train checkpoint: restored step {restored_at} into a fresh model and "
+              f"optimizer (parameters, statistics, Adam's moments and count equal the saved "
+              f"ones); the next loss {resumed!r} equals the uninterrupted run's")
+        del fresh
+        torch.cuda.empty_cache()
+        repeat_steps(restored, step, img, truth, card)
     time_train(state, img, truth, step, card)
     print(f"train phase {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def two_steps(restored, step, img, truth):
+    """([both steps' total losses], {name: gradient after the first step})
+    of two train steps from a freshly restored checkpoint."""
+    state = restored()
+    first = float(step(state, img, truth)[1].total)
+    grads = {n: p.grad.clone() for n, p in state.model.named_parameters() if p.grad is not None}
+    second = float(step(state, img, truth)[1].total)
+    del state
+    torch.cuda.empty_cache()
+    return [first, second], grads
+
+
+def repeat_steps(restored, step, img, truth, card):
+    """Two steps from the same checkpoint, twice, as the port runs them and
+    with cuDNN held to its deterministic algorithms: whether the losses
+    and gradients repeat bit for bit, which parameters' gradients do not
+    (the ops that still sum in another order each run), and what the
+    deterministic cuDNN costs a step."""
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            runs = [two_steps(restored, step, img, truth) for _ in range(2)]
+            state = restored()
+            step(state, img, truth)
+            ms = time_ms(lambda: step(state, img, truth), TRAIN_TIMED_STEPS)
+            del state
+            torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        (l1, g1), (l2, g2) = runs
+        differ = sorted(n for n in g1 if not torch.equal(g1[n], g2[n]))
+        print(f"train repeat (cudnn.deterministic={deterministic}): two steps from one "
+              f"checkpoint, twice: losses {l1} and {l2}, bit-equal: step 1 {l1[0] == l2[0]}, "
+              f"step 2 {l1[1] == l2[1]}; {len(g1) - len(differ)} of {len(g1)} gradients after "
+              f"step 1 bit-equal, differing: {differ[:12]}{' ...' if len(differ) > 12 else ''}; "
+              f"a step {ms:.3f} ms ({card})")
 
 
 def time_train(state, img, truth, step, card):
@@ -2747,7 +2860,207 @@ def time_train(state, img, truth, step, card):
     print(f"time train split (torch.profiler, one step, device ms): "
           f"{ {k: round(v, 3) for k, v in split.items()} }, device busy {busy:.3f} of the "
           f"step's {ms:.3f} ms back to back; E backward is "
-          f"{split['E backward (plain, recomputed)'] / busy:.1%} of the busy time ({card})")
+          f"{split['E backward (plain, recomputed)'] / busy:.1%} of the busy time; the "
+          f"step without the window (PERF.md, NVIDIA H100 80GB HBM3, 700 W): E backward "
+          f"{UNWINDOWED_E_BACKWARD_MS} ms of a {UNWINDOWED_STEP_MS} ms step, peak "
+          f"{UNWINDOWED_PEAK_GIB} GiB "
+          f"({card})")
+
+
+# ---- phase 7: train_cli -------------------------------------------------
+
+CLI_TRAIN, CLI_VAL = 96, 32   # samples of each of the two dataset directories
+CLI_DATASETS = 2
+CLI_BATCHES = 3               # --epoch-n-batches
+CLI_WATCH_EVERY = 2
+CLI_SIDES = (24.0, 96.0)      # the squares' sides in pixels, at 360x640
+CLI_CONFIG = """
+import dataclasses
+from tauv_vision_tpu_torch.configs import samples_torpedo as base
+model_config = base.model_config
+train_config = dataclasses.replace(base.train_config, n_epochs={epochs}, weight_save_interval=1)
+object_config = base.object_config
+"""
+
+
+def cli_records(results):
+    with open(results / "metrics.jsonl") as fp:
+        return [json.loads(line) for line in fp]
+
+
+@contextlib.contextmanager
+def train_epoch_times():
+    """Yields a list that gains (epoch, wall seconds, steps) for each
+    ``Trainer.run_train_epoch`` run inside: the whole epoch, the wait for
+    each batch from the loader included (its first batch too).  The
+    epoch ends on its last loss read back to the host."""
+    times = []
+    run = Trainer.run_train_epoch
+
+    def timed(self, batches, epoch):
+        start, t0 = self.global_step, time.perf_counter()
+        loss = run(self, batches, epoch)
+        times.append((epoch, time.perf_counter() - t0, self.global_step - start))
+        return loss
+
+    Trainer.run_train_epoch = timed
+    try:
+        yield times
+    finally:
+        Trainer.run_train_epoch = run
+
+
+def cli_images_per_s(epochs, batch):
+    """Images/s of the CLI's training, host reading included: every train
+    image of a run's epochs but its first (warm-up) over those epochs' wall
+    time, the loader's waits at each epoch's start included."""
+    later = [(s, n) for e, s, n in epochs if e > 0]
+    return batch * sum(n for _, n in later) / sum(s for s, _ in later) if later else float("nan")
+
+
+def steps_idle_share(prof):
+    """The device's idle share from the first train step's forward to the
+    last optimizer step, from a ``torch.profiler`` run; None when the
+    profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    ranges = (train_steps.FORWARD, train_steps.OPTIMIZER, deform_conv.BACKWARD_RANGE,
+              conv_transpose.BACKWARD_RANGE)
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    starts = [e.time_range.start for e in cpu if e.name == train_steps.FORWARD]
+    ends = [e.time_range.end for e in cpu if e.name == train_steps.OPTIMIZER]
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in ranges]
+    if not starts or not ends or not device:
+        return None
+    t0, t1 = min(starts), max(ends)
+    busy = sum(min(e.time_range.end, t1) - e.time_range.start for e in device
+               if t0 <= e.time_range.start < t1)
+    return 1 - busy / (t1 - t0)
+
+
+def train_cli_phase(card):
+    """The training CLI on PNG dataset directories (see the module
+    docstring); returns its launch counts (by kernel, by entry point, by
+    variant)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    mc, tc, oc = samples_torpedo.model_config, samples_torpedo.train_config, \
+        samples_torpedo.object_config
+    labels = [c.id for c in oc.configs]
+    with tempfile.TemporaryDirectory() as directory:
+        base = pathlib.Path(directory)
+        roots = [base / f"dataset_{i}" for i in range(CLI_DATASETS)]
+        for i, root in enumerate(roots):
+            write_square_pose_dataset(root, np.random.default_rng(20 + i), CLI_TRAIN, CLI_VAL,
+                                      mc.in_h, mc.in_w, labels, min_side=CLI_SIDES[0],
+                                      max_side=CLI_SIDES[1])
+        t_data = time.perf_counter() - t0
+        # The loader's host work, one thread: decode, augment, collate.
+        ds = PoseDataset(roots[0], Split.TRAIN, oc.label_id_to_index, oc,
+                         train_centernet.build_train_transform(mc, tc))
+        t1 = time.perf_counter()
+        for j in range(2):
+            collate_pose_samples([ds[(j * tc.batch_size + i) % len(ds)]
+                                  for i in range(tc.batch_size)], tc.max_objects,
+                                 tc.max_keypoints)
+        host_ms = (time.perf_counter() - t1) / 2 * 1e3
+        for name, epochs in (("cli_config", 2), ("cli_warm", 1)):
+            (base / f"{name}.py").write_text(CLI_CONFIG.format(epochs=epochs))
+        sys.path.insert(0, str(base))
+        try:
+            common = ["--dataset-roots", *map(str, roots), "--no-figures",
+                      "--epoch-n-batches", str(CLI_BATCHES)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t2 = time.perf_counter()
+            with train_epoch_times() as epochs:
+                state = train_centernet.main(common + [
+                    "--results-dir", str(base / "run"), "--config", "cli_config",
+                    "--watch-every", str(CLI_WATCH_EVERY)])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t2
+            launches = (dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES),
+                        dict(kernels.VARIANT_LAUNCHES))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                warm = train_centernet.main(common + [
+                    "--results-dir", str(base / "warm"), "--config", "cli_warm",
+                    "--checkpoint", str(base / "run" / "checkpoints")])
+                torch.cuda.synchronize()
+        finally:
+            sys.path.remove(str(base))
+            for name in ("cli_config", "cli_warm"):
+                sys.modules.pop(name, None)
+        records, warm_records = cli_records(base / "run"), cli_records(base / "warm")
+
+        # The warm start's restore: parameters, statistics and Adam's
+        # moments equal the saved ones bit for bit.
+        manager = CheckpointManager(base / "run" / "checkpoints")
+        steps = manager.all_steps()
+        saved = torch.load(base / "run" / "checkpoints" / str(steps[-1]) / "state.pt",
+                           map_location="cuda", weights_only=True)
+        model = CenterpointDLA34(oc, deform=True, dcn_max_offset=DCN_WINDOW,
+                                 dtype=torch.bfloat16, init="flax", device="cuda")
+        restored = manager.restore(TrainState(model, adam_with_clip(
+            model.parameters(), tc.lr, tc.grad_max_norm)))
+        moments = restored.optimizer.state_dict()["state"]
+        require(all(torch.equal(v, saved["model"][k]) for k, v in model.state_dict().items())
+                and all(torch.equal(moments[i][k], s[k]) for i, s in
+                        saved["optimizer"]["state"].items() for k in ("mu", "nu"))
+                and len(moments) == len(saved["optimizer"]["state"]),
+                "train_cli: the restored parameters or moments differ from the saved ones")
+        del model, restored, saved
+
+    n_train = 2 * CLI_BATCHES
+    n_val = 2 * (CLI_DATASETS * CLI_VAL // tc.batch_size)
+    train = [r for r in records if "train/total" in r]
+    val = [r for r in records if "val/total" in r]
+    watch = [r for r in records if "watch/global_grad_norm" in r]
+    warm_train = [r for r in warm_records if "train/total" in r]
+    require(len(train) == n_train and len(val) == 2 and len(warm_train) == CLI_BATCHES,
+            f"train_cli: {len(train)} train, {len(val)} val, {len(warm_train)} warm records")
+    require(all(math.isfinite(v) for r in train + val + warm_train + [
+        r for r in warm_records if "val/total" in r] for k, v in r.items()
+                if k.startswith(("train/", "val/"))), "train_cli: a loss is not finite")
+    require(steps == [CLI_BATCHES, n_train] and warm_train[0]["step"] == n_train
+            and warm.step == n_train + CLI_BATCHES,
+            f"train_cli: checkpoints {steps}, warm start at {warm_train[0]['step']}")
+    trained = {n.replace(".", "/") for n, p in state.model.named_parameters()
+               if p.grad is not None}
+    require([r["step"] for r in watch] == list(range(0, n_train, CLI_WATCH_EVERY)) and all(
+        {k[len("watch/"):-len("/grad_norm")] for k in r if k.endswith("/grad_norm")} == trained
+        for r in watch), "train_cli: the watch lines do not cover every trained parameter")
+    forwards = n_train + n_val
+    want = {"depthwise_upsample": 8 * forwards, "deform_conv": N_DCN * forwards}
+    require({k: v for k, v in launches[0].items() if v} == want,
+            f"train_cli: launches {launches[0]}, expected {want} (8 C and {N_DCN} E a forward)")
+    idle = steps_idle_share(prof)
+    ips = cli_images_per_s(epochs, tc.batch_size)
+    print(f"train_cli: {CLI_DATASETS} dataset directories of {CLI_TRAIN} train and {CLI_VAL} "
+          f"val {mc.in_w}x{mc.in_h} PNGs written in {t_data:.1f} s; the CLI (samples_torpedo, "
+          f"batch {tc.batch_size}, the bf16 DCN DLA-34 at full width with the "
+          f"{DCN_WINDOW:g}-cell window) trained {n_train} steps over 2 epochs with "
+          f"--epoch-n-batches {CLI_BATCHES} --watch-every {CLI_WATCH_EVERY} in {run_s:.1f} s: "
+          f"losses {[round(r['train/total'], 4) for r in train]}, val "
+          f"{[round(r['val/total'], 4) for r in val]}; {len(watch)} watch lines over "
+          f"{len(trained)} parameters; launches {want} ({forwards} forwards: 8 C and {N_DCN} E "
+          f"each); checkpoints {steps}; warm start from step {n_train}: losses "
+          f"{[round(r['train/total'], 4) for r in warm_train]}, restored parameters and Adam "
+          f"moments bit-equal to the saved ones")
+    print(f"time train_cli: {ips:.2f} images/s (host reading included: the train images of "
+          f"epoch 1 over its wall time, the loader's waits included; epochs (epoch, s, steps) "
+          f"{[(e, round(t, 3), n) for e, t, n in epochs]}), the loader's host work "
+          f"{host_ms:.1f} ms a batch of {tc.batch_size} on one thread (decode, augment, "
+          f"collate; {tc.n_workers or 4} threads in the CLI), the device idle "
+          f"{'not measured' if idle is None else f'{idle:.1%}'} over the warm start's "
+          f"{CLI_BATCHES} steps, peak memory allocated {peak:.2f} GiB ({card})")
+    print(f"train_cli phase {time.perf_counter() - t0:.1f} s")
+    del state, warm
+    torch.cuda.empty_cache()
+    return launches
 
 
 # The north_star CenterNet's early trunk at batch 32, each conv alone in
@@ -2874,6 +3187,7 @@ def main(argv=None) -> int:
     time_chain_paths(cn_chains, nets, cn_cfg, yl, yl_cfg, chain_yl_scales, kp_net, kp_scales,
                      card, args.profile)
     served["train"] = train_phase(errs, card)
+    served["train_cli"] = train_cli_phase(card)
 
     def launches(path, row):
         kernel, entry = ROWS[row]

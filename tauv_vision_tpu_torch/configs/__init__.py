@@ -21,7 +21,7 @@ from __future__ import annotations
 
 from dataclasses import asdict, dataclass, replace
 from math import pi
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -118,12 +118,14 @@ def yolact_config(in_h: int = 360, in_w: int = 640,
 
 @dataclass(frozen=True)
 class CenternetRecipe:
-    """``CenterpointDLA34``'s precision knobs (its keyword arguments)."""
+    """``CenterpointDLA34``'s precision knobs and DCN window (its keyword
+    arguments)."""
 
     dtype: torch.dtype
     bn_out: torch.dtype
     f32_stages: Tuple[str, ...]
     deform: bool
+    dcn_max_offset: Optional[float] = None
 
 
 @dataclass(frozen=True)
@@ -186,11 +188,12 @@ INT8_CHAIN_YOLACT = replace(NORTH_STAR.yolact, int8_transposes=True)
 # ``bench.py --deform --north-star`` (``bench.py:1350,1358,1578-1596``):
 # the north-star pair with the CenterNet's IDA blocks deformable, served
 # in bf16 through kernel E's bf16 entry point, which rounds as the JAX
-# graph's Pallas kernel (``dcn_max_offset=3``, variant "full") does.  That
-# kernel drops the samples past its 3-cell window; kernel E keeps them
-# (torchvision's unbounded offsets), so the two graphs are equal only
-# where every |offset| <= 3 cells.
-DCN_NORTH_STAR = replace(NORTH_STAR, centernet=replace(NORTH_STAR.centernet, deform=True))
+# graph's Pallas kernel (``dcn_max_offset=3``, variant "full") does, with
+# its 3-cell window (``bench.py:1223-1236``).  ``replace(...,
+# dcn_max_offset=None)`` serves the deployed reference's torchvision
+# semantics instead (unbounded offsets), as the ``dcn_ida`` path does.
+DCN_NORTH_STAR = replace(NORTH_STAR, centernet=replace(NORTH_STAR.centernet, deform=True,
+                                                       dcn_max_offset=3.0))
 
 
 # ``bench.py --keypoints``'s bf16 net (its ``bf16_fps``): bf16 convs with
@@ -231,8 +234,7 @@ CHAIN_INT8 = ServedRecipe(
 # (``bench.py:1288-1289,1514-1519``): the same pair with the CenterNet's 16
 # IDA blocks deformable in bf16 inside its int8 trunk
 # (``dla34_chain_forward(deform=True)``, ``dcn_max_offset=3``, no
-# ``offset_bound``), through kernel E's bf16 entry point.  As on
-# ``DCN_NORTH_STAR``, the JAX graph's Pallas kernel drops the samples past
-# its 3-cell window and kernel E keeps them, so the two graphs are equal
-# only where every |offset| <= 3 cells.
-DCN_CHAIN_INT8 = replace(CHAIN_INT8, centernet=replace(CHAIN_INT8.centernet, deform=True))
+# ``offset_bound``), through kernel E's bf16 entry point with the same
+# 3-cell window as the JAX graph's Pallas kernel.
+DCN_CHAIN_INT8 = replace(CHAIN_INT8, centernet=replace(CHAIN_INT8.centernet, deform=True,
+                                                       dcn_max_offset=3.0))

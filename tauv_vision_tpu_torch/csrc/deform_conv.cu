@@ -3,15 +3,19 @@
 //
 // Replaces tauv_vision_tpu/ops/pallas/deform_conv.py:
 // deform_conv2d_pallas (body _dcn_kernel), which samples with a static
-// window of hat weights and is exact only for |offset| <= R.  This kernel
-// samples directly, with torchvision's semantics: unbounded offsets, each
-// bilinear corner outside the map reads zero, the mask multiplies the
-// sample.  So it equals the Pallas kernel wherever |offset| <= R.
+// window of hat weights: a corner whose integer shift from the tap's base
+// lies outside [lo, hi] = [-ceil(R), floor(R) + 1] adds zero.  This
+// kernel samples directly: each bilinear corner outside the map reads
+// zero, the mask multiplies the sample, and a corner outside [lo, hi]
+// reads zero too when the caller passes a window (lo != kNoWindow);
+// without one the offsets are unbounded (torchvision's semantics).
 //
 // Two entry points from one template:
-// - tauv_deform_conv_f32: f32 in and out, the gather formulation of
-//   ops/deform_conv.deform_conv2d (bilinear weights from the sample
-//   position, x mask, folded into 4 fused multiply-adds a sample);
+// - tauv_deform_conv_f32: f32 in and out; without a window the gather
+//   formulation of ops/deform_conv.deform_conv2d (bilinear weights from
+//   the sample position, x mask, folded into 4 fused multiply-adds a
+//   sample), with one the bf16 entry point's hats and rounding order in
+//   f32 (the plain version's windowed f32 formulation);
 // - tauv_deform_conv_bf16: x, weight and mask bf16, offsets f32, rounding
 //   as the Pallas body does: hat weights from the offset, each row's
 //   column pair summed first, then the rows, then x mask, every step an
@@ -70,6 +74,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTaps = 9;
 constexpr int kRow = 64;   // bytes a tile row: one K step
+constexpr int kNoWindow = -2147483647 - 1;   // lo of "no window": INT_MIN
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -132,9 +137,10 @@ __device__ __forceinline__ void from_f32(float& d, float v) { d = v; }
 __device__ __forceinline__ void from_f32(__nv_bfloat16& d, float v) { d = __float2bfloat16_rn(v); }
 
 // The 4 bilinear corners of one (pixel, tap): element offsets into x
-// (-1 outside the map, read as zero) and the weights.  bf16: wx0, wx1,
-// wy0, wy1, mask (the Pallas body's hats); f32: the 4 corner weights x
-// mask (the gather formulation), w[4] unused.
+// (-1 outside the map or the window, read as zero) and the weights.  The
+// hats (bf16, and f32 with a window): wx0, wx1, wy0, wy1, mask (the
+// Pallas body's); f32 without a window: the 4 corner weights x mask (the
+// gather formulation), w[4] unused.
 struct Corners {
   int idx[4];
   float w[5];
@@ -163,7 +169,7 @@ __device__ __forceinline__ int floor_int(float f) {
 template <bool kBf16>
 __device__ __forceinline__ void corners(Corners& c, bool valid, int bhw, int oy, int ox,
                                         int ky, int kx, float dy, float dx, float m,
-                                        int H, int W, int C) {
+                                        int H, int W, int C, int lo, int hi) {
   if (!valid) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) c.idx[k] = -1;
@@ -171,7 +177,7 @@ __device__ __forceinline__ void corners(Corners& c, bool valid, int bhw, int oy,
     for (int k = 0; k < 5; ++k) c.w[k] = 0.f;
     return;
   }
-  if constexpr (kBf16) {
+  if (kBf16 || lo != kNoWindow) {
     // hat(s) = max(0, 1 - |d - s|) at the integer shifts s = floor(d)
     // and floor(d) + 1, as _dcn_kernel's "full" variant computes it.
     const float fy = floorf(dy), fx = floorf(dx);
@@ -180,7 +186,17 @@ __device__ __forceinline__ void corners(Corners& c, bool valid, int bhw, int oy,
     c.w[2] = __fsub_rn(1.f, __fsub_rn(dy, fy));
     c.w[3] = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(dy, __fadd_rn(fy, 1.f)))));
     c.w[4] = m;
-    corner_offsets(c, oy - 1 + ky + floor_int(fy), ox - 1 + kx + floor_int(fx), bhw, H, W, C);
+    const int sy = floor_int(fy), sx = floor_int(fx);
+    corner_offsets(c, oy - 1 + ky + sy, ox - 1 + kx + sx, bhw, H, W, C);
+    if (lo != kNoWindow) {
+      // Shifts s and s + 1 of each axis from the tap's base, in [lo, hi].
+      const bool y0 = sy >= lo && sy <= hi, y1 = sy + 1 >= lo && sy + 1 <= hi;
+      const bool x0 = sx >= lo && sx <= hi, x1 = sx + 1 >= lo && sx + 1 <= hi;
+      if (!(y0 && x0)) c.idx[0] = -1;
+      if (!(y0 && x1)) c.idx[1] = -1;
+      if (!(y1 && x0)) c.idx[2] = -1;
+      if (!(y1 && x1)) c.idx[3] = -1;
+    }
   } else {
     const float y = (float)(oy - 1 + ky) + dy;
     const float x = (float)(ox - 1 + kx) + dx;
@@ -205,8 +221,8 @@ __device__ __forceinline__ float hat_sample(const float (&w)[5], float a00, floa
   return __fmul_rn(__fadd_rn(__fmul_rn(w[2], t0), __fmul_rn(w[3], t1)), w[4]);
 }
 
-// 8 bf16 channels of the 4 corners -> 8 bf16 samples.
-__device__ __forceinline__ uint4 sample_vec(const uint4 (&v)[4], const float (&w)[5],
+// 8 bf16 channels of the 4 corners -> 8 bf16 samples (always the hats).
+__device__ __forceinline__ uint4 sample_vec(const uint4 (&v)[4], const float (&w)[5], bool,
                                             __nv_bfloat16*) {
   const uint32_t* c0 = reinterpret_cast<const uint32_t*>(&v[0]);
   const uint32_t* c1 = reinterpret_cast<const uint32_t*>(&v[1]);
@@ -224,17 +240,22 @@ __device__ __forceinline__ uint4 sample_vec(const uint4 (&v)[4], const float (&w
   return out;
 }
 
-// 4 f32 channels of the 4 corners -> 4 f32 samples.
-__device__ __forceinline__ uint4 sample_vec(const uint4 (&v)[4], const float (&w)[5], float*) {
+// 4 f32 channels of the 4 corners -> 4 f32 samples: the hats where
+// ``hat`` (a window), else the 4 corner weights.
+__device__ __forceinline__ uint4 sample_vec(const uint4 (&v)[4], const float (&w)[5], bool hat,
+                                            float*) {
   uint4 out;
   uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+  const uint32_t* c0 = reinterpret_cast<const uint32_t*>(&v[0]);
+  const uint32_t* c1 = reinterpret_cast<const uint32_t*>(&v[1]);
+  const uint32_t* c2 = reinterpret_cast<const uint32_t*>(&v[2]);
+  const uint32_t* c3 = reinterpret_cast<const uint32_t*>(&v[3]);
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      s = fmaf(w[k], __uint_as_float(reinterpret_cast<const uint32_t*>(&v[k])[e]), s);
-    o[e] = __float_as_uint(s);
+    const float a00 = __uint_as_float(c0[e]), a01 = __uint_as_float(c1[e]);
+    const float a10 = __uint_as_float(c2[e]), a11 = __uint_as_float(c3[e]);
+    o[e] = __float_as_uint(hat ? hat_sample(w, a00, a01, a10, a11)
+                               : fmaf(w[3], a11, fmaf(w[2], a10, fmaf(w[1], a01, fmaf(w[0], a00, 0.f)))));
   }
   return out;
 }
@@ -257,7 +278,7 @@ __global__ void __launch_bounds__(kThreads, BN <= 128 ? 2 : 1) deform_conv_kerne
     const float* __restrict__ bias,    // [O] or null
     T* __restrict__ out,               // [B, O, H, W]
     float* __restrict__ partial,       // [S, B, O, H, W] when split, else null
-    int B, int C, int H, int W, int O, int per_split) {
+    int B, int C, int H, int W, int O, int per_split, int lo, int hi) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kWarpsM = BM / 32;
   constexpr int kWarpsN = (kThreads / 32) / kWarpsM;
@@ -318,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, BN <= 128 ? 2 : 1) deform_conv_kerne
 #pragma unroll
       for (int j = 0; j < kRJ; ++j)
         corners<kBf16>(cor[j], pval[j], pbhw[j], poy[j], pox[j], g_tap / 3, g_tap % 3,
-                       ndy[j], ndx[j], nm[j], H, W, C);
+                       ndy[j], ndx[j], nm[j], H, W, C, lo, hi);
       if (g_tap + 1 < kTaps) load_offsets(g_tap + 1);
     }
     const T* xc = x + g_chunk * kChunkC + q * kVec;
@@ -339,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, BN <= 128 ? 2 : 1) deform_conv_kerne
 #pragma unroll
     for (int j = 0; j < kRJ; ++j)
       *reinterpret_cast<uint4*>(a + swz(r + 64 * j, q)) =
-          sample_vec(vals[j], cor[j].w, static_cast<T*>(nullptr));
+          sample_vec(vals[j], cor[j].w, lo != kNoWindow, static_cast<T*>(nullptr));
   };
   // The weight copy: BN rows x 4 chunks of 16 bytes, kBR of them a thread,
   // at offsets fixed for the whole loop.
@@ -546,7 +567,7 @@ __global__ void __launch_bounds__(kThreads) nchw_to_nhwc(const T* __restrict__ x
 template <typename T, int BM, int BN>
 cudaError_t launch(const void* x_nchw, const void* x, const void* offset, const void* mask,
                    const void* taps, const void* bias, void* out, void* partial, int B, int C,
-                   int H, int W, int O, int split, cudaStream_t stream) {
+                   int H, int W, int O, int split, int lo, int hi, cudaStream_t stream) {
   constexpr int kChunkC = kRow / sizeof(T);
   constexpr int bytes = smem_bytes(BM, BN);
   static bool attr_set = false;   // per instantiation
@@ -566,7 +587,7 @@ cudaError_t launch(const void* x_nchw, const void* x, const void* offset, const 
   const dim3 grid((M + BM - 1) / BM, split);
   deform_conv_kernel<T, BM, BN><<<grid, kThreads, bytes, stream>>>(
       (const T*)x, (const float*)offset, (const T*)mask, (const T*)taps, (const float*)bias,
-      (T*)out, split > 1 ? (float*)partial : nullptr, B, C, H, W, O, per_split);
+      (T*)out, split > 1 ? (float*)partial : nullptr, B, C, H, W, O, per_split, lo, hi);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return err;
   const int n = M * O;
@@ -578,17 +599,18 @@ cudaError_t launch(const void* x_nchw, const void* x, const void* offset, const 
 template <typename T>
 int dispatch(const void* x_nchw, const void* x, const void* offset, const void* mask,
              const void* taps, const void* bias, void* out, void* partial, int B, int C, int H,
-             int W, int O, int bm, int bn, int split, int device, void* stream) {
+             int W, int O, int bm, int bn, int split, int lo, int hi, int device,
+             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!x_nchw || !x || C % 32 || O % 8 || O > bn || split < 1 ||
-      (split > 1 && partial == nullptr))
+      (split > 1 && partial == nullptr) || (lo != kNoWindow && lo > hi))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
 #define TAUV_DCN_TILE(BM_, BN_)                                                         \
   if (bm == BM_ && bn == BN_)                                                           \
     return (int)launch<T, BM_, BN_>(x_nchw, x, offset, mask, taps, bias, out, partial, B, \
-                                    C, H, W, O, split, s);
+                                    C, H, W, O, split, lo, hi, s);
   TAUV_DCN_TILE(64, 256)
   TAUV_DCN_TILE(64, 128)
   TAUV_DCN_TILE(64, 64)
@@ -610,22 +632,24 @@ int dispatch(const void* x_nchw, const void* x, const void* offset, const void* 
 // {(64, 256), (64, 128), (64, 64), (128, 64)}: the block's pixel and
 // output-channel tile.  split > 1 splits K over that many blocks a pixel
 // tile, with partial a [split, B, O, H, W] f32 scratch.  C a multiple of
-// 32, O a multiple of 8 and at most bn.  Returns cudaGetLastError()
-// after the launches.
+// 32, O a multiple of 8 and at most bn.  [lo, hi]: the window of integer
+// corner shifts from a tap's base that are read (ops/deform_conv.window),
+// or lo = INT_MIN for none.  Returns cudaGetLastError() after the
+// launches.
 extern "C" int tauv_deform_conv_f32(const void* x_nchw, const void* x, const void* offset,
                                     const void* mask, const void* taps, const void* bias,
                                     void* out, void* partial, int B, int C, int H, int W,
-                                    int O, int bm, int bn, int split, int device,
-                                    void* stream) {
+                                    int O, int bm, int bn, int split, int lo, int hi,
+                                    int device, void* stream) {
   return dispatch<float>(x_nchw, x, offset, mask, taps, bias, out, partial, B, C, H, W, O,
-                         bm, bn, split, device, stream);
+                         bm, bn, split, lo, hi, device, stream);
 }
 
 extern "C" int tauv_deform_conv_bf16(const void* x_nchw, const void* x, const void* offset,
                                      const void* mask, const void* taps, const void* bias,
                                      void* out, void* partial, int B, int C, int H, int W,
-                                     int O, int bm, int bn, int split, int device,
-                                     void* stream) {
+                                     int O, int bm, int bn, int split, int lo, int hi,
+                                     int device, void* stream) {
   return dispatch<__nv_bfloat16>(x_nchw, x, offset, mask, taps, bias, out, partial, B, C, H,
-                                 W, O, bm, bn, split, device, stream);
+                                 W, O, bm, bn, split, lo, hi, device, stream);
 }

@@ -3,18 +3,27 @@
 labelled with centre, size, yaw modulo pi/2 and, optionally, the four
 corners as keypoints.  Numpy on the host, bit-equal to the JAX package's
 on the same generator; the batch goes to the device at the step
-(``CenternetTruth.to``).
+(``CenternetTruth.to``).  ``write_square_pose_dataset`` writes such
+squares as a dataset directory, for the training CLI's readers.
 """
 
 from __future__ import annotations
 
+import pathlib
 from dataclasses import dataclass
 from math import pi
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from tauv_vision_tpu_torch.configs.centernet import AngleConfig, ObjectConfig, ObjectConfigSet
+from tauv_vision_tpu_torch.data.dataset_dir import (
+    DatasetSample,
+    write_classes,
+    write_meta,
+    write_sample,
+    write_splits,
+)
 from tauv_vision_tpu_torch.train.centernet_task import CenternetTruth
 
 
@@ -130,3 +139,55 @@ def generate_square_batch(
         keypoint_object_index=kp_object if cfg.keypoints else None,
     )
     return img, truth
+
+
+def square_pose_samples(rng: np.random.Generator, n: int, h: int, w: int,
+                        labels: Sequence[str], max_objects: int = 4,
+                        min_side: float = 8.0, max_side: float = 24.0,
+                        focal: float = 100.0, distance: float = 2.0) -> List[DatasetSample]:
+    """``n`` on-disk samples (``data/dataset_dir.py``'s contract) of 1 to
+    ``max_objects`` rotated squares painted on noise, as uint8 [h, w, 3]
+    frames: each square an object of a label drawn from ``labels``, its
+    box the square's axis-aligned extent, its pose a yaw and a
+    ``cam_t_object`` whose translation projects the object's origin (the
+    one keypoint of ``configs/samples_torpedo.py``'s objects) onto the
+    square's centre through the sample's pinhole camera (focal length
+    ``focal`` pixels, principal point at the frame's centre)."""
+    projection = [[focal, 0.0, w / 2, 0.0], [0.0, focal, h / 2, 0.0], [0.0, 0.0, 1.0, 0.0]]
+    samples = []
+    for i in range(n):
+        img = rng.uniform(0, 0.3, (h, w, 3)).astype(np.float32)
+        objects = []
+        for _ in range(int(rng.integers(1, max_objects + 1))):
+            side = float(rng.uniform(min_side, max_side))
+            cy, cx = float(rng.uniform(side, h - side)), float(rng.uniform(side, w - side))
+            theta = float(rng.uniform(0, pi / 2))
+            _paint_square(img, cy, cx, side, theta)
+            extent = side * (abs(np.cos(theta)) + abs(np.sin(theta)))
+            t = ((cx - w / 2) * distance / focal, (cy - h / 2) * distance / focal, distance)
+            objects.append({
+                "label": labels[int(rng.integers(len(labels)))],
+                "bbox": {"x": cx / w, "y": cy / h, "w": extent / w, "h": extent / h},
+                "pose": {"roll": 0.0, "pitch": 0.0, "yaw": theta, "distance": distance,
+                         "cam_t_object": [1.0, 0.0, 0.0, t[0], 0.0, 1.0, 0.0, t[1],
+                                          0.0, 0.0, 1.0, t[2], 0.0, 0.0, 0.0, 1.0]},
+            })
+        samples.append(DatasetSample(
+            id=f"{i:06d}", img=np.round(img * 255).astype(np.uint8), objects=objects,
+            camera={"h": h, "w": w, "projection": projection}))
+    return samples
+
+
+def write_square_pose_dataset(root: pathlib.Path, rng: np.random.Generator, n_train: int,
+                              n_val: int, h: int, w: int, labels: Sequence[str],
+                              **kwargs) -> None:
+    """A dataset directory of ``square_pose_samples``: ``n_train`` train
+    and ``n_val`` val samples, their splits, classes and meta files."""
+    root = pathlib.Path(root)
+    samples = square_pose_samples(rng, n_train + n_val, h, w, labels, **kwargs)
+    for sample in samples:
+        write_sample(root / "data", sample)
+    ids = [s.id for s in samples]
+    write_splits(root, {"train": ids[:n_train], "val": ids[n_train:], "test": []})
+    write_classes(root, list(labels))
+    write_meta(root, "tauv_vision_tpu_torch", "synthetic squares", "2026-01-01T00:00:00")

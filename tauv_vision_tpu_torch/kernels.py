@@ -49,8 +49,8 @@ _SIGNATURES = {
     "tauv_mask_assembly_f32": [_P] * 4 + [_I] * 7 + [_P],
     "tauv_depthwise_upsample_f32": [_P] * 3 + [_I] * 6 + [_P],
     "tauv_depthwise_upsample_bf16": [_P] * 3 + [_I] * 6 + [_P],
-    "tauv_deform_conv_f32": [_P] * 8 + [_I] * 9 + [_P],
-    "tauv_deform_conv_bf16": [_P] * 8 + [_I] * 9 + [_P],
+    "tauv_deform_conv_f32": [_P] * 8 + [_I] * 11 + [_P],
+    "tauv_deform_conv_bf16": [_P] * 8 + [_I] * 11 + [_P],
     "tauv_transpose_conv2x_int8": [_P] * 6 + [_I] * 8 + [_P],
     "tauv_int8_dot_probe": [_P] * 3 + [_I] * 7 + [_P],
     "tauv_op_probe_dot": [_P] * 3 + [_I] * 5 + [_P],

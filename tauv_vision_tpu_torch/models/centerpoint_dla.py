@@ -244,8 +244,9 @@ class DeformConvBlock(nn.Module):
     (``offset`` 3x3 conv to 18 channels, ``mask`` 3x3 conv to 9 channels
     and sigmoid, ``conv`` the ``DeformConv2d``); ``offset_bound`` squashes
     the offsets through ``bound * tanh(offset / bound)`` as the JAX
-    block's option does, and ``dcn_impl`` picks kernel E or the plain
-    version (see ``DeformConv2d``).  Every conv computes in ``dtype`` and
+    block's option does, ``dcn_max_offset`` is the DCN's window (None:
+    unbounded offsets; ``DeformConv2d``), and ``dcn_impl`` picks kernel E
+    or the plain version.  Every conv computes in ``dtype`` and
     the BatchNorm rounds to ``bn_out``.  In bf16 the block computes as the
     JAX block (``tauv_vision_tpu/models/centerpoint_dla.py:447-537``): the
     offset and mask convs in bf16 with the bias added after the conv's
@@ -261,7 +262,8 @@ class DeformConvBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, deform: bool = False,
                  offset_bound: Optional[float] = None, dcn_impl: str = "kernel",
-                 dtype=torch.float32, bn_out=torch.float32):
+                 dtype=torch.float32, bn_out=torch.float32,
+                 dcn_max_offset: Optional[float] = None):
         super().__init__()
         self.deform = deform
         self.offset_bound = offset_bound
@@ -270,7 +272,7 @@ class DeformConvBlock(nn.Module):
             self.offset = Conv2d(in_channels, 18, 3, padding=1, compute_dtype=dtype)
             self.mask = Conv2d(in_channels, 9, 3, padding=1, compute_dtype=dtype)
             self.offset.zero_init = self.mask.zero_init = True
-            self.conv = DeformConv2d(in_channels, out_channels, dcn_impl)
+            self.conv = DeformConv2d(in_channels, out_channels, dcn_impl, dcn_max_offset)
         else:
             self.conv = Conv2d(in_channels, out_channels, 3, padding=1, compute_dtype=dtype)
         self.sow = None
@@ -405,7 +407,8 @@ class DLAUp(nn.Module):
 
 class DLASeg(nn.Module):
     """Trunk + DLAUp + IDAUp + heads; returns the NCHW head outputs in
-    f32.  ``block`` (``deform``, ``offset_bound``, ``dcn_impl``) reaches
+    f32.  ``block`` (``deform``, ``offset_bound``, ``dcn_max_offset``,
+    ``dcn_impl``) reaches
     every IDA conv block.  ``f32_stages`` may also name "dla_up",
     "ida_up" and "heads", which then run in f32."""
 
@@ -455,10 +458,12 @@ class CenterpointDLA34(nn.Module):
     offset and mask convs at zero), as training starts.  The heatmap
     heads' biases start at -2.19, and the module
     is moved to ``device`` (the card unless the caller passes "cpu"); call
-    ``.eval()`` to serve.  ``deform``, ``offset_bound``, ``dtype``,
-    ``bn_out`` and ``f32_stages`` mean what they mean in the JAX package,
-    whose ``dcn_impl="gather"`` the port's f32 DCN matches (in bf16 it
-    rounds as the Pallas kernel does); ``up_impl`` and
+    ``.eval()`` to serve.  ``deform``, ``offset_bound``,
+    ``dcn_max_offset``, ``dtype``, ``bn_out`` and ``f32_stages`` mean what
+    they mean in the JAX package: with ``dcn_max_offset`` None the port's
+    f32 DCN is JAX's ``dcn_impl="gather"``, with R set its
+    ``dcn_impl="shift"`` (the JAX default, R = 3), and in bf16 it rounds
+    as the Pallas kernel does; ``up_impl`` and
     ``dcn_impl`` pick kernels C and E or their plain versions.  The served
     recipe is ``configs.NORTH_STAR``."""
 
@@ -467,7 +472,8 @@ class CenterpointDLA34(nn.Module):
                  device=DEFAULT_DEVICE,
                  deform: bool = False, offset_bound: Optional[float] = None,
                  dcn_impl: str = "kernel", dtype=torch.float32,
-                 bn_out=torch.float32, f32_stages: Sequence[str] = (), init: str = "lecun"):
+                 bn_out=torch.float32, f32_stages: Sequence[str] = (), init: str = "lecun",
+                 dcn_max_offset: Optional[float] = None):
         super().__init__()
         if init not in INITS:
             raise ValueError(f"init must be one of {sorted(INITS)}, got {init!r}")
@@ -475,7 +481,8 @@ class CenterpointDLA34(nn.Module):
         self.object_config = object_config
         self.model = DLASeg(get_head_channels(object_config), up_impl=up_impl,
                             deform=deform, offset_bound=offset_bound,
-                            dcn_impl=dcn_impl, dtype=dtype, bn_out=bn_out,
+                            dcn_max_offset=dcn_max_offset, dcn_impl=dcn_impl,
+                            dtype=dtype, bn_out=bn_out,
                             f32_stages=f32_stages)
         if generator is None:
             generator = torch.default_generator

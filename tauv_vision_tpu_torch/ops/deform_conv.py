@@ -1,25 +1,29 @@
 """Modulated deformable convolution v2 (DCNv2), 3x3, stride 1, padding 1.
 
-torchvision's semantics: the sample of output pixel (y, x) at tap
-k = 3 ky + kx sits at (y - 1 + ky + dy_k, x - 1 + kx + dx_k), offsets are
-unbounded, each bilinear corner outside the map reads zero, and the mask
-multiplies the sample.  NCHW throughout: x [B, C, H, W], offset
-[B, 18, H, W] f32 with channel 2k = dy and 2k + 1 = dx of tap k (taps
-row-major), mask [B, 9, H, W] (already sigmoided, x's dtype) or None,
-weight [O, C, 3, 3] in x's dtype, bias [O] f32 or None.
+The sample of output pixel (y, x) at tap k = 3 ky + kx sits at
+(y - 1 + ky + dy_k, x - 1 + kx + dx_k), each bilinear corner outside the
+map reads zero, and the mask multiplies the sample.  NCHW throughout: x
+[B, C, H, W], offset [B, 18, H, W] f32 with channel 2k = dy and 2k + 1 =
+dx of tap k (taps row-major), mask [B, 9, H, W] (already sigmoided, x's
+dtype) or None, weight [O, C, 3, 3] in x's dtype, bias [O] f32 or None.
 
-Two dtypes, as the JAX package serves them:
+Offsets are unbounded (torchvision's semantics) unless ``max_offset`` R
+is set: then, as in the JAX package's ``deform_conv2d_shift`` and its
+Pallas kernel, a corner whose integer shift from the tap's base lies
+outside [-ceil(R), floor(R) + 1] adds zero (``window``).
 
-- f32: the gather formulation of
+How each case rounds, as the JAX package computes it:
+
+- f32, no window: the gather formulation of
   ``tauv_vision_tpu/ops/deform_conv.deform_conv2d``;
-- bf16: the rounding of the Pallas kernel's body
+- f32 with a window: ``deform_conv2d_shift``'s hat formulation, the hat
+  weights max(0, 1 - |d - s|) of the offset d at the shifts s = floor(d)
+  and floor(d) + 1, each row's column pair summed first, then the rows,
+  then x mask, every step an f32 op;
+- bf16: the same hats, as the Pallas kernel's body
   (``tauv_vision_tpu/ops/pallas/deform_conv._dcn_kernel``, variant
-  "full"): the hat weights max(0, 1 - |d - s|) of the offset d at the
-  shifts s = floor(d) and floor(d) + 1, each row's column pair summed
-  first, then the rows, then x mask, every step an f32 op; the sample
-  rounded to bf16, its product with the bf16 weight summed in f32, + the
-  f32 bias, rounded to bf16.  The Pallas kernel drops samples past its
-  window (|offset| > its ``max_offset``); this one does not.
+  "full") rounds: the sample rounded to bf16, its product with the bf16
+  weight summed in f32, + the f32 bias, rounded to bf16.
 
 ``deform_conv2d`` is the plain version; ``deform_conv2d_cuda`` wraps
 ``csrc/deform_conv.cu`` (kernel E, entry points ``tauv_deform_conv_f32``
@@ -34,7 +38,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,6 +56,8 @@ MAX_O = 256
 TILE_N = (64, 128, 256)
 MIN_SPLIT_STEPS = 8     # K steps a split keeps at least
 BACKWARD_RANGE = "deform_conv/backward"
+# The (lo, hi) that tells kernel E "no window": lo at INT_MIN.
+NO_WINDOW = (-2**31, 0)
 
 
 def _check_shapes(x, offset, mask, weight, bias) -> None:
@@ -129,13 +135,122 @@ def _deform_conv2d_bf16(x, offset, mask, weight, bias):
     return out.to(torch.bfloat16).reshape(b, -1, h, w)
 
 
+def window(max_offset: Optional[float]) -> Optional[Tuple[int, int]]:
+    """The shifts [lo, hi] from a tap's base that a ``max_offset`` window
+    keeps (``tauv_vision_tpu/ops/pallas/deform_conv._window``): the bilinear
+    corners of every |offset| <= R; None with no window."""
+    if max_offset is None:
+        return None
+    return -math.ceil(max_offset), math.floor(max_offset) + 1
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x [B, C, H, W] as f32 rows [B H W, C]: a pixel's channels contiguous."""
+    return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1]).float()
+
+
+def _corners(rows: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+             h: int, w: int) -> torch.Tensor:
+    """rows (``_rows``) at the integer-valued float positions ys, xs
+    [N, B, P] of each pixel's own image, zero outside the map: f32
+    [N, B, P, C].  One row index for all the corners, so that autograd's
+    backward is one ``index_put_`` with accumulation, which PyTorch sums
+    in a fixed order on the card (it sorts the indices).  A corner
+    outside the map reads its own pixel's row, times 0: pointing them all
+    at one row (a zero row, or the map's edge) would pile their zero
+    gradients onto it, which that sum adds one by one."""
+    b, p = ys.shape[1:]
+    valid = (ys >= 0) & (ys <= h - 1) & (xs >= 0) & (xs <= w - 1)
+    own = torch.arange(b * p, device=rows.device).reshape(b, p)
+    idx = torch.where(valid, (ys.long() * w + xs.long()) + (own - own % p), own)
+    vals = rows[idx.reshape(-1)].reshape(*idx.shape, rows.shape[1])
+    return vals * valid[..., None]
+
+
+def _absj(u: torch.Tensor) -> torch.Tensor:
+    """|u| with derivative +1 at 0, as ``jax.grad(jnp.abs)`` takes it."""
+    return torch.where(u >= 0, u, -u)
+
+
+# The corners of an axis a window reads, as shifts from floor(d): 0 and 1
+# carry the bilinear weights, -1 weighs exactly 0 but carries shift's
+# subgradient at an integral d (see ``_window_hats``).  A tap reads the 8
+# (row, column) pairs of them but (-1, -1), whose value and derivatives
+# are all 0.
+SHIFTS = (0, 1, -1)
+PAIRS = tuple((i, j) for i in range(3) for j in range(3) if (i, j) != (2, 2))
+
+
+def _window_hats(d: torch.Tensor, lo: int, hi: int):
+    """floor(d) and the hat weights max(0, 1 - |d - s|) at the shifts
+    s = floor(d) + ``SHIFTS`` (the Pallas body's values), each zero where s
+    lies outside [lo, hi], with ``deform_conv2d_shift``'s subgradients at
+    ties: ``jnp.abs``' derivative +1 at 0 and ``jnp.maximum``'s half to
+    each side.  So where d is integral the derivative is
+    -x[s] + x[s + 1] / 2 - x[s - 1] / 2, not the gather's x[s + 1] - x[s]."""
+    f = torch.floor(d)
+    zero = torch.zeros_like(d)
+    weights = []
+    for k in SHIFTS:
+        s = f + float(k)
+        inside = (s >= lo) & (s <= hi)
+        weights.append(torch.maximum(1.0 - _absj(d - s), zero) * inside)
+    return f, weights
+
+
+def _deform_conv2d_window(x, offset, mask, weight, bias, lo: int, hi: int):
+    """The windowed plain version (see ``deform_conv2d``), NCHW in and out:
+    per tap, 8 corners gathered as rows of x's channels, each row's
+    columns summed first (shifts 0, 1, then -1 at weight 0), then the
+    rows, every step an f32 op (the Pallas body's order, and
+    ``deform_conv2d_shift``'s), x mask; bf16 rounds the sample to bf16."""
+    b, c, h, w = x.shape
+    p = h * w
+    bf16 = x.dtype == torch.bfloat16
+    rows = _rows(x)
+    grid_y = torch.arange(h, dtype=torch.float32, device=x.device) - 1
+    grid_x = torch.arange(w, dtype=torch.float32, device=x.device) - 1
+    base_y = grid_y[:, None].expand(h, w).reshape(1, p)
+    base_x = grid_x[None, :].expand(h, w).reshape(1, p)
+    out = torch.zeros((b, p, weight.shape[0]), dtype=torch.float32, device=x.device)
+    for tap in range(N_TAPS):
+        ky, kx = divmod(tap, 3)
+        fy, wy = _window_hats(offset[:, 2 * tap].reshape(b, p).float(), lo, hi)
+        fx, wx = _window_hats(offset[:, 2 * tap + 1].reshape(b, p).float(), lo, hi)
+        corner = dict(zip(PAIRS, _corners(
+            rows, torch.stack([base_y + ky + fy + SHIFTS[i] for i, _ in PAIRS]),
+            torch.stack([base_x + kx + fx + SHIFTS[j] for _, j in PAIRS]), h, w)))
+        sampled = None
+        for i in range(len(SHIFTS)):
+            row = None
+            for j in range(len(SHIFTS)):
+                if (i, j) in corner:
+                    term = corner[i, j] * wx[j][..., None]
+                    row = term if row is None else row + term
+            term = row * wy[i][..., None]
+            sampled = term if sampled is None else sampled + term
+        if mask is not None:
+            sampled = sampled * mask[:, tap].reshape(b, p, 1).float()
+        if bf16:
+            sampled = sampled.to(torch.bfloat16).float()
+        out = out + torch.einsum("bpc,oc->bpo", sampled, weight[:, :, ky, kx].float())
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype).permute(0, 2, 1).reshape(b, -1, h, w).contiguous()
+
+
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
                   mask: Optional[torch.Tensor], weight: torch.Tensor,
-                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version: per tap, 4 corner gathers, x mask, then a GEMM with
+                  bias: Optional[torch.Tensor] = None, *,
+                  max_offset: Optional[float] = None) -> torch.Tensor:
+    """Plain version: per tap, the corner gathers, x mask, then a GEMM with
     ``weight[:, :, ky, kx]`` accumulated in f32.  Returns [B, O, H, W] in
-    x's dtype; bf16 rounds as the module docstring says."""
+    x's dtype; the module docstring says how each case rounds.  With a
+    ``max_offset`` window, x's gradient sums in a fixed order on the card
+    (``_corners``); without one, through ``gather``'s scatter-adds."""
     _check_shapes(x, offset, mask, weight, bias)
+    if max_offset is not None:
+        return _deform_conv2d_window(x, offset, mask, weight, bias, *window(max_offset))
     if x.dtype == torch.bfloat16:
         return _deform_conv2d_bf16(x, offset, mask, weight, bias)
     b, c, h, w = x.shape
@@ -195,6 +310,7 @@ def plan(b: int, c: int, h: int, w: int, o: int, dtype, sms: int) -> tuple:
 def deform_conv2d_cuda(x: torch.Tensor, offset: torch.Tensor,
                        mask: Optional[torch.Tensor], weight: torch.Tensor,
                        bias: Optional[torch.Tensor] = None, *,
+                       max_offset: Optional[float] = None,
                        taps: Optional[torch.Tensor] = None,
                        launch_plan: Optional[tuple] = None) -> torch.Tensor:
     """Kernel E: ``deform_conv2d`` as one CUDA op.
@@ -207,10 +323,12 @@ def deform_conv2d_cuda(x: torch.Tensor, offset: torch.Tensor,
     into a scratch copy.  ``taps`` is ``kernel_weights(weight)`` from a
     caller that keeps it across calls (built here when None);
     ``launch_plan`` is a (BM, BN, splits) other than ``plan``'s, for
-    timing."""
+    timing.  ``max_offset`` is the plain version's: the kernel reads no
+    corner outside the window (and then rounds as the bf16 entry point
+    does, in f32)."""
     _check_shapes(x, offset, mask, weight, bias)
     if x.device.type == "cpu":
-        return deform_conv2d(x, offset, mask, weight, bias)
+        return deform_conv2d(x, offset, mask, weight, bias, max_offset=max_offset)
     if x.dtype not in DTYPES:
         raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
     b, c, h, w = x.shape
@@ -249,7 +367,7 @@ def deform_conv2d_cuda(x: torch.Tensor, offset: torch.Tensor,
         None if mask is None else mask.data_ptr(), taps.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         None if partial is None else partial.data_ptr(),
-        b, c, h, w, o, bm, bn, split,
+        b, c, h, w, o, bm, bn, split, *(window(max_offset) or NO_WINDOW),
     )
     return out
 
@@ -257,49 +375,54 @@ def deform_conv2d_cuda(x: torch.Tensor, offset: torch.Tensor,
 class _DeformConvFunction(torch.autograd.Function):
     """A DCN under autograd.  The forward is ``forward``: kernel E's wrapper
     (``deform_conv2d_cuda``: the kernel on a CUDA tensor, the plain version
-    on a CPU one) or the plain version itself; it saves only its inputs.
-    The backward recomputes the plain version from them under
-    ``torch.enable_grad()`` and takes ``torch.autograd.grad`` of it, to x,
-    offset, mask, weight and bias as they need: stock PyTorch autograd,
-    the counterpart of XLA's autodiff of ``deform_conv2d_shift`` that the
-    JAX package trains through (it has no backward kernel).  Recomputing
-    keeps one call's intermediates alive at a time, not every block's
-    (the plain version keeps ~10 f32 copies of its input a tap).  It is
-    not a fallback: the kernel's forward on the card is the kernel or
-    raises.  The backward is the ``torch.profiler`` range
-    ``BACKWARD_RANGE``."""
+    on a CPU one) or the plain version itself, both at ``max_offset``; it
+    saves only its inputs.  The backward recomputes the plain version from
+    them under ``torch.enable_grad()`` and takes ``torch.autograd.grad`` of
+    it, to x, offset, mask, weight and bias as they need: stock PyTorch
+    autograd, the counterpart of XLA's autodiff of ``deform_conv2d_shift``
+    that the JAX package trains through (it has no backward kernel).  With
+    a window its subgradients are shift's (``_window_hats``) and x's
+    gradient sums in a fixed order (``_corners``), so such a backward
+    repeats itself bit for bit on the card.  Recomputing keeps one call's intermediates alive at a
+    time, not every block's.  It is not a fallback: the kernel's forward
+    on the card is the kernel or raises.  The backward is the
+    ``torch.profiler`` range ``BACKWARD_RANGE``."""
 
     @staticmethod
-    def forward(ctx, forward, x, offset, mask, weight, bias):
+    def forward(ctx, forward, max_offset, x, offset, mask, weight, bias):
         ctx.save_for_backward(x, offset, mask, weight, bias)
-        return forward(x, offset, mask, weight, bias)
+        ctx.max_offset = max_offset
+        return forward(x, offset, mask, weight, bias, max_offset=max_offset)
 
     @staticmethod
     def backward(ctx, grad):
         saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[1:]
+        needs = ctx.needs_input_grad[2:]
         inputs = [None if t is None else t.detach().requires_grad_(n)
                   for t, n in zip(saved, needs)]
         with record_function(BACKWARD_RANGE), torch.enable_grad():
-            out = deform_conv2d(*inputs)
+            out = deform_conv2d(*inputs, max_offset=ctx.max_offset)
             wanted = [t for t, n in zip(inputs, needs) if n]
             grads = iter(torch.autograd.grad(out, wanted, grad))
-        return (None,) + tuple(next(grads) if n else None for n in needs)
+        return (None, None) + tuple(next(grads) if n else None for n in needs)
 
 
 def deform_conv2d_train(x: torch.Tensor, offset: torch.Tensor, mask: Optional[torch.Tensor],
                         weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                        max_offset: Optional[float] = None,
                         taps: Optional[torch.Tensor] = None, plain: bool = False) -> torch.Tensor:
-    """``deform_conv2d_cuda`` (``plain``: ``deform_conv2d``) with gradients
-    to every input, the plain version recomputed in the backward (see
-    ``_DeformConvFunction``)."""
+    """``deform_conv2d_cuda`` (``plain``: ``deform_conv2d``) at
+    ``max_offset`` with gradients to every input, the plain version
+    recomputed in the backward (see ``_DeformConvFunction``)."""
     forward = deform_conv2d if plain else functools.partial(deform_conv2d_cuda, taps=taps)
-    return _DeformConvFunction.apply(forward, x, offset, mask, weight, bias)
+    return _DeformConvFunction.apply(forward, max_offset, x, offset, mask, weight, bias)
 
 
 class DeformConv2d(nn.Module):
     """The deformable 3x3 conv of a DCN block: ``weight`` [O, C, 3, 3] and
-    ``bias`` [O], the reference's ``DeformConv2d`` parameters, kept f32.
+    ``bias`` [O], the reference's ``DeformConv2d`` parameters, kept f32,
+    and the block's ``max_offset`` window (None: torchvision's unbounded
+    offsets).
 
     It computes in its input's dtype (f32 or bf16), with the weight cast
     to it (``params.cast_parameter``: made once and kept until the weight
@@ -311,11 +434,13 @@ class DeformConv2d(nn.Module):
     A call's ``impl`` overrides the module's (the int8 chain passes its
     own)."""
 
-    def __init__(self, in_channels: int, out_channels: int, impl: str = "kernel"):
+    def __init__(self, in_channels: int, out_channels: int, impl: str = "kernel",
+                 max_offset: Optional[float] = None):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.impl = impl
+        self.max_offset = max_offset
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         nn.init.normal_(self.weight, 0.0, 1.0 / math.sqrt(9 * in_channels))
@@ -326,4 +451,5 @@ class DeformConv2d(nn.Module):
         taps = None
         if not plain and x.device.type != "cpu":
             taps = cast_parameter(self, "weight", x.dtype, layout=kernel_weights)
-        return deform_conv2d_train(x, offset, mask, weight, self.bias, taps=taps, plain=plain)
+        return deform_conv2d_train(x, offset, mask, weight, self.bias,
+                                   max_offset=self.max_offset, taps=taps, plain=plain)

@@ -574,7 +574,8 @@ def _dcn_block_chain(ctx: ChainCtx, x, path: str) -> torch.Tensor:
     convs as one 27-channel conv with its bias added after the conv's
     rounding, as the JAX block serves them, the tanh bound and the sigmoid
     (``DeformConvBlock.modulation``), the DCN through kernel E or its
-    plain version, then flax's BatchNorm and the relu."""
+    plain version at the model's window (``DeformConv2d.max_offset``),
+    then flax's BatchNorm and the relu."""
     block = ctx.modules[path]
 
     def merged():

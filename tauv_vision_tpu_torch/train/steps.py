@@ -31,6 +31,7 @@ from tauv_vision_tpu_torch.configs.centernet import (
 from tauv_vision_tpu_torch.models.centerpoint_dla import sow_dcn_offsets
 from tauv_vision_tpu_torch.train.centernet_task import CenternetTruth, centernet_loss
 from tauv_vision_tpu_torch.train.state import TrainState
+from tauv_vision_tpu_torch.train.watch import watch_metrics
 
 
 FORWARD = "train_step/forward"
@@ -65,12 +66,15 @@ def make_centernet_train_step(
     model_config: CenternetModelConfig,
     train_config: CenternetTrainConfig,
     object_config: ObjectConfigSet,
+    watch: bool = False,
 ):
     """One optimizer step on the loss of a batch: forward in training mode
     (batch statistics, the running ones updated), ``centernet_loss``, the
     DCN offset penalty where ``loss_lambda_dcn_offset`` > 0, backward and
     the optimizer's step (clipping included).  The losses come back
-    detached, on the device."""
+    detached, on the device.  ``watch``: the step returns (state, losses,
+    ``watch_metrics`` of the parameters and raw gradients before the
+    optimizer's step), as the JAX step built with ``watch=True`` does."""
     reg = train_config.loss_lambda_dcn_offset
     reg_range = train_config.dcn_offset_range
 
@@ -90,9 +94,12 @@ def make_centernet_train_step(
                     losses.dcn_offset = penalty
                     losses.total = losses.total + reg * penalty
             losses.total.backward()
+        stats = watch_metrics(model) if watch else None
         with record_function(OPTIMIZER):
             optimizer.step()
         state.step += 1
+        if watch:
+            return state, losses.detach(), stats
         return state, losses.detach()
 
     return step

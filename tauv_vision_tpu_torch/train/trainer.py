@@ -1,9 +1,10 @@
 """The training loop (counterpart of ``tauv_vision_tpu/train/trainer.py``,
-without figures, watch statistics and the mesh, which come later).
+without the mesh: data-parallel training comes later).
 
 Every loss term logged each ``log_every`` steps, validation averages each
-epoch, interval and best-validation checkpoints, and a single-batch
-overfit mode for debugging.
+epoch, interval and best-validation checkpoints, a single-batch overfit
+mode for debugging, and per-layer watch statistics every ``watch_every``
+steps.  Figures (JAX's ``figure_fn``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,12 +28,18 @@ class TrainerConfig:
     keep_best: bool = True        # the best-validation checkpoint
     log_every: int = 1
     overfit_single_batch: bool = False
+    # Log per-layer param/grad statistics every N steps (the wandb.watch
+    # equivalent, yolact/scripts/train.py:480), through a ``watch_step``
+    # built with watch=True (it returns a third dict, ``train/watch.py``).
+    watch_every: int = 0
 
 
 class Trainer:
     """Runs ``train_step`` and ``eval_step`` (``train.steps``) over batches
     of numpy ``(img [B, H, W, 3], truth)``, moved to the model's device as
-    NCHW f32 and tensors at each step."""
+    NCHW f32 and tensors at each step (on the card through pinned host
+    memory).  ``watch_step``, the train step built with ``watch=True``,
+    takes the steps whose statistics ``watch_every`` logs."""
 
     def __init__(
         self,
@@ -42,8 +49,10 @@ class Trainer:
         config: TrainerConfig,
         checkpoints: Optional[CheckpointManager] = None,
         writer: Optional[MetricWriter] = None,
+        watch_step: Optional[Callable] = None,
     ):
         self.train_step = train_step
+        self.watch_step = watch_step
         self.eval_step = eval_step
         self.state = state
         self.config = config
@@ -55,10 +64,17 @@ class Trainer:
 
     def _put(self, batch):
         img, truth = batch
-        img = torch.as_tensor(img).to(self.device).permute(0, 3, 1, 2).contiguous()
+        img = torch.as_tensor(img)
+        if self.device.type == "cuda":
+            img = img.pin_memory()
+        img = img.to(self.device, non_blocking=True).permute(0, 3, 1, 2).contiguous()
         if not hasattr(truth, "to"):
             return img, torch.as_tensor(truth).to(self.device)
         return img, truth.to(self.device)
+
+    def _watching(self) -> bool:
+        return (self.watch_step is not None and self.config.watch_every > 0
+                and self.global_step % self.config.watch_every == 0)
 
     def run_train_epoch(self, batches: Iterable, epoch: int) -> float:
         total = 0.0
@@ -74,12 +90,19 @@ class Trainer:
             else:
                 img, truth = self._put(batch)
             t0 = time.perf_counter()
-            self.state, losses = self.train_step(self.state, img, truth)
+            watch_stats = None
+            if self._watching():
+                self.state, losses, watch_stats = self.watch_step(self.state, img, truth)
+            else:
+                self.state, losses = self.train_step(self.state, img, truth)
             if batch_i % self.config.log_every == 0:
                 metrics = losses_to_metrics(losses, "train/")
                 metrics["train/step_time"] = time.perf_counter() - t0
                 metrics["epoch"] = epoch
                 self.writer.log(metrics, self.global_step)
+            if watch_stats is not None:
+                self.writer.log({k: float(v) for k, v in watch_stats.items()},
+                                self.global_step)
             total += float(losses.total)
             count += 1
             self.global_step += 1

@@ -18,23 +18,22 @@ agree):
   ``nn.Conv``), with values within ``SCALE_RTOL``;
 
 - the whole request through ``make_centernet_chain_pipeline``, once with
-  the served 3-cell Pallas window and once with a 4-cell one.  The served
-  window drops the samples past 3 cells, which the port's kernel E
-  (torchvision's unbounded offsets) keeps, and the 4-cell window covers
-  them all.  Every trunk map is equal; the DCN blocks are float
-  boundaries (a bf16 conv for the offsets and mask, the sampling, an f32
-  BatchNorm), so after the trunk the int8 codes (the heads' conv -> out
-  links) are held to equal or 1 apart on at most ``CODE_SHARE`` of them
-  (measured: 5.6% at the served window, 2.4% at 4 cells), the raw heads
-  within ``HEAD_ATOL`` (measured: 4.4e-3 and 4.9e-3, heads of magnitude
-  up to ~0.5).  At the 4-cell window, where the two compute the same
-  function, the decoded detections at threshold 0 are held to 100%
-  matched, centre and score p95 <= 1e-3, and size p95 within
-  ``SIZE_ULPS`` bf16 ulps of the largest size: where a head code is one
-  apart, a size moves by a bf16 ulp of the head (measured: centre 1.8e-5,
-  score 4.8e-4, size 1.5e-3).  At the served window the decode is
-  recorded, not held: there the JAX graph drops the 25 sampled offsets
-  past 3 cells (measured: 18 of 20 slots matched, size p95 2.0e-3);
+  the served 3-cell window (the recipe's ``dcn_max_offset``) and once
+  with a 4-cell one, the port's DCNs given the same window as the Pallas
+  kernel each time.  The served window drops the 25 sampled offsets past
+  3 cells, and the 4-cell window covers them all.  Every trunk map is
+  equal; the DCN blocks are float boundaries (a bf16 conv for the offsets
+  and mask, the sampling, an f32 BatchNorm), so after the trunk the int8
+  codes (the heads' conv -> out links) are held to equal or 1 apart on at
+  most ``CODE_SHARE`` of them, the raw heads within ``HEAD_ATOL`` (heads
+  of magnitude up to ~0.5).  At both windows, where the two compute the
+  same function, the decoded detections at threshold 0 are held to
+  centre and score p95 <= 1e-3, and size p95 within ``SIZE_ULPS`` bf16
+  ulps of the largest size: where a head code is one apart, a size moves
+  by a bf16 ulp of the head.  At the 4-cell window 100% of them are
+  matched; at the served window 95%, 19 of the 20 slots, since there a
+  code one apart flips an NMS tie between neighbouring tail slots
+  (``MATCHED``);
 - the offset and mask convs: the chain runs them as one 27-channel bf16
   conv, as the JAX block serves them; on the CPU that equals the port
   block's two convs bit for bit.
@@ -63,13 +62,18 @@ from test_torch_centernet_chain import (
     assert_calibrate_matches_jax,
     assert_maps_held,
 )
-from torch_parity import ChainRecorder, jax_centernet_config, jax_object_config
+from torch_parity import ChainRecorder, dcn_window, jax_centernet_config, jax_object_config
 
 H, W = 64, 128
 SERVED_WINDOW = 3          # bench.py's dcn_max_offset
 CODE_SHARE = 0.1
 HEAD_ATOL = 1e-2     # raw heads: what the codes one apart move them by
 SIZE_ULPS = 2        # decoded sizes: bf16 ulps of the largest (chip_smoke's NS_SIZE_ULPS)
+# The decode's matched share at each window.  At the served one a head
+# code one apart flips a 3x3 NMS tie between neighbouring tail slots:
+# the port matches 19 of the 20 slots (JAX's own compiled chain 17 of
+# its op-by-op chain's), so 100% is not reached there.
+MATCHED = {SERVED_WINDOW: 0.95, 4: 1.0}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -109,8 +113,9 @@ def test_torch_dcn_chain_matches_jax(net, window, record_property):
     seen = []
     hooks = [m.register_forward_pre_hook(lambda m, args: seen.append(args[1]))
              for m in port.deform_convs()]
+    assert recipe.centernet.dcn_max_offset == SERVED_WINDOW
     try:
-        with ChainRecorder(jax_chain, port_chain, CN_STEM) as rec:
+        with ChainRecorder(jax_chain, port_chain, CN_STEM) as rec, dcn_window(port, window):
             want = want_pipe(jnp.asarray(frames))
             got = got_pipe(frames)
     finally:
@@ -131,11 +136,9 @@ def test_torch_dcn_chain_matches_jax(net, window, record_property):
     stats = detection_deltas(want, got, score_threshold=0.0)
     record_property("port_vs_jax", stats)
     assert stats["total"] == got.valid.numel()
-    if window == SERVED_WINDOW:
-        return      # two functions: the served window drops samples E keeps
     size_atol = SIZE_ULPS * 2.0 ** (np.floor(np.log2(max(
         np.abs(np.asarray(want.h)).max(), np.abs(np.asarray(want.w)).max()))) - 7)
-    assert stats["matched_fraction"] == 1.0, stats
+    assert stats["matched_fraction"] >= MATCHED[window], stats
     assert stats["center_delta_p95"] <= DECODE_P95 and stats["score_delta_p95"] <= DECODE_P95
     assert stats["size_delta_p95"] <= size_atol, (stats, size_atol)
 

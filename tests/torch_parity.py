@@ -60,6 +60,21 @@ def jax_centernet_config(mc):
 
 
 @contextlib.contextmanager
+def dcn_window(model, max_offset):
+    """Every DCN of the port's ``model`` at the window ``max_offset`` inside
+    the ``with``; their own windows afterwards."""
+    dcns = model.deform_convs()
+    saved = [m.max_offset for m in dcns]
+    for m in dcns:
+        m.max_offset = max_offset
+    try:
+        yield
+    finally:
+        for m, r in zip(dcns, saved):
+            m.max_offset = r
+
+
+@contextlib.contextmanager
 def torch_threads(n):
     """torch's intra-op threads set to ``n`` inside the ``with``.  The suite
     runs one worker process a core, and torch's default of one thread a
