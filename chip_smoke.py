@@ -148,7 +148,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and Adam moments equal to the saved ones, the watch lines covering
    every trained parameter, 8 C and 16 E launches a forward; the CLI's
    images/s, the loader's host ms a batch, the device's idle share over
-   the steps and the peak memory.
+   the steps and the peak memory;
+8. train_yolact: the YOLACT as the JAX package trains it
+   (``scripts/train_yolact.py``'s configuration: bf16, the flax init,
+   640x360, batch 24, the mask loss capped at 64 positives), on the
+   synthetic squares: ``yolact_loss`` on the card against the CPU on one
+   forward's predictions with ties planted in the background confidence
+   and the match IoUs (identical anchor sets, each loss within 1e-5),
+   every gradient of a step finite and non-zero (but the FPN levels no
+   anchor trains), 60 overfit steps through ``Trainer`` below 0.6 of the
+   first loss, a checkpoint round trip, two steps from one checkpoint run
+   twice (both losses and every gradient bit-equal), the timed step
+   with its ``torch.profiler`` split; then the CLI on four directories of
+   96 train and 12 val 640x360 PNGs with seg maps, 8 loader threads: two
+   epochs of 16 batches with watch lines, a warm start, the CLI's images/s
+   with host reading included, the loader's host ms a batch and the
+   device's idle share.  JAX's YOLACT training reaches no Pallas kernel,
+   so the phase launches none of the port's.
 
 Prints one JSON line describing the kernels, with each kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -161,6 +177,7 @@ line, ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes a
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import itertools
@@ -193,14 +210,22 @@ from tauv_vision_tpu_torch.configs import (
 from tauv_vision_tpu_torch.configs import samples_torpedo
 from tauv_vision_tpu_torch.data.dataset_dir import Split
 from tauv_vision_tpu_torch.data.pose_dataset import PoseDataset, collate_pose_samples
+from tauv_vision_tpu_torch.data.segmentation_dataset import (
+    SegmentationDataset,
+    collate_segmentation_samples,
+)
 from tauv_vision_tpu_torch.data.synthetic import (
     SquareDatasetConfig,
     generate_square_batch,
+    generate_square_seg_batch,
+    seg_truth,
     square_object_config,
     write_square_pose_dataset,
+    write_square_seg_dataset,
 )
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
-from tauv_vision_tpu_torch.models.yolact import Yolact
+from tauv_vision_tpu_torch.models.yolact import Yolact, YolactPrediction
+from tauv_vision_tpu_torch.ops.anchors import fpn_level_sizes, get_all_anchors
 from tauv_vision_tpu_torch.ops.conv_transpose import (
     depthwise_upsample,
     depthwise_upsample_cuda,
@@ -217,7 +242,13 @@ from tauv_vision_tpu_torch.ops.transpose_conv import (
     transpose_conv2x_int8,
     transpose_conv2x_int8_cuda,
 )
-from tauv_vision_tpu_torch.scripts import int8_dot_probe, kernel_times, op_probe, train_centernet
+from tauv_vision_tpu_torch.scripts import (
+    int8_dot_probe,
+    kernel_times,
+    op_probe,
+    train_centernet,
+    train_yolact,
+)
 from tauv_vision_tpu_torch.scripts.kernel_times import queued_ms, time_ms
 from tauv_vision_tpu_torch.serving import quantize_chain
 from tauv_vision_tpu_torch.serving.centernet_decode import (
@@ -252,8 +283,13 @@ from tauv_vision_tpu_torch.train import steps as train_steps
 from tauv_vision_tpu_torch.train.checkpoint import CheckpointManager
 from tauv_vision_tpu_torch.train.metrics import MultiWriter, StdoutWriter
 from tauv_vision_tpu_torch.train.state import TrainState, adam_with_clip
-from tauv_vision_tpu_torch.train.steps import make_centernet_train_step, model_mode
+from tauv_vision_tpu_torch.train.steps import (
+    make_centernet_train_step,
+    make_yolact_train_step,
+    model_mode,
+)
 from tauv_vision_tpu_torch.train.trainer import Trainer, TrainerConfig
+from tauv_vision_tpu_torch.train.yolact_task import match_anchors, yolact_loss
 from tauv_vision_tpu_torch.weights import centerpoint_calibration_paths, centerpoint_flax_path
 
 FRAME_H, FRAME_W = 480, 640
@@ -370,7 +406,8 @@ CHAIN_PAIRS = {"chain_int8": (CHAIN_INT8, "plain_ida"), "dcn_chain_int8": (DCN_C
 KP_INT8 = "keypoints_int8"
 # The paths whose launches the kernels line reports: the served paths and
 # the trainer's run.
-ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8, "train", "train_cli")
+ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8, "train", "train_cli",
+                                                             "train_yolact")
 PAIR_ITERS = 5        # timed repetitions of a pair path's request at batch 32
 CHAIN_ITERS = 5       # of each of a chain pair's two requests
 # The paths beside an int8-chain YOLACT, and its recipe on each.
@@ -2890,17 +2927,31 @@ def cli_records(results):
 
 @contextlib.contextmanager
 def train_epoch_times():
-    """Yields a list that gains (epoch, wall seconds, steps) for each
-    ``Trainer.run_train_epoch`` run inside: the whole epoch, the wait for
-    each batch from the loader included (its first batch too).  The
-    epoch ends on its last loss read back to the host."""
+    """Yields a list that gains (epoch, wall seconds, steps, seconds to
+    the first batch) for each ``Trainer.run_train_epoch`` run inside: the
+    whole epoch, the wait for each batch from the loader included (its
+    first batch too).  The epoch ends on its last loss read back to the
+    host."""
     times = []
     run = Trainer.run_train_epoch
 
     def timed(self, batches, epoch):
         start, t0 = self.global_step, time.perf_counter()
-        loss = run(self, batches, epoch)
-        times.append((epoch, time.perf_counter() - t0, self.global_step - start))
+        first = []
+
+        def arrivals():
+            for batch in batches:
+                if not first:
+                    first.append(time.perf_counter() - t0)
+                yield batch
+
+        feed = arrivals()
+        try:
+            loss = run(self, feed, epoch)
+        finally:
+            feed.close()
+        times.append((epoch, time.perf_counter() - t0, self.global_step - start,
+                      first[0] if first else float("nan")))
         return loss
 
     Trainer.run_train_epoch = timed
@@ -2910,11 +2961,14 @@ def train_epoch_times():
         Trainer.run_train_epoch = run
 
 
-def cli_images_per_s(epochs, batch):
+def cli_images_per_s(epochs, batch, after_first=False):
     """Images/s of the CLI's training, host reading included: every train
     image of a run's epochs but its first (warm-up) over those epochs' wall
-    time, the loader's waits at each epoch's start included."""
-    later = [(s, n) for e, s, n in epochs if e > 0]
+    time, the loader's waits at each epoch's start included; with
+    ``after_first``, the images after each epoch's first batch over the
+    time from its arrival to the epoch's end (the start-up wait left
+    out)."""
+    later = [(s - f if after_first else s, n) for e, s, n, f in epochs if e > 0]
     return batch * sum(n for _, n in later) / sum(s for s, _ in later) if later else float("nan")
 
 
@@ -2925,8 +2979,8 @@ def steps_idle_share(prof):
     from torch.autograd import DeviceType
 
     events = prof.events()
-    ranges = (train_steps.FORWARD, train_steps.OPTIMIZER, deform_conv.BACKWARD_RANGE,
-              conv_transpose.BACKWARD_RANGE)
+    ranges = (train_steps.FORWARD, train_steps.LOSS, train_steps.OPTIMIZER,
+              deform_conv.BACKWARD_RANGE, conv_transpose.BACKWARD_RANGE)
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
     starts = [e.time_range.start for e in cpu if e.name == train_steps.FORWARD]
     ends = [e.time_range.end for e in cpu if e.name == train_steps.OPTIMIZER]
@@ -2937,6 +2991,80 @@ def steps_idle_share(prof):
     busy = sum(min(e.time_range.end, t1) - e.time_range.start for e in device
                if t0 <= e.time_range.start < t1)
     return 1 - busy / (t1 - t0)
+
+
+def loader_host_ms(ds, collate, batch):
+    """The loader's host work for one batch on one thread (decode,
+    augment, collate), ms: the mean of two batches."""
+    t0 = time.perf_counter()
+    for j in range(2):
+        collate([ds[(j * batch + i) % len(ds)] for i in range(batch)])
+    return (time.perf_counter() - t0) / 2 * 1e3
+
+
+def check_cli_runs(label, base, state, warm, batches, watch_every, fresh_state):
+    """The checks both training CLIs share, on ``base / "run"`` (two epochs
+    of ``batches`` steps, watch lines every ``watch_every``, ``state`` its
+    result) and ``base / "warm"`` (one epoch from the run's last
+    checkpoint, ``warm`` its result): the restore into ``fresh_state()``
+    gives the saved parameters, statistics and Adam moments bit for bit;
+    the record counts; every train and val loss of both runs finite; the
+    last checkpoint's and the warm start's steps; watch lines covering
+    every trained parameter.  Returns (train, val, warm train records,
+    watch lines, checkpoint steps, trained parameter names)."""
+    manager = CheckpointManager(base / "run" / "checkpoints")
+    steps = manager.all_steps()
+    saved = torch.load(base / "run" / "checkpoints" / str(steps[-1]) / "state.pt",
+                       map_location="cuda", weights_only=True)
+    restored = manager.restore(fresh_state())
+    moments = restored.optimizer.state_dict()["state"]
+    require(all(torch.equal(v, saved["model"][k])
+                for k, v in restored.model.state_dict().items())
+            and len(moments) == len(saved["optimizer"]["state"])
+            and all(torch.equal(moments[i][k], s[k]) for i, s in
+                    saved["optimizer"]["state"].items() for k in ("mu", "nu")),
+            f"{label}: the restored parameters or moments differ from the saved ones")
+    del restored, saved
+
+    records, warm_records = cli_records(base / "run"), cli_records(base / "warm")
+    n_train = 2 * batches
+    train = [r for r in records if "train/total" in r]
+    val = [r for r in records if "val/total" in r]
+    watch = [r for r in records if "watch/global_grad_norm" in r]
+    warm_train = [r for r in warm_records if "train/total" in r]
+    warm_val = [r for r in warm_records if "val/total" in r]
+    require(len(train) == n_train and len(val) == 2 and len(warm_train) == batches
+            and len(warm_val) == 1,
+            f"{label}: {len(train)} train, {len(val)} val, {len(warm_train)} warm train, "
+            f"{len(warm_val)} warm val records")
+    require(all(math.isfinite(v) for r in train + val + warm_train + warm_val
+                for k, v in r.items() if k.startswith(("train/", "val/"))),
+            f"{label}: a loss is not finite")
+    require(steps[-1] == n_train and warm_train[0]["step"] == n_train
+            and warm.step == n_train + batches,
+            f"{label}: checkpoints {steps}, warm start at {warm_train[0]['step']}")
+    trained = {n.replace(".", "/") for n, p in state.model.named_parameters()
+               if p.grad is not None}
+    require([r["step"] for r in watch] == list(range(0, n_train, watch_every)) and all(
+        {k[len("watch/"):-len("/grad_norm")] for k in r if k.endswith("/grad_norm")} == trained
+        for r in watch), f"{label}: the watch lines do not cover every trained parameter")
+    return train, val, warm_train, watch, steps, trained
+
+
+def print_cli_time(label, epochs, batch, host_ms, workers, prof, batches, peak, card):
+    """The CLI's ``time`` line: images/s with host reading included
+    (``cli_images_per_s``), the loader's host ms a batch on one thread,
+    the device's idle share over the warm start's steps, peak memory."""
+    idle = steps_idle_share(prof)
+    print(f"time {label}: {cli_images_per_s(epochs, batch):.2f} images/s (host reading "
+          f"included: the train images of epoch 1 over its wall time, the loader's waits "
+          f"included; {cli_images_per_s(epochs, batch, after_first=True):.2f} after the epoch's "
+          f"first batch; epochs (epoch, s, steps, s to the first batch) "
+          f"{[(e, round(t, 3), n, round(f, 3)) for e, t, n, f in epochs]}), "
+          f"the loader's host work {host_ms:.1f} ms a batch of {batch} on one thread (decode, "
+          f"augment, collate; {workers} threads in the CLI), the device idle "
+          f"{'not measured' if idle is None else f'{idle:.1%}'} over the warm start's "
+          f"{batches} steps, peak memory allocated {peak:.2f} GiB ({card})")
 
 
 def train_cli_phase(card):
@@ -2952,20 +3080,20 @@ def train_cli_phase(card):
     with tempfile.TemporaryDirectory() as directory:
         base = pathlib.Path(directory)
         roots = [base / f"dataset_{i}" for i in range(CLI_DATASETS)]
-        for i, root in enumerate(roots):
-            write_square_pose_dataset(root, np.random.default_rng(20 + i), CLI_TRAIN, CLI_VAL,
-                                      mc.in_h, mc.in_w, labels, min_side=CLI_SIDES[0],
-                                      max_side=CLI_SIDES[1])
+
+        def write(i):
+            write_square_pose_dataset(roots[i], np.random.default_rng(20 + i), CLI_TRAIN,
+                                      CLI_VAL, mc.in_h, mc.in_w, labels,
+                                      min_side=CLI_SIDES[0], max_side=CLI_SIDES[1])
+
+        with concurrent.futures.ThreadPoolExecutor(CLI_DATASETS) as pool:
+            list(pool.map(write, range(CLI_DATASETS)))
         t_data = time.perf_counter() - t0
         # The loader's host work, one thread: decode, augment, collate.
         ds = PoseDataset(roots[0], Split.TRAIN, oc.label_id_to_index, oc,
                          train_centernet.build_train_transform(mc, tc))
-        t1 = time.perf_counter()
-        for j in range(2):
-            collate_pose_samples([ds[(j * tc.batch_size + i) % len(ds)]
-                                  for i in range(tc.batch_size)], tc.max_objects,
-                                 tc.max_keypoints)
-        host_ms = (time.perf_counter() - t1) / 2 * 1e3
+        host_ms = loader_host_ms(ds, lambda b: collate_pose_samples(
+            b, tc.max_objects, tc.max_keypoints), tc.batch_size)
         for name, epochs in (("cli_config", 2), ("cli_warm", 1)):
             (base / f"{name}.py").write_text(CLI_CONFIG.format(epochs=epochs))
         sys.path.insert(0, str(base))
@@ -2994,53 +3122,26 @@ def train_cli_phase(card):
             sys.path.remove(str(base))
             for name in ("cli_config", "cli_warm"):
                 sys.modules.pop(name, None)
-        records, warm_records = cli_records(base / "run"), cli_records(base / "warm")
 
-        # The warm start's restore: parameters, statistics and Adam's
-        # moments equal the saved ones bit for bit.
-        manager = CheckpointManager(base / "run" / "checkpoints")
-        steps = manager.all_steps()
-        saved = torch.load(base / "run" / "checkpoints" / str(steps[-1]) / "state.pt",
-                           map_location="cuda", weights_only=True)
-        model = CenterpointDLA34(oc, deform=True, dcn_max_offset=DCN_WINDOW,
-                                 dtype=torch.bfloat16, init="flax", device="cuda")
-        restored = manager.restore(TrainState(model, adam_with_clip(
-            model.parameters(), tc.lr, tc.grad_max_norm)))
-        moments = restored.optimizer.state_dict()["state"]
-        require(all(torch.equal(v, saved["model"][k]) for k, v in model.state_dict().items())
-                and all(torch.equal(moments[i][k], s[k]) for i, s in
-                        saved["optimizer"]["state"].items() for k in ("mu", "nu"))
-                and len(moments) == len(saved["optimizer"]["state"]),
-                "train_cli: the restored parameters or moments differ from the saved ones")
-        del model, restored, saved
+        def fresh_state():
+            model = CenterpointDLA34(oc, deform=True, dcn_max_offset=DCN_WINDOW,
+                                     dtype=torch.bfloat16, init="flax", device="cuda")
+            return TrainState(model, adam_with_clip(model.parameters(), tc.lr,
+                                                    tc.grad_max_norm))
+
+        train, val, warm_train, watch, steps, trained = check_cli_runs(
+            "train_cli", base, state, warm, CLI_BATCHES, CLI_WATCH_EVERY, fresh_state)
 
     n_train = 2 * CLI_BATCHES
     n_val = 2 * (CLI_DATASETS * CLI_VAL // tc.batch_size)
-    train = [r for r in records if "train/total" in r]
-    val = [r for r in records if "val/total" in r]
-    watch = [r for r in records if "watch/global_grad_norm" in r]
-    warm_train = [r for r in warm_records if "train/total" in r]
-    require(len(train) == n_train and len(val) == 2 and len(warm_train) == CLI_BATCHES,
-            f"train_cli: {len(train)} train, {len(val)} val, {len(warm_train)} warm records")
-    require(all(math.isfinite(v) for r in train + val + warm_train + [
-        r for r in warm_records if "val/total" in r] for k, v in r.items()
-                if k.startswith(("train/", "val/"))), "train_cli: a loss is not finite")
-    require(steps == [CLI_BATCHES, n_train] and warm_train[0]["step"] == n_train
-            and warm.step == n_train + CLI_BATCHES,
-            f"train_cli: checkpoints {steps}, warm start at {warm_train[0]['step']}")
-    trained = {n.replace(".", "/") for n, p in state.model.named_parameters()
-               if p.grad is not None}
-    require([r["step"] for r in watch] == list(range(0, n_train, CLI_WATCH_EVERY)) and all(
-        {k[len("watch/"):-len("/grad_norm")] for k in r if k.endswith("/grad_norm")} == trained
-        for r in watch), "train_cli: the watch lines do not cover every trained parameter")
+    require(steps == [CLI_BATCHES, n_train], f"train_cli: checkpoints {steps}")
     forwards = n_train + n_val
     want = {"depthwise_upsample": 8 * forwards, "deform_conv": N_DCN * forwards}
     require({k: v for k, v in launches[0].items() if v} == want,
             f"train_cli: launches {launches[0]}, expected {want} (8 C and {N_DCN} E a forward)")
-    idle = steps_idle_share(prof)
-    ips = cli_images_per_s(epochs, tc.batch_size)
     print(f"train_cli: {CLI_DATASETS} dataset directories of {CLI_TRAIN} train and {CLI_VAL} "
-          f"val {mc.in_w}x{mc.in_h} PNGs written in {t_data:.1f} s; the CLI (samples_torpedo, "
+          f"val {mc.in_w}x{mc.in_h} PNGs written in {t_data:.1f} s on {CLI_DATASETS} threads; "
+          f"the CLI (samples_torpedo, "
           f"batch {tc.batch_size}, the bf16 DCN DLA-34 at full width with the "
           f"{DCN_WINDOW:g}-cell window) trained {n_train} steps over 2 epochs with "
           f"--epoch-n-batches {CLI_BATCHES} --watch-every {CLI_WATCH_EVERY} in {run_s:.1f} s: "
@@ -3050,17 +3151,409 @@ def train_cli_phase(card):
           f"each); checkpoints {steps}; warm start from step {n_train}: losses "
           f"{[round(r['train/total'], 4) for r in warm_train]}, restored parameters and Adam "
           f"moments bit-equal to the saved ones")
-    print(f"time train_cli: {ips:.2f} images/s (host reading included: the train images of "
-          f"epoch 1 over its wall time, the loader's waits included; epochs (epoch, s, steps) "
-          f"{[(e, round(t, 3), n) for e, t, n in epochs]}), the loader's host work "
-          f"{host_ms:.1f} ms a batch of {tc.batch_size} on one thread (decode, augment, "
-          f"collate; {tc.n_workers or 4} threads in the CLI), the device idle "
-          f"{'not measured' if idle is None else f'{idle:.1%}'} over the warm start's "
-          f"{CLI_BATCHES} steps, peak memory allocated {peak:.2f} GiB ({card})")
+    print_cli_time("train_cli", epochs, tc.batch_size, host_ms, tc.n_workers or 4, prof,
+                   CLI_BATCHES, peak, card)
     print(f"train_cli phase {time.perf_counter() - t0:.1f} s")
     del state, warm
     torch.cuda.empty_cache()
     return launches
+
+
+# ---- phase 8: train_yolact ----------------------------------------------
+
+YL_BATCH = 24             # the YOLACT CLI's batch, at its 360x640
+YL_SIDES = (24.0, 96.0)   # the squares' sides in pixels: anchors 24-384
+YL_OVERFIT_STEPS = 60
+YL_OVERFIT_BAR = 0.6      # tests/test_integration_train.py:207
+YL_TIMED_STEPS = 3
+YL_LOSS_RTOL = 1e-5       # card against CPU, each loss on the same predictions
+YL_OHEM_TIES = 400        # negatives a sample given one classification row
+YL_CLI_DATASETS = 4      # directories, written on as many threads
+YL_CLI_TRAIN, YL_CLI_VAL = 96, 12   # samples of each: epochs of 16 batches, val 2
+YL_CLI_WORKERS = 8
+YL_CLI_WATCH_EVERY = 2
+
+
+def yolact_train_setup():
+    """(model and train configs of the CLI; numpy frames and truth of the
+    synthetic squares at 360x640, batch 24)."""
+    mc, tc = train_yolact.model_config, train_yolact.train_config
+    img, fields = generate_square_seg_batch(np.random.default_rng(0), YL_BATCH, SquareDatasetConfig(
+        in_h=mc.in_h, in_w=mc.in_w, max_objects=tc.max_objects, min_side=YL_SIDES[0],
+        max_side=YL_SIDES[1]))
+    return mc, tc, img, seg_truth(fields)
+
+
+def yolact_model(mc, seed=0):
+    """The YOLACT as the CLI trains it: bf16, the flax init from a seed."""
+    return Yolact(mc, dtype=torch.bfloat16, init="flax",
+                  generator=torch.Generator().manual_seed(seed), device="cuda")
+
+
+def yolact_on_card(img, truth):
+    return torch.from_numpy(img).cuda().permute(0, 3, 1, 2).contiguous(), truth.to("cuda")
+
+
+def planted_yolact_ties(mc, tc):
+    """(frames, truth) with IoU ties planted, and for each sample
+    YL_OHEM_TIES of its negatives (on the CPU's match) that will share one
+    classification row of low background confidence, more than OHEM
+    takes, so that its cut falls inside the tie.  The frames hold up to 16
+    squares of 24-96 px; 16 more truth slots take copies of level-0
+    anchors, the first twice (an argmax tie across objects), painted into
+    the seg map where it shows background: ~5 positives each, so that the
+    cap of 64 binds in most samples, with equal IoUs across its cut in
+    some."""
+    n = tc.max_objects
+    img, fields = generate_square_seg_batch(np.random.default_rng(1), YL_BATCH, SquareDatasetConfig(
+        in_h=mc.in_h, in_w=mc.in_w, max_objects=n, min_side=YL_SIDES[0], max_side=YL_SIDES[1]))
+    truth = seg_truth(fields)
+    pad = ((0, 0), (0, n))
+    truth = dataclasses.replace(truth, valid=np.pad(truth.valid, pad),
+                                classification=np.pad(truth.classification, pad),
+                                box=np.pad(truth.box, pad + ((0, 0),)))
+    anchor = torch.from_numpy(get_all_anchors(mc.in_h, mc.in_w, mc.n_fpn_levels,
+                                              mc.anchor_scales, mc.anchor_aspect_ratios))
+    h0, w0 = fpn_level_sizes(mc.in_h, mc.in_w, mc.n_fpn_levels)[0]
+    rng = np.random.default_rng(2)
+    ys, xs = np.meshgrid(np.arange(mc.in_h), np.arange(mc.in_w), indexing="ij")
+    for b in range(YL_BATCH):
+        picks = rng.integers(h0 * w0, size=n)
+        picks[1] = picks[0]
+        truth.box[b, n:] = anchor[picks].numpy()
+        truth.valid[b, n:] = True
+        truth.classification[b, n:] = rng.integers(1, mc.n_classes + 1, n)
+        for i, (cy, cx, h, w) in enumerate(truth.box[b, n:], start=n):
+            inside = ((np.abs(ys - cy * mc.in_h) <= h * mc.in_h / 2)
+                      & (np.abs(xs - cx * mc.in_w) <= w * mc.in_w / 2))
+            truth.seg_map[b][inside & (truth.seg_map[b] == 255)] = i
+    stub = YolactPrediction(classification=torch.zeros(YL_BATCH, len(anchor), mc.n_classes + 1),
+                            box_encoding=None, mask_coeff=None, anchor=anchor,
+                            mask_prototype=None)
+    sets = match_anchors(stub, truth.to("cpu"), mc, tc)
+    negative = sets.match_iou <= mc.iou_neg_threshold
+    tied = [torch.from_numpy(rng.choice(torch.nonzero(negative[b])[:, 0].numpy(), YL_OHEM_TIES,
+                                        replace=False)) for b in range(YL_BATCH)]
+    return img, truth, tied
+
+
+def plant_ohem_ties(prediction, tied):
+    """Every tied anchor of a sample gets one classification row: the
+    background's logit 4 below the rest (hard negatives)."""
+    cls = prediction.classification.clone()
+    for b, anchors in enumerate(tied):
+        row = torch.zeros(cls.shape[-1], device=cls.device)
+        row[0] = -4.0
+        cls[b, anchors.to(cls.device)] = row
+    return dataclasses.replace(prediction, classification=cls)
+
+
+def check_yolact_loss_card_vs_cpu(mc, tc):
+    """``yolact_loss`` on the card and on the CPU, on the same f32 prediction
+    tensors (one bf16 training-mode forward of the net, ties planted):
+    identical positive, OHEM-selected and top-64 anchor sets, each loss
+    within YL_LOSS_RTOL relative, ``mask_clipped`` equal."""
+    img_np, truth_np, tied = planted_yolact_ties(mc, tc)
+    img, truth = yolact_on_card(img_np, truth_np)
+    model = yolact_model(mc)
+    with torch.no_grad(), model_mode(model, True):
+        prediction = plant_ohem_ties(model(img), tied)
+    del model
+    cpu = dataclasses.replace(prediction, **{f.name: getattr(prediction, f.name).cpu()
+                                             for f in dataclasses.fields(prediction)})
+    t0 = time.perf_counter()
+    card_sets = match_anchors(prediction, truth, mc, tc)
+    card = yolact_loss(prediction, truth, mc, tc)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_sets = match_anchors(cpu, truth_np.to("cpu"), mc, tc)
+    ref = yolact_loss(cpu, truth_np.to("cpu"), mc, tc)
+    cpu_s = time.perf_counter() - t0
+    for f in dataclasses.fields(card_sets):
+        require(torch.equal(getattr(card_sets, f.name).cpu(), getattr(cpu_sets, f.name)),
+                f"train_yolact loss: {f.name} differs between the card and the CPU")
+    errs = {}
+    for name in ("total", "classification", "box", "mask"):
+        got, want = float(getattr(card, name)), float(getattr(ref, name))
+        require(want > 0, f"train_yolact loss: {name} is {want!r}")
+        errs[name] = abs(got - want) / want
+        require(errs[name] <= YL_LOSS_RTOL, f"train_yolact loss: {name} {got!r} on the card, "
+                                            f"{want!r} on the CPU")
+    clipped = int(card.mask_clipped)
+    require(clipped == int(ref.mask_clipped) and clipped > 0,
+            f"train_yolact loss: mask_clipped {clipped} on the card, {int(ref.mask_clipped)} "
+            f"on the CPU (the cap must bind)")
+    # Ties that span the cuts: OHEM's (planted), the cap's and argmax's.
+    bg = torch.softmax(cpu.classification, -1)[..., 0]
+    ohem_ties = cap_ties = 0
+    for b in range(YL_BATCH):
+        neg = cpu_sets.match_iou[b] <= mc.iou_neg_threshold
+        chosen, dropped = cpu_sets.selected[b] & neg, neg & ~cpu_sets.selected[b]
+        ohem_ties += bool(set(bg[b][chosen].tolist()) & set(bg[b][dropped].tolist()))
+        kept = torch.zeros_like(cpu_sets.positive[b])
+        kept[cpu_sets.top_anchor[b][cpu_sets.top_valid[b]]] = True
+        iou = cpu_sets.match_iou[b]
+        cap_ties += bool(set(iou[kept].tolist()) & set(iou[cpu_sets.positive[b] & ~kept].tolist()))
+    require(ohem_ties > 0 and cap_ties > 0,
+            f"train_yolact loss: OHEM's cut falls in a tie in {ohem_ties} of {YL_BATCH} samples, "
+            f"the cap's in {cap_ties}")
+    n_pos = cpu_sets.positive.sum(1)
+    print(f"train_yolact loss, card against CPU on one bf16 forward's f32 predictions at batch "
+          f"{YL_BATCH} ({len(cpu.anchor)} anchors, ties planted): positive, OHEM-selected and "
+          f"top-{tc.max_positive_anchors} sets identical ({int(n_pos.sum())} positives, "
+          f"{int(n_pos.min())}-{int(n_pos.max())} a sample, {int(cpu_sets.selected.sum())} "
+          f"selected); OHEM's cut inside a tie in {ohem_ties} samples, the cap's in {cap_ties}; "
+          f"relative error {({k: float(f'{v:.3g}') for k, v in errs.items()})} (bar "
+          f"{YL_LOSS_RTOL}); mask_clipped {clipped} on both; loss {card_s * 1e3:.1f} ms on the "
+          f"card, {cpu_s * 1e3:.1f} ms on the CPU")
+    del prediction, cpu, card_sets
+    torch.cuda.empty_cache()
+
+
+def yolact_zero_by_construction(sets, mc):
+    """The FPN's extra levels are made by its downsample convs, level 3 by
+    the first, level 4 by the second from level 3: a conv has no gradient
+    when no anchor of its levels is trained (positive or OHEM's)."""
+    sizes = fpn_level_sizes(mc.in_h, mc.in_w, mc.n_fpn_levels)
+    starts = np.cumsum([0] + [h * w * mc.n_anchors_per_cell for h, w in sizes])
+    trained = [bool(sets.selected[:, starts[i]:starts[i + 1]].any()) for i in range(len(sizes))]
+    zero = set()
+    for k in range(mc.n_fpn_downsample_layers):
+        if not any(trained[3 + k:]):
+            zero |= {f"_feature_pyramid._downsample_layers.{k}.{leaf}"
+                     for leaf in ("weight", "bias")}
+    return zero
+
+
+def yolact_grads(mc, tc, img, truth):
+    """One train step from the flax init, its clip never biting: every
+    gradient finite, and non-zero but where no anchor of a level trains."""
+    model = yolact_model(mc)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad(), model_mode(model, True):
+        sets = match_anchors(model(img), truth, mc, tc)
+    model.load_state_dict(start)   # that forward moved the running statistics
+    state = TrainState(model, adam_with_clip(model.parameters(), tc.lr, float("inf")))
+    _, losses = make_yolact_train_step(mc, tc)(state, img, truth)
+    zero = yolact_zero_by_construction(sets, mc)
+    for name, p in model.named_parameters():
+        g = p.grad
+        if name in zero:
+            require(g is None or not g.any(), f"train_yolact: {name} has a gradient")
+            continue
+        require(g is not None and bool(torch.isfinite(g).all()) and bool(g.any()),
+                f"train_yolact: {name}'s gradient is missing, not finite or zero")
+    n = sum(1 for _ in model.parameters())
+    print(f"train_yolact step: {n - len(zero)} of {n} gradients finite and non-zero, "
+          f"{len(zero)} zero by construction {sorted(zero)}; losses "
+          f"{ {k: round(float(v), 5) for k, v in dataclasses.asdict(losses).items()} }")
+    del state, model
+    torch.cuda.empty_cache()
+
+
+def yolact_state(mc, tc, seed=0):
+    model = yolact_model(mc, seed)
+    return TrainState(model, adam_with_clip(model.parameters(), tc.lr, tc.grad_max_norm))
+
+
+def train_yolact_phase(card):
+    """Train the YOLACT on the card (see the module docstring); returns the
+    phase's launch counts (by kernel, by entry point, by variant)."""
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    mc, tc, img_np, truth_np = yolact_train_setup()
+    print(f"train_yolact data: {YL_BATCH} synthetic {mc.in_w}x{mc.in_h} frames, "
+          f"{int(truth_np.valid.sum())} squares of {YL_SIDES[0]:g}-{YL_SIDES[1]:g} px "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check_yolact_loss_card_vs_cpu(mc, tc)
+    img, truth = yolact_on_card(img_np, truth_np)
+    yolact_grads(mc, tc, img, truth)
+
+    # The overfit, through Trainer on one batch, as the JAX integration
+    # test's bar: 60 steps, the last loss below 0.6 of the first.
+    state = yolact_state(mc, tc)
+    totals = _Totals()
+    trainer = Trainer(make_yolact_train_step(mc, tc), None, state,
+                      TrainerConfig(n_epochs=1, epoch_n_batches=YL_OVERFIT_STEPS,
+                                    overfit_single_batch=True),
+                      writer=MultiWriter(totals))
+    t1 = time.perf_counter()
+    state = trainer.fit(lambda: itertools.repeat((img_np, truth_np), YL_OVERFIT_STEPS))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    t = totals.totals
+    require(len(t) == YL_OVERFIT_STEPS and all(np.isfinite(t)), f"train_yolact: losses {t}")
+    require(t[-1] < YL_OVERFIT_BAR * t[0], f"train_yolact: the overfit's last loss {t[-1]} is "
+                                           f"not below {YL_OVERFIT_BAR} of its first {t[0]}")
+    print(f"train_yolact overfit: {YL_OVERFIT_STEPS} bf16 steps at batch {YL_BATCH} through "
+          f"Trainer, loss {t[0]:.6g} -> {t[-1]:.6g} ({t[-1] / t[0]:.3f} of the first; bar "
+          f"{YL_OVERFIT_BAR}), {fit_s:.1f} s")
+
+    # Checkpoint: the next loss after a restore into a fresh model and
+    # optimizer equals the uninterrupted run's; then two steps from the
+    # checkpoint, twice, bit for bit.
+    step = make_yolact_train_step(mc, tc)
+    with tempfile.TemporaryDirectory() as directory:
+        manager = CheckpointManager(pathlib.Path(directory))
+        manager.save(state.step, state, metrics={"loss": t[-1]})
+        going = float(step(state, img, truth)[1].total)
+
+        def restored():
+            return manager.restore(yolact_state(mc, tc, seed=1))
+
+        fresh = restored()
+        resumed = float(step(fresh, img, truth)[1].total)
+        require(fresh.step == YL_OVERFIT_STEPS + 1 and resumed == going,
+                f"train_yolact checkpoint: next loss {resumed!r} against {going!r}")
+        print(f"train_yolact checkpoint: restored step {YL_OVERFIT_STEPS} into a fresh model "
+              f"and optimizer; the next loss {resumed!r} equals the uninterrupted run's")
+        del fresh
+        torch.cuda.empty_cache()
+        runs = [two_steps(restored, step, img, truth) for _ in range(2)]
+    (l1, g1), (l2, g2) = runs
+    differ = sorted(n for n in g1 if not torch.equal(g1[n], g2[n]))
+    print(f"train_yolact repeat: two steps from one checkpoint, twice: losses {l1} and {l2}, "
+          f"bit-equal: step 1 {l1[0] == l2[0]}, step 2 {l1[1] == l2[1]}; {len(g1) - len(differ)} "
+          f"of {len(g1)} gradients after step 1 bit-equal, differing: {differ}")
+    require(l1 == l2 and not differ, "train_yolact repeat: two runs of two steps from one "
+                                     f"checkpoint differ (gradients {differ})")
+    time_yolact_step(state, img, truth, step, tc, card)
+    del state, trainer
+    torch.cuda.empty_cache()
+    train_yolact_cli(card)
+    launches = (dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES),
+                dict(kernels.VARIANT_LAUNCHES))
+    require(not any(launches[0].values()), f"train_yolact: port kernels launched "
+                                           f"{launches[0]}; JAX's YOLACT training reaches none")
+    print(f"train_yolact launches: {sum(launches[0].values())} port-kernel launches in the phase "
+          f"(JAX's YOLACT training reaches no Pallas kernel)")
+    print(f"train_yolact phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def time_yolact_step(state, img, truth, step, tc, card):
+    """Images/s and peak memory of the bf16 train step at batch 24 (CUDA
+    events after warm-up), its ``mask_clipped``, and its device split
+    from ``torch.profiler``: the forward with the loss, the loss alone,
+    the backward, the optimizer."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, losses = step(state, img, truth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: step(state, img, truth), YL_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"time train_yolact step bf16 batch {YL_BATCH}: {ms:.3f} ms a step = "
+          f"{YL_BATCH * 1000 / ms:.2f} images/s; peak memory allocated {peak:.2f} GiB; "
+          f"mask_clipped {int(losses.mask_clipped)} (cap {tc.max_positive_anchors}) ({card})")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, img, truth)
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    ranges = (train_steps.FORWARD, train_steps.LOSS, train_steps.OPTIMIZER)
+    kernel_rows = [e for e in rows if e.device_type == DeviceType.CUDA and e.key not in ranges]
+    if not kernel_rows:
+        print("time train_yolact split: not measured (the profiler recorded no device activity)")
+        return
+
+    def range_ms(name):
+        return sum(e.device_time_total for e in rows
+                   if e.device_type == DeviceType.CPU and e.key == name) / 1e3
+
+    busy = sum(e.self_device_time_total for e in kernel_rows) / 1e3
+    split = {"forward (with the loss)": range_ms(train_steps.FORWARD),
+             "loss": range_ms(train_steps.LOSS), "optimizer": range_ms(train_steps.OPTIMIZER)}
+    split["backward"] = busy - split["forward (with the loss)"] - split["optimizer"]
+    print(f"time train_yolact split (torch.profiler, one step, device ms): "
+          f"{ {k: round(v, 3) for k, v in split.items()} }, device busy {busy:.3f} of the step's "
+          f"{ms:.3f} ms back to back ({card})")
+
+
+@contextlib.contextmanager
+def yolact_cli_config(**changes):
+    """The YOLACT CLI's module-literal train config with ``changes`` inside
+    the ``with`` (the CLI has no flag for them)."""
+    saved = train_yolact.train_config
+    train_yolact.train_config = dataclasses.replace(saved, **changes)
+    try:
+        yield train_yolact.train_config
+    finally:
+        train_yolact.train_config = saved
+
+
+def train_yolact_cli(card):
+    """The YOLACT CLI on PNG dataset directories at its full configuration:
+    two epochs of 16 batches with watch lines, then a warm start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    mc = train_yolact.model_config
+    labels = [c.id for c in train_yolact.class_config.configs]
+    class_map = {c.id: c.index for c in train_yolact.class_config.configs}
+    with tempfile.TemporaryDirectory() as directory:
+        base = pathlib.Path(directory)
+        roots = [base / f"seg_{i}" for i in range(YL_CLI_DATASETS)]
+
+        def write(i):
+            write_square_seg_dataset(roots[i], np.random.default_rng(30 + i), YL_CLI_TRAIN,
+                                     YL_CLI_VAL, mc.in_h, mc.in_w, labels, max_objects=8,
+                                     min_side=YL_SIDES[0], max_side=YL_SIDES[1])
+
+        with concurrent.futures.ThreadPoolExecutor(YL_CLI_DATASETS) as pool:
+            list(pool.map(write, range(YL_CLI_DATASETS)))
+        t_data = time.perf_counter() - t0
+        tc = train_yolact.train_config
+        ds = SegmentationDataset(roots[0], Split.TRAIN, class_map,
+                                 train_yolact.build_train_transform(mc, tc))
+        host_ms = loader_host_ms(ds, lambda b: collate_segmentation_samples(
+            b, tc.max_objects), tc.batch_size)
+        common = ["--dataset-roots", *map(str, roots), "--no-figures"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t2 = time.perf_counter()
+        with yolact_cli_config(n_epochs=2, n_workers=YL_CLI_WORKERS), \
+                train_epoch_times() as epochs:
+            state = train_yolact.main(common + [
+                "--results-dir", str(base / "run"), "--watch-every", str(YL_CLI_WATCH_EVERY)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t2
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with yolact_cli_config(n_epochs=1, n_workers=YL_CLI_WORKERS), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warm = train_yolact.main(common + ["--results-dir", str(base / "warm"),
+                                               "--checkpoint", str(base / "run" / "checkpoints")])
+            torch.cuda.synchronize()
+        batches = YL_CLI_DATASETS * YL_CLI_TRAIN // tc.batch_size
+        train, val, warm_train, watch, steps, trained = check_cli_runs(
+            "train_yolact cli", base, state, warm, batches, YL_CLI_WATCH_EVERY,
+            lambda: yolact_state(mc, tc, seed=1))
+        manager = CheckpointManager(base / "run" / "checkpoints")
+        manifest = {name: manager.load_config(name)
+                    for name in ("model_config", "train_config", "class_config")}
+
+    require(manifest["model_config"] == json.loads(json.dumps(mc.to_dict()))
+            and manifest["class_config"] == train_yolact.class_config.to_dict()
+            and manifest["train_config"]["batch_size"] == YL_BATCH,
+            "train_yolact cli: the configuration manifest differs from the CLI's")
+    print(f"train_yolact cli: {YL_CLI_DATASETS} dataset directories of {YL_CLI_TRAIN} train "
+          f"and {YL_CLI_VAL} val {mc.in_w}x{mc.in_h} PNGs with seg maps (squares of the CLI's 7 "
+          f"classes) written in {t_data:.1f} s on {YL_CLI_DATASETS} threads; the CLI (its "
+          f"module-literal configs: bf16, batch {YL_BATCH}, cap {tc.max_positive_anchors}, "
+          f"n_epochs 2, {YL_CLI_WORKERS} loader threads) trained {2 * batches} steps over 2 "
+          f"epochs with --watch-every {YL_CLI_WATCH_EVERY} in {run_s:.1f} s: losses "
+          f"{[round(r['train/total'], 4) for r in train]}, mask_clipped "
+          f"{[int(r['train/mask_clipped']) for r in train]}, val "
+          f"{[round(r['val/total'], 4) for r in val]}; {len(watch)} watch lines over "
+          f"{len(trained)} parameters; checkpoints {steps} and the 3-config manifest; warm start "
+          f"from step {2 * batches}: losses {[round(r['train/total'], 4) for r in warm_train]}, "
+          f"restored parameters and Adam moments bit-equal to the saved ones")
+    print_cli_time("train_yolact cli", epochs, YL_BATCH, host_ms, YL_CLI_WORKERS, prof, batches,
+                   peak, card)
+    print(f"train_yolact cli {time.perf_counter() - t0:.1f} s")
+    del state, warm
+    torch.cuda.empty_cache()
 
 
 # The north_star CenterNet's early trunk at batch 32, each conv alone in
@@ -3188,6 +3681,7 @@ def main(argv=None) -> int:
                      card, args.profile)
     served["train"] = train_phase(errs, card)
     served["train_cli"] = train_cli_phase(card)
+    served["train_yolact"] = train_yolact_phase(card)
 
     def launches(path, row):
         kernel, entry = ROWS[row]

@@ -33,7 +33,12 @@ from tauv_vision_tpu_torch.configs.centernet import (
     ObjectConfigSet,
     get_head_channels,
 )
-from tauv_vision_tpu_torch.configs.yolact import ClassConfig, ClassConfigSet, YolactModelConfig
+from tauv_vision_tpu_torch.configs.yolact import (
+    ClassConfig,
+    ClassConfigSet,
+    YolactModelConfig,
+    YolactTrainConfig,
+)
 
 __all__ = [
     "AngleConfig",
@@ -52,6 +57,7 @@ __all__ = [
     "ServedCenternetRecipe",
     "ServedRecipe",
     "YolactModelConfig",
+    "YolactTrainConfig",
     "centernet_config",
     "get_head_channels",
     "keypoints_config",

@@ -1,16 +1,40 @@
-"""YOLACT configuration: ``YolactModelConfig``, ``ClassConfig`` and
-``ClassConfigSet`` of ``tauv_vision_tpu/configs/yolact.py``, copied so the
-port imports nothing of the JAX package.  Same fields, defaults and
-derived properties; the JSON round trip of the original is not copied."""
+"""YOLACT configuration: ``YolactModelConfig``, ``YolactTrainConfig``,
+``ClassConfig`` and ``ClassConfigSet`` of
+``tauv_vision_tpu/configs/yolact.py``, copied so the port imports nothing
+of the JAX package.  Same fields, defaults, derived properties and JSON
+round trip (the files the training CLI writes beside its checkpoints)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import json
+import pathlib
+from dataclasses import asdict, dataclass
 from typing import Optional, Tuple
 
 
+class _Json:
+    """``to_dict`` / ``from_dict`` / ``save`` / ``load`` of a flat config
+    dataclass (tuples come back from JSON lists through ``__post_init__``)."""
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, data: dict):
+        return cls(**data)
+
+    def save(self, path: pathlib.Path) -> None:
+        with open(path, "w") as fp:
+            json.dump(self.to_dict(), fp, indent=2)
+
+    @classmethod
+    def load(cls, path: pathlib.Path):
+        with open(path) as fp:
+            return cls.from_dict(json.load(fp))
+
+
 @dataclass(frozen=True)
-class YolactModelConfig:
+class YolactModelConfig(_Json):
     """Architecture knobs."""
 
     in_w: int
@@ -60,6 +84,68 @@ class YolactModelConfig:
 
 
 @dataclass(frozen=True)
+class YolactTrainConfig(_Json):
+    """Training and augmentation knobs.
+
+    ``max_objects`` pads the truth of a batch to a fixed object count.
+    ``max_positive_anchors`` caps the mask loss: with an int it runs over
+    each sample's ``max_positive_anchors`` positives of highest match IoU
+    and reports the positives it dropped (``YolactLosses.mask_clipped``);
+    with None it runs over every positive, exactly.  ``compute_dtype`` is
+    the dtype the JAX package trains the convs in."""
+
+    lr: float
+    momentum: float
+    weight_decay: float
+    grad_max_norm: float
+
+    n_epochs: int
+    batch_size: int
+    epoch_n_batches: int
+
+    weight_save_interval: int = 1
+    gradient_save_frequency: int = 1000
+
+    channel_shuffle_p: float = 0.0
+
+    color_jitter_p: float = 0.0
+    color_jitter_brightness: float = 0.0
+    color_jitter_contrast: float = 0.0
+    color_jitter_saturation: float = 0.0
+    color_jitter_hue: float = 0.0
+
+    gaussian_noise_p: float = 0.0
+    gaussian_noise_var_limit: Tuple[float, float] = (0.0, 0.0)
+
+    horizontal_flip_p: float = 0.0
+    vertical_flip_p: float = 0.0
+
+    blur_limit: Tuple[int, int] = (3, 7)
+    blur_p: float = 0.0
+
+    ssr_p: float = 0.0
+    ssr_shift_limit: Tuple[float, float] = (0.0, 0.0)
+    ssr_scale_limit: Tuple[float, float] = (0.0, 0.0)
+    ssr_rotate_limit: Tuple[float, float] = (0.0, 0.0)
+
+    perspective_p: float = 0.0
+    perspective_scale_limit: Tuple[float, float] = (0.0, 0.0)
+
+    min_visibility: float = 0.0
+
+    n_workers: int = 0
+
+    max_objects: int = 16
+    max_positive_anchors: Optional[int] = 64
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        for name in ("gaussian_noise_var_limit", "blur_limit", "ssr_shift_limit",
+                     "ssr_scale_limit", "ssr_rotate_limit", "perspective_scale_limit"):
+            object.__setattr__(self, name, tuple(getattr(self, name)))
+
+
+@dataclass(frozen=True)
 class ClassConfig:
     """id / index pair; index 0 is the background, so classes start at 1."""
 
@@ -85,3 +171,16 @@ class ClassConfigSet:
             if config.id == id:
                 return config
         return None
+
+    def to_dict(self) -> dict:
+        return {"configs": [asdict(c) for c in self.configs]}
+
+    def save(self, path: pathlib.Path) -> None:
+        with open(path, "w") as fp:
+            json.dump(self.to_dict(), fp, indent=2)
+
+    @classmethod
+    def load(cls, path: pathlib.Path) -> "ClassConfigSet":
+        with open(path) as fp:
+            data = json.load(fp)
+        return cls(tuple(ClassConfig(d["id"], d["index"]) for d in data["configs"]))

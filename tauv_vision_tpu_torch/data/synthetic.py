@@ -1,10 +1,12 @@
-"""Synthetic square-detection data (counterpart of the CenterNet half of
-``tauv_vision_tpu/data/synthetic.py``): rotated squares painted on noise,
-labelled with centre, size, yaw modulo pi/2 and, optionally, the four
-corners as keypoints.  Numpy on the host, bit-equal to the JAX package's
-on the same generator; the batch goes to the device at the step
-(``CenternetTruth.to``).  ``write_square_pose_dataset`` writes such
-squares as a dataset directory, for the training CLI's readers.
+"""Synthetic square data (counterpart of ``tauv_vision_tpu/data/synthetic.py``):
+rotated squares painted on noise, labelled with centre, size, yaw modulo
+pi/2 and, optionally, the four corners as keypoints
+(``generate_square_batch``, the CenterNet's), and axis-aligned coloured
+squares with their instance segmentation (``generate_square_seg_batch``,
+the YOLACT's).  Numpy on the host, bit-equal to the JAX package's on the
+same generator; the batch goes to the device at the step (``.to``).
+``write_square_pose_dataset`` and ``write_square_seg_dataset`` write such
+squares as dataset directories, for the training CLIs' readers.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ from tauv_vision_tpu_torch.data.dataset_dir import (
     write_sample,
     write_splits,
 )
+from tauv_vision_tpu_torch.data.dataset_dir import BACKGROUND_SEG
 from tauv_vision_tpu_torch.train.centernet_task import CenternetTruth
+from tauv_vision_tpu_torch.train.yolact_task import YolactTruth
 
 
 @dataclass
@@ -141,6 +145,70 @@ def generate_square_batch(
     return img, truth
 
 
+def generate_square_seg_batch(
+    rng: np.random.Generator,
+    batch_size: int,
+    config: Optional[SquareDatasetConfig] = None,
+):
+    """Synthetic instance-segmentation batch: axis-aligned squares of random
+    colour on noise, placed without overlap (10 attempts each), with the
+    instance seg map in the dataset-directory convention (object index per
+    pixel, 255 background).
+
+    Returns ``(img [B, H, W, 3] f32, fields)``, fields a dict of numpy
+    arrays: valid [B, M], classification [B, M] (1, the square class),
+    box [B, M, 4] normalised (y, x, h, w), seg [B, H, W] uint8 and
+    img_valid [B, H, W] bool (all True); ``seg_truth`` makes the
+    ``YolactTruth``."""
+    cfg = config or SquareDatasetConfig()
+    h, w, n = cfg.in_h, cfg.in_w, cfg.max_objects
+
+    img = rng.uniform(0, cfg.noise_level, (batch_size, h, w, 3)).astype(np.float32)
+    seg = np.full((batch_size, h, w), BACKGROUND_SEG, np.uint8)
+    valid = np.zeros((batch_size, n), bool)
+    classification = np.zeros((batch_size, n), np.int32)
+    box = np.zeros((batch_size, n, 4), np.float32)
+
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    for b in range(batch_size):
+        n_objects = int(rng.integers(1, n + 1))
+        placed = 0
+        for _ in range(n_objects):
+            # Reject overlapping placements, so each instance's box stays
+            # consistent with its whole mask.
+            for _attempt in range(10):
+                side = float(rng.uniform(cfg.min_side, cfg.max_side))
+                cy = float(rng.uniform(side, h - side))
+                cx = float(rng.uniform(side, w - side))
+                inside = (np.abs(ys - cy) <= side / 2) & (np.abs(xs - cx) <= side / 2)
+                if (seg[b][inside] == BACKGROUND_SEG).all():
+                    break
+            else:
+                continue
+            color = rng.uniform(0.5, 1.0, 3).astype(np.float32)
+            img[b][inside] = color
+            seg[b][inside] = placed
+            valid[b, placed] = True
+            classification[b, placed] = 1
+            box[b, placed] = (cy / h, cx / w, side / h, side / w)
+            placed += 1
+
+    return img, {
+        "valid": valid,
+        "classification": classification,
+        "box": box,
+        "seg": seg,
+        "img_valid": np.ones((batch_size, h, w), bool),
+    }
+
+
+def seg_truth(fields: dict) -> YolactTruth:
+    """The ``YolactTruth`` (numpy) of ``generate_square_seg_batch``'s fields."""
+    return YolactTruth(valid=fields["valid"], classification=fields["classification"],
+                       box=fields["box"], seg_map=fields["seg"].astype(np.int32),
+                       img_valid=fields["img_valid"])
+
+
 def square_pose_samples(rng: np.random.Generator, n: int, h: int, w: int,
                         labels: Sequence[str], max_objects: int = 4,
                         min_side: float = 8.0, max_side: float = 24.0,
@@ -185,6 +253,43 @@ def write_square_pose_dataset(root: pathlib.Path, rng: np.random.Generator, n_tr
     and ``n_val`` val samples, their splits, classes and meta files."""
     root = pathlib.Path(root)
     samples = square_pose_samples(rng, n_train + n_val, h, w, labels, **kwargs)
+    for sample in samples:
+        write_sample(root / "data", sample)
+    ids = [s.id for s in samples]
+    write_splits(root, {"train": ids[:n_train], "val": ids[n_train:], "test": []})
+    write_classes(root, list(labels))
+    write_meta(root, "tauv_vision_tpu_torch", "synthetic squares", "2026-01-01T00:00:00")
+
+
+def square_seg_samples(rng: np.random.Generator, n: int, h: int, w: int,
+                       labels: Sequence[str], max_objects: int = 4,
+                       min_side: float = 8.0, max_side: float = 24.0) -> List[DatasetSample]:
+    """``n`` on-disk segmentation samples (``data/dataset_dir.py``'s
+    contract, what ``SegmentationDataset`` reads): each a
+    ``generate_square_seg_batch`` frame of 1 to ``max_objects`` squares as
+    uint8 [h, w, 3] with its seg map, each square an object of a class
+    drawn from ``labels`` with its box."""
+    config = SquareDatasetConfig(in_h=h, in_w=w, max_objects=max_objects, min_side=min_side,
+                                 max_side=max_side)
+    samples = []
+    for i in range(n):
+        img, fields = generate_square_seg_batch(rng, 1, config)
+        objects = [{"class_id": labels[int(rng.integers(len(labels)))],
+                    "bbox": {"x": float(cx), "y": float(cy), "w": float(bw), "h": float(bh)}}
+                   for cy, cx, bh, bw in fields["box"][0][fields["valid"][0]]]
+        samples.append(DatasetSample(id=f"{i:06d}", img=np.round(img[0] * 255).astype(np.uint8),
+                                     seg=fields["seg"][0], objects=objects))
+    return samples
+
+
+def write_square_seg_dataset(root: pathlib.Path, rng: np.random.Generator, n_train: int,
+                             n_val: int, h: int, w: int, labels: Sequence[str],
+                             **kwargs) -> None:
+    """A dataset directory of ``square_seg_samples`` ({id}.png,
+    {id}_seg.png, {id}.json): ``n_train`` train and ``n_val`` val samples,
+    their splits, classes and meta files."""
+    root = pathlib.Path(root)
+    samples = square_seg_samples(rng, n_train + n_val, h, w, labels, **kwargs)
     for sample in samples:
         write_sample(root / "data", sample)
     ids = [s.id for s in samples]

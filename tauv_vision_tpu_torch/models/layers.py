@@ -3,6 +3,7 @@ dtype, and seeded initialisation."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -31,7 +32,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     slices serve it.  Otherwise the op order is flax's, y = (x - mean) *
     (rsqrt(var + eps) * scale) + bias in f32, so that the rounding to bf16
     falls where flax's does: three passes (the sub promotes the bf16
-    input, the add writes ``out_dtype``).  The rsqrt is correctly rounded
+    input, the add writes ``out_dtype``); where autograd records, the same
+    ops out of place, which round alike.  The rsqrt is correctly rounded
     (an f64 root); XLA's is within one ulp of it.  The state dict is
     ``nn.BatchNorm2d``'s."""
 
@@ -40,13 +42,17 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.out_dtype = out_dtype
 
     def _affine(self):
-        """(mean, mul, bias) as [C, 1, 1] f32, kept until a statistic or
+        """(mean, mul, bias) as [C, 1, 1] f32.  Where autograd records
+        (grad enabled and the scale trainable), built in the graph of the
+        scale and bias on every call; otherwise kept until a statistic or
         parameter changes."""
         def build():
             var_eps = self.running_var.float() + self.eps
             mul = (1.0 / torch.sqrt(var_eps.double())).float() * self.weight.float()
             return tuple(t.reshape(-1, 1, 1) for t in (
-                self.running_mean.float(), mul, self.bias.detach().float()))
+                self.running_mean.float(), mul, self.bias.float()))
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            return build()
         return derived(self, "affine", (self.running_mean, self.running_var, self.weight,
                                         self.bias), build)
 
@@ -72,12 +78,38 @@ class BatchNorm2d(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
         mean, mul, bias = self._affine()
+        if mul.requires_grad or x.requires_grad:   # autograd records: no in-place, no out=
+            return ((x - mean) * mul + bias).to(self.out_dtype)
         y = torch.sub(x, mean).mul_(mul)
         return torch.add(y, bias, out=torch.empty_like(y, dtype=self.out_dtype))
 
 
 def batch_norm(channels: int, out_dtype=torch.float32) -> BatchNorm2d:
     return BatchNorm2d(channels, out_dtype)
+
+
+NEGATIVE_SLOPE = 0.01
+
+
+@functools.lru_cache(maxsize=None)
+def _slope(dtype) -> float:
+    return float(torch.tensor(NEGATIVE_SLOPE, dtype=dtype))
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``leaky_relu``: where(x >= 0, x, slope x), the slope rounded
+    to x's dtype first (bf16 0.010009765625, which torch's bf16
+    ``F.leaky_relu`` does not round), and the gradient 1 at x == 0.  In
+    f32 its values equal ``F.leaky_relu``'s, so an f32 tensor that needs no
+    gradient (every served forward) takes that one pass."""
+    if x.dtype == torch.float32 and not (x.requires_grad and torch.is_grad_enabled()):
+        return F.leaky_relu(x, NEGATIVE_SLOPE)
+    return torch.where(x >= 0, x, x * _slope(x.dtype))
+
+
+class LeakyReLU(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(x)
 
 
 class Conv2d(nn.Conv2d):
@@ -96,6 +128,28 @@ class Conv2d(nn.Conv2d):
             return super().forward(x.to(dtype))
         y = F.conv2d(x.to(dtype), cast_parameter(self, "weight", dtype), None,
                      self.stride, self.padding, self.dilation, self.groups)
+        if self.bias is not None:
+            y = y + cast_parameter(self, "bias", dtype)[:, None, None]
+        return y
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in ``compute_dtype`` as the JAX
+    package's ``TorchConvTranspose`` does: the input and the weight cast to
+    it, the bias cast and added after the transposed conv's own rounding.
+    In f32 it is ``nn.ConvTranspose2d``."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype
+        if dtype == torch.float32:
+            return super().forward(x.to(dtype))
+        y = F.conv_transpose2d(x.to(dtype), cast_parameter(self, "weight", dtype), None,
+                               self.stride, self.padding, self.output_padding, self.groups,
+                               self.dilation)
         if self.bias is not None:
             y = y + cast_parameter(self, "bias", dtype)[:, None, None]
         return y
@@ -159,3 +213,17 @@ def flax_init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             continue
         if m.bias is not None:
             m.bias.zero_()
+
+
+@torch.no_grad()
+def xavier_init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init of every conv and transposed conv under ``module`` by
+    flax's ``xavier_uniform`` (equal in distribution): weights uniform in
+    +-sqrt(6 / (fan_in + fan_out)), fans over the kernel's taps, biases
+    zero (the YOLACT's FPN, protonet and prediction head in the JAX
+    package)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            nn.init.xavier_uniform_(m.weight, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()

@@ -1,7 +1,7 @@
 """Box math on (y, x, h, w) boxes normalised to [0, 1].
 
 Counterpart of ``tauv_vision_tpu/ops/boxes.py`` (the functions the
-serving path needs).  ``box_to_mask`` is the plain crop of kernel B.
+serving path and the YOLACT loss need).  ``box_to_mask`` is the plain crop of kernel B.
 """
 
 from __future__ import annotations
@@ -15,6 +15,18 @@ def box_to_corners(box: torch.Tensor) -> torch.Tensor:
     """(y, x, h, w) -> (min_y, min_x, max_y, max_x)."""
     cy, cx, h, w = box.unbind(-1)
     return torch.stack((cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2), dim=-1)
+
+
+def box_encode(
+    box: torch.Tensor, anchor: torch.Tensor,
+    variances: Tuple[float, float],
+) -> torch.Tensor:
+    """SSD-style encoding of boxes against anchors, the inverse of
+    ``box_decode``: (yx - anchor_yx) / (var0 anchor_hw), log(hw /
+    anchor_hw) / var1."""
+    g_yx = (box[..., :2] - anchor[..., :2]) / (variances[0] * anchor[..., 2:])
+    g_hw = torch.log(box[..., 2:] / anchor[..., 2:]) / variances[1]
+    return torch.cat((g_yx, g_hw), dim=-1)
 
 
 def box_decode(

@@ -38,7 +38,14 @@ def _taps(n_in: int, n_out: int, dtype, device: torch.device):
     """(k0, k1, w0, w1): the two input indices (k0 < k1) and weights of
     each output along one axis, weights cast to ``dtype`` and held as
     float64 (a bilinear weight column has at most two nonzeros; a lone
-    tap gets w1 = 0), kept on ``device``."""
+    tap gets w1 = 0), kept on ``device``.  Made outside inference mode, so
+    that a training step can save them for its backward after a served
+    request has filled the cache."""
+    with torch.inference_mode(False):
+        return _build_taps(n_in, n_out, dtype, device)
+
+
+def _build_taps(n_in: int, n_out: int, dtype, device: torch.device):
     weights = _triangle_weights(n_in, n_out).to(dtype).double()
     nonzero = weights != 0
     if int(nonzero.sum(dim=0).max()) > 2:
@@ -104,6 +111,22 @@ def resize_bilinear_nhwc(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Te
     """Bilinear resize of [B, H, W, C] along H and W, rounded as the JAX
     ``resize_bilinear_nhwc`` (``jax.image.resize``) rounds."""
     return _resize_as_xla(img, (1, 2), out_hw)
+
+
+def resize_nearest(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of [..., H, W] by torch's legacy rule
+    ``src = floor(dst * in / out)`` (not ``jax.image.resize``'s nearest),
+    the scale ``in / out`` taken in f64 and the product in f32 as the JAX
+    ``resize_nearest`` computes them."""
+    in_h, in_w = img.shape[-2:]
+    out_h, out_w = out_hw
+
+    def source(n_out, n_in):
+        scale = torch.tensor(n_in / n_out, dtype=torch.float32)
+        idx = torch.floor(torch.arange(n_out, dtype=torch.float32) * scale).long()
+        return torch.clamp(idx, 0, n_in - 1).to(img.device)
+
+    return img[..., source(out_h, in_h), :][..., source(out_w, in_w)]
 
 
 def normalize_image(

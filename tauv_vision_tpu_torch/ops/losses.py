@@ -4,7 +4,8 @@
   the number of exact-peak pixels;
 - ``smooth_l1``: ``F.smooth_l1_loss`` with no reduction;
 - ``binary_cross_entropy``: with both the prediction and the target
-  clamped to [eps, 1 - eps];
+  clipped to [eps, 1 - eps];
+- ``clip``: ``jnp.clip``, with its gradient 1/2 at a bound;
 - ``softmax_cross_entropy``: ``F.cross_entropy`` with integer labels and
   no reduction, over the last axis.
 """
@@ -41,11 +42,22 @@ def smooth_l1(prediction: torch.Tensor, truth: torch.Tensor, beta: float = 1.0) 
     return torch.where(diff < beta, 0.5 * diff ** 2 / beta, diff - 0.5 * beta)
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: minimum(hi, maximum(lo, x)), the bounds
+    rounded to x's dtype.  Its gradient is JAX's: 1 inside, 0 outside and
+    1/2 at a bound (``torch.maximum`` splits a tie as ``lax.max`` does;
+    ``torch.clamp`` would pass all of it)."""
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(hi_t, torch.maximum(lo_t, x))
+
+
 def binary_cross_entropy(prediction: torch.Tensor, truth: torch.Tensor,
                          eps: float = 1e-4) -> torch.Tensor:
-    """Elementwise BCE on probabilities, both clamped to [eps, 1 - eps]."""
-    p = torch.clamp(prediction, eps, 1.0 - eps)
-    t = torch.clamp(truth, eps, 1.0 - eps)
+    """Elementwise BCE on probabilities, both clipped to [eps, 1 - eps]
+    (``clip``)."""
+    p = clip(prediction, eps, 1.0 - eps)
+    t = clip(truth, eps, 1.0 - eps)
     return -(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p))
 
 

@@ -1,17 +1,19 @@
-"""Train and eval steps of the CenterNet (counterpart of the CenterNet half
-of ``tauv_vision_tpu/train/steps.py``, without the mesh: data-parallel
+"""Train and eval steps of the CenterNet and the YOLACT (counterpart of
+``tauv_vision_tpu/train/steps.py``, without the mesh: data-parallel
 training comes later).
 
 ``step(state, img, truth) -> (state, losses)``: img [B, 3, H, W] f32 and
-the truth (``CenternetTruth.to``) on the model's device.  A step sets the
+the truth (``CenternetTruth.to``, ``YolactTruth.to``) on the model's
+device.  A step sets the
 model's mode for its own forward and gives the modules back the modes they
 had, so a served net that shares the model is not left in training mode.
 Training runs with autograd on; it raises inside ``torch.inference_mode``,
 where no graph is recorded (the serving pipelines open one).  The train
 step's forward and optimizer step are ``torch.profiler`` ranges
-(``FORWARD``, ``OPTIMIZER``), which a profile reads the step's split from
-(on the card autograd runs the backward on a thread of its own, outside
-any range opened here).
+(``FORWARD``, ``OPTIMIZER``; the YOLACT's loss also ``LOSS``, inside
+``FORWARD``), which a profile reads the step's split from (on the card
+autograd runs the backward on a thread of its own, outside any range
+opened here).
 """
 
 from __future__ import annotations
@@ -30,11 +32,14 @@ from tauv_vision_tpu_torch.configs.centernet import (
 )
 from tauv_vision_tpu_torch.models.centerpoint_dla import sow_dcn_offsets
 from tauv_vision_tpu_torch.train.centernet_task import CenternetTruth, centernet_loss
+from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig, YolactTrainConfig
 from tauv_vision_tpu_torch.train.state import TrainState
 from tauv_vision_tpu_torch.train.watch import watch_metrics
+from tauv_vision_tpu_torch.train.yolact_task import YolactTruth, yolact_loss
 
 
 FORWARD = "train_step/forward"
+LOSS = "train_step/loss"
 OPTIMIZER = "train_step/optimizer"
 
 
@@ -118,5 +123,51 @@ def make_centernet_eval_step(
             prediction = state.model(img)
             return centernet_loss(prediction, truth, model_config, train_config,
                                   object_config).detach()
+
+    return step
+
+
+def make_yolact_train_step(
+    model_config: YolactModelConfig,
+    train_config: YolactTrainConfig,
+    watch: bool = False,
+):
+    """One optimizer step on the YOLACT loss of a batch: forward in
+    training mode (batch statistics, the running ones updated),
+    ``yolact_loss``, backward and the optimizer's step (clipping
+    included).  The losses come back detached, on the device.  ``watch``:
+    the step returns (state, losses, ``watch_metrics`` of the parameters
+    and raw gradients before the optimizer's step)."""
+
+    def step(state: TrainState, img: torch.Tensor, truth: YolactTruth):
+        if torch.is_inference_mode_enabled():
+            raise RuntimeError("a train step cannot run inside torch.inference_mode")
+        model, optimizer = state.model, state.optimizer
+        with torch.enable_grad(), model_mode(model, True):
+            optimizer.zero_grad(set_to_none=True)
+            with record_function(FORWARD):
+                prediction = model(img)
+                with record_function(LOSS):
+                    losses = yolact_loss(prediction, truth, model_config, train_config)
+            losses.total.backward()
+        stats = watch_metrics(model) if watch else None
+        with record_function(OPTIMIZER):
+            optimizer.step()
+        state.step += 1
+        if watch:
+            return state, losses.detach(), stats
+        return state, losses.detach()
+
+    return step
+
+
+def make_yolact_eval_step(model_config: YolactModelConfig, train_config: YolactTrainConfig):
+    """The YOLACT losses of a batch in inference mode (running
+    statistics), with no graph."""
+
+    def step(state: TrainState, img: torch.Tensor, truth: YolactTruth):
+        with torch.no_grad(), model_mode(state.model, False):
+            prediction = state.model(img)
+            return yolact_loss(prediction, truth, model_config, train_config).detach()
 
     return step

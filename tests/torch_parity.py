@@ -34,6 +34,11 @@ def jax_yolact_config(cfg: YolactModelConfig) -> JaxYolactModelConfig:
     return JaxYolactModelConfig(**dataclasses.asdict(cfg))
 
 
+def jax_yolact_train_config(tc):
+    """The JAX package's copy of a port ``YolactTrainConfig``."""
+    return jax_configs.YolactTrainConfig(**dataclasses.asdict(tc))
+
+
 def jax_object_config(oc):
     """The JAX package's copy of a port ``ObjectConfigSet``."""
     return _convert_object_config(oc, jax_configs)
