@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Nine served paths: five pair a CenterNet with a YOLACT through
+Ten served paths: five pair a CenterNet with a YOLACT through
 ``make_combined_pipeline``, two serve the CenterNet and the YOLACT as
-int8 chains in two requests, as ``bench.py`` times them, and two serve
-the CenterNet node's full configuration alone:
+int8 chains in two requests, as ``bench.py`` times them, two serve
+the CenterNet node's full configuration alone, and one serves YOLO-Pose:
 
 - ``plain_ida``: the CenterpointDLA34 with plain-conv IDA (the IDA that
   ``bench.py`` serves with no flags), all f32, beside the f32 YOLACT;
@@ -47,6 +47,10 @@ the CenterNet node's full configuration alone:
   ``keypoints`` net as an int8 chain
   (``make_centernet_keypoint_chain_pipeline``), calibrated per tensor on
   its rescaled keypoint head.
+- ``yolo_pose``: ``bench.py --yolo-pose``'s bf16 rung
+  (``configs.BENCH_YOLO_POSE``): the bf16 YOLO-Pose at 480x960 through
+  ``make_yolo_pose_pipeline`` at batch 16: Fast-NMS, the belief maps
+  through kernel B without the crop, their peaks and PnP on the card.
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -164,7 +168,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
    epochs of 16 batches with watch lines, a warm start, the CLI's images/s
    with host reading included, the loader's host ms a batch and the
    device's idle share.  JAX's YOLACT training reaches no Pallas kernel,
-   so the phase launches none of the port's.
+   so the phase launches none of the port's;
+9. yolo_pose: ``bench.py --yolo-pose``'s bf16 rung
+   (``configs.BENCH_YOLO_POSE``, ``make_yolo_pose_pipeline``): the bf16
+   YOLO-Pose (ResNet-18, FPN, protonet, a two-stage Pointnet) at 480x960
+   with the flax init from a seed, decoded with Fast-NMS (top 10), its
+   belief maps through kernel B (no crop) and their peaks, then PnP on
+   the card.  Kernel B at the decode's call on the net's own prototypes
+   and coefficients ([16,16,30,60] x [16,90,16], NCHW and the NHWC view,
+   batch 16 and 1) against its plain version within 1e-5; 2 requests of
+   16 frames and one of 1, kernel B launched once a request (counted
+   from 0 before the requests) and nothing else; the decode on the kernel
+   and on the plain version at confidence 0 on each request's one
+   forward, slot for slot (detections equal, keypoints equal but on maps
+   whose top two values lie within 1e-5, counted; poses of slots whose
+   keypoints agree within 1e-5), and the two whole pipelines the same
+   way; PnP on the card against planted poses (1e-2) and the CPU solve
+   of the same keypoints (1e-3); then kernel B's row at that call, the
+   request's frames/s at batch 16 with and without PnP (kernels and
+   plain), its device kernels, busy time and idle share, and its stages
+   (upload, preprocess, forward, NMS + belief peaks, PnP).
 
 Prints one JSON line describing the kernels, with each kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -195,6 +218,7 @@ import torch.nn.functional as F
 
 from tauv_vision_tpu_torch import kernels
 from tauv_vision_tpu_torch.configs import (
+    BENCH_YOLO_POSE,
     CHAIN_INT8,
     DCN_CHAIN_INT8,
     DCN_NORTH_STAR,
@@ -225,6 +249,7 @@ from tauv_vision_tpu_torch.data.synthetic import (
 )
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
 from tauv_vision_tpu_torch.models.yolact import Yolact, YolactPrediction
+from tauv_vision_tpu_torch.models.yolo_pose import YoloPose
 from tauv_vision_tpu_torch.ops.anchors import fpn_level_sizes, get_all_anchors
 from tauv_vision_tpu_torch.ops.conv_transpose import (
     depthwise_upsample,
@@ -264,10 +289,12 @@ from tauv_vision_tpu_torch.serving.pipeline import (
     IMAGENET_MEAN,
     IMAGENET_STDDEV,
     SERVING_DECODE,
+    YOLO_POSE_DECODE,
     make_centernet_keypoint_pipeline,
     make_centernet_pipeline,
     make_combined_pipeline,
     make_yolact_pipeline,
+    make_yolo_pose_pipeline,
 )
 from tauv_vision_tpu_torch.serving.quantize import calibrate, strip_scales
 from tauv_vision_tpu_torch.serving.quantize_chain import (
@@ -279,6 +306,13 @@ from tauv_vision_tpu_torch.serving.quantize_chain import (
     yolact_chain_forward,
 )
 from tauv_vision_tpu_torch.serving.yolact_decode import decode_yolact
+from tauv_vision_tpu_torch.serving.yolo_pose_decode import (
+    MIN_KEYPOINTS,
+    YoloPoseDetections,
+    attach_pnp,
+    decode_yolo_pose,
+    select_detections,
+)
 from tauv_vision_tpu_torch.train import steps as train_steps
 from tauv_vision_tpu_torch.train.checkpoint import CheckpointManager
 from tauv_vision_tpu_torch.train.metrics import MultiWriter, StdoutWriter
@@ -375,6 +409,7 @@ ROWS = {
     "peak_decode": ("peak_decode", None),
     "peak_decode_k50": ("peak_decode", None),
     "mask_assembly": ("mask_assembly", None),
+    "mask_assembly_belief": ("mask_assembly", None),
     "depthwise_upsample": ("depthwise_upsample", "tauv_depthwise_upsample_f32"),
     "depthwise_upsample_bf16": ("depthwise_upsample", "tauv_depthwise_upsample_bf16"),
     "deform_conv": ("deform_conv", "tauv_deform_conv_f32"),
@@ -388,8 +423,10 @@ ROWS = {
     "op_probe/transpose": ("op_probe", "tauv_op_probe_transpose"),
 }
 # Rows that report one variant of their kernel's launches (kernel A at
-# K = 50: the keypoint heatmap's calls).
-ROW_VARIANTS = {"peak_decode_k50": ("peak_decode", "K=50")}
+# K = 50: the keypoint heatmap's calls; kernel B without the crop: the
+# YOLO-Pose belief maps).
+ROW_VARIANTS = {"peak_decode_k50": ("peak_decode", "K=50"),
+                "mask_assembly_belief": ("mask_assembly", "no crop")}
 # P1: the JAX site each row replaces, and the probe row it reports.
 P1_ROWS = {
     "op_probe/dot": (126, "dot[32x144xN640]"),
@@ -407,7 +444,7 @@ KP_INT8 = "keypoints_int8"
 # The paths whose launches the kernels line reports: the served paths and
 # the trainer's run.
 ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8, "train", "train_cli",
-                                                             "train_yolact")
+                                                             "train_yolact", "yolo_pose")
 PAIR_ITERS = 5        # timed repetitions of a pair path's request at batch 32
 CHAIN_ITERS = 5       # of each of a chain pair's two requests
 # The paths beside an int8-chain YOLACT, and its recipe on each.
@@ -3556,6 +3593,317 @@ def train_yolact_cli(card):
     torch.cuda.empty_cache()
 
 
+# ---- phase 9 ------------------------------------------------------------
+
+YP_BATCH = 16             # bench.py --yolo-pose's batch
+YP_REQUESTS = 2
+YP_ITERS = 10             # timed requests of each kind
+YP_SEED = 11
+YP_POSE_ATOL = 1e-3       # PnP on the card against the CPU, same keypoints
+YP_TIE = 1e-5             # a belief map's top two values this close: a near-tie
+
+
+def yolo_pose_net():
+    """``bench.py --yolo-pose``'s net on the card: bf16, the flax init from
+    a seed."""
+    serve = BENCH_YOLO_POSE
+    return YoloPose(serve.model, torch.Generator().manual_seed(YP_SEED), device="cuda",
+                    dtype=serve.dtype, init="flax").eval()
+
+
+def yolo_pose_pipelines(net, knobs=YOLO_POSE_DECODE, pnp=True):
+    """(the served pipeline on kernel B, on its plain version)."""
+    serve = BENCH_YOLO_POSE
+    points = (serve.object_points, serve.camera_matrix) if pnp else (None, None)
+    return tuple(make_yolo_pose_pipeline(net, serve.model, *points, torch.device("cuda"),
+                                         knobs=knobs, impl=impl, dtype=serve.input_dtype)
+                 for impl in ("kernel", "plain"))
+
+
+def yolo_pose_image(frames):
+    serve = BENCH_YOLO_POSE
+    with torch.inference_mode():
+        return preprocess(frames.to("cuda"), (serve.model.in_h, serve.model.in_w),
+                          IMAGENET_MEAN, IMAGENET_STDDEV, serve.input_dtype)
+
+
+def yolo_pose_belief_call(pred, knobs=YOLO_POSE_DECODE):
+    """The decode's kernel B call on a forward's outputs: the last Pointnet
+    stage's prototypes [B, Pb, bh, bw] (from their NHWC view) and the
+    coefficients [B, K * Kp, Pb] of Fast-NMS's picks."""
+    with torch.inference_mode():
+        coeff = select_detections(pred, BENCH_YOLO_POSE.model, knobs.top_k, knobs.iou_threshold,
+                                  knobs.confidence_threshold)[3]
+    return pred.belief_prototypes[-1].permute(0, 3, 1, 2), coeff
+
+
+def check_yolo_pose_outputs(out, batch, pnp=True):
+    cfg, k = BENCH_YOLO_POSE.model, YOLO_POSE_DECODE.top_k
+    n_kp = cfg.belief_depth
+    require(all(t.shape == (batch, k) for t in (out.valid, out.score, out.label))
+            and out.box.shape == (batch, k, 4)
+            and out.belief.shape == (batch, k, n_kp, cfg.in_h // 16, cfg.in_w // 16)
+            and all(t.shape == (batch, k, n_kp) for t in
+                    (out.keypoint_y, out.keypoint_x, out.keypoint_score)),
+            "yolo_pose: detection shapes")
+    require(all(t.is_cuda for t in (out.valid, out.belief, out.keypoint_x)),
+            "yolo_pose: an output left the card")
+    require(finite(out.score, out.box, out.belief, out.keypoint_y, out.keypoint_x,
+                   out.keypoint_score), "yolo_pose: non-finite")
+    require(bool(((out.label >= 1) & (out.label <= cfg.n_classes)).all()), "yolo_pose: labels")
+    if pnp:
+        require(out.pose_rotation.shape == (batch, k, 3, 3)
+                and out.pose_translation.shape == (batch, k, 3)
+                and not bool((out.pose_valid & ~out.valid).any()), "yolo_pose: pose shapes")
+        valid = out.pose_valid
+        require(finite(out.pose_rotation[valid], out.pose_translation[valid]),
+                "yolo_pose: a valid pose is not finite")
+
+
+def yolo_pose_near_ties(belief):
+    """bool [...] of [..., h, w] maps: the top two values within YP_TIE."""
+    top = belief.flatten(-2).topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]) <= YP_TIE
+
+
+def compare_yolo_pose_decodes(got, ref):
+    """Kernel against plain decode of the same forward, slot for slot:
+    detections equal, belief maps within MASK_ATOL, keypoints equal but on
+    the plain maps' near-ties, and a slot whose keypoints all agree posed
+    within POSE_ATOL.  Returns (belief err, near-ties, keypoints moved,
+    worst pose err)."""
+    for name in ("valid", "label", "box", "score"):
+        require(torch.equal(getattr(got, name), getattr(ref, name)),
+                f"yolo_pose kernel vs plain: {name} differs")
+    err = (got.belief - ref.belief).abs().max().item()
+    require(err <= MASK_ATOL, f"yolo_pose kernel vs plain: belief maps err {err}")
+    tie = yolo_pose_near_ties(ref.belief)
+    moved = (got.keypoint_y != ref.keypoint_y) | (got.keypoint_x != ref.keypoint_x)
+    require(not bool((moved & ~tie).any()),
+            f"yolo_pose kernel vs plain: {int((moved & ~tie).sum())} keypoints moved off a tie")
+    same = ~moved.any(-1)
+    require(torch.equal(got.pose_valid[same], ref.pose_valid[same]),
+            "yolo_pose kernel vs plain: pose_valid differs on equal keypoints")
+    pose_err = max((getattr(got, n)[same] - getattr(ref, n)[same]).abs().max().item()
+                   for n in ("pose_rotation", "pose_translation")) if bool(same.any()) else 0.0
+    require(pose_err <= POSE_ATOL, f"yolo_pose kernel vs plain: pose err {pose_err}")
+    return err, int(tie.sum()), int(moved.sum()), pose_err
+
+
+def check_yolo_pose_pnp():
+    """``attach_pnp`` on the card against planted poses and against the CPU
+    on the same keypoints: a batch-16 request's 160 slots, the bench's
+    object points seen by its camera, with 9, 5, 4 and 3 keypoints above
+    the threshold (3 are too few) and every fifth slot not kept.  Random
+    weights validate poses on random correspondences, so this is where a
+    pose is held to the truth."""
+    serve = BENCH_YOLO_POSE
+    cfg, k, n_kp = serve.model, YOLO_POSE_DECODE.top_k, len(serve.object_points)
+    n = YP_BATCH * k
+    rng = np.random.default_rng(9)
+    obj = np.asarray(serve.object_points, np.float64)
+    cam = np.asarray(serve.camera_matrix, np.float64)
+    with torch.inference_mode():
+        r = so3_exp(torch.from_numpy(rng.normal(size=(n, 3)) * 0.4)).numpy()
+    t = np.stack([rng.uniform(-0.2, 0.2, n), rng.uniform(-0.1, 0.1, n),
+                  rng.uniform(1.0, 3.0, n)], -1)
+    pts = np.einsum("nij,pj->npi", r, obj) + t[:, None]
+    counts = np.resize([9, 5, 4, 3], n)
+    keep = np.arange(n) % 5 != 4
+    fields = {
+        "keypoint_y": (cam[1, 1] * pts[..., 1] / pts[..., 2] + cam[1, 2]) / cfg.in_h,
+        "keypoint_x": (cam[0, 0] * pts[..., 0] / pts[..., 2] + cam[0, 2]) / cfg.in_w,
+        "keypoint_score": np.where(np.arange(n_kp)[None] < counts[:, None], 0.9, 0.1)}
+    fields = {name: torch.from_numpy(a.astype(np.float32).reshape(YP_BATCH, k, n_kp))
+              for name, a in fields.items()}
+    fields["valid"] = torch.from_numpy(keep.reshape(YP_BATCH, k))
+    rest = dict(score=torch.zeros(YP_BATCH, k), label=torch.ones(YP_BATCH, k, dtype=torch.int32),
+                box=torch.zeros(YP_BATCH, k, 4), belief=torch.zeros(YP_BATCH, k, n_kp, 1, 1))
+    out = {}
+    for device in ("cuda", "cpu"):
+        dets = YoloPoseDetections(**{name: v.to(device) for name, v in {**fields,
+                                                                        **rest}.items()})
+        with torch.inference_mode():
+            out[device] = attach_pnp(dets, cfg, torch.tensor(serve.object_points, device=device),
+                                     torch.tensor(serve.camera_matrix, device=device),
+                                     YOLO_POSE_DECODE.keypoint_score_threshold)
+    card, cpu = out["cuda"], out["cpu"]
+    valid = card.pose_valid.cpu().numpy().reshape(-1)
+    require(np.array_equal(valid, (counts >= 4) & keep),
+            f"yolo_pose PnP: valid {valid.sum()} of {n}, expected {((counts >= 4) & keep).sum()}")
+    require(torch.equal(card.pose_valid.cpu(), cpu.pose_valid), "yolo_pose PnP: card vs CPU valid")
+    errs = {}
+    for name, truth in (("pose_rotation", r), ("pose_translation", t)):
+        got = getattr(card, name).cpu().reshape(n, -1).numpy()[valid]
+        errs[name] = (np.abs(got - getattr(cpu, name).reshape(n, -1).numpy()[valid]).max(),
+                      np.abs(got - truth.reshape(n, -1)[valid]).max())
+    require(all(c <= YP_POSE_ATOL and e <= 1e-2 for c, e in errs.values()),
+            f"yolo_pose PnP: (card vs CPU, card vs truth) errs {errs}")
+    print(f"check yolo_pose PnP on the card: {n} slots, {int(valid.sum())} valid as expected "
+          f"(min {MIN_KEYPOINTS} keypoints, kept); card vs CPU rotation "
+          f"{errs['pose_rotation'][0]:.3g}, translation {errs['pose_translation'][0]:.3g} (atol "
+          f"{YP_POSE_ATOL}); against the planted poses {errs['pose_rotation'][1]:.3g}, "
+          f"{errs['pose_translation'][1]:.3g} (atol 1e-2)")
+
+
+def yolo_pose_phase(card):
+    """Serve ``bench.py --yolo-pose``'s bf16 rung (see the module
+    docstring); returns (the served run's launches by kernel, by entry
+    point, by variant; kernel B's error at the belief call; its timing
+    row)."""
+    t0 = time.perf_counter()
+    serve = BENCH_YOLO_POSE
+    cfg, knobs = serve.model, YOLO_POSE_DECODE
+    net = yolo_pose_net()
+    requests = [request_frames(12, (YP_REQUESTS, YP_BATCH, FRAME_H, FRAME_W, 3))[i].pin_memory()
+                for i in range(YP_REQUESTS)]
+    frame = request_frames(13, (1, FRAME_H, FRAME_W, 3)).pin_memory()
+
+    # Kernel B at the decode's call, on the net's own prototypes and
+    # coefficients: NCHW (as the net makes them) and the NHWC view, at
+    # batch 16 and 1.
+    with torch.inference_mode():
+        pred = net(yolo_pose_image(requests[0]))
+    proto, coeff = yolo_pose_belief_call(pred)
+    require(tuple(proto.shape) == (YP_BATCH, 16, 30, 60) and proto.is_contiguous()
+            and tuple(coeff.shape) == (YP_BATCH, 90, 16), f"yolo_pose: kernel B's call "
+            f"{tuple(proto.shape)} {tuple(coeff.shape)}")
+    b_err = 0.0
+    for name, p, c in (("b16_nchw", proto, coeff),
+                       ("b16_nhwc", proto.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2),
+                        coeff),
+                       ("b1_nchw", proto[:1].contiguous(), coeff[:1].contiguous()),
+                       ("b1_nhwc", proto[:1].permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2),
+                        coeff[:1].contiguous())):
+        got, want = assemble_mask_cuda(p, c), assemble_mask_batch(p, c)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        require(e <= MASK_ATOL, f"mask_assembly yolo_pose {name}: err {e}")
+        b_err = max(b_err, e)
+        print(f"check mask_assembly yolo_pose_belief_{name} proto {tuple(p.shape)} strides "
+              f"{p.stride()} K={c.shape[1]} no crop: max_abs_err {e:.3g} (atol {MASK_ATOL})")
+
+    # The served requests, every launch counted.
+    pipe, plain = yolo_pose_pipelines(net)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    answers = [pipe(r) for r in requests]
+    torch.cuda.synchronize()
+    launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+    variants = dict(kernels.VARIANT_LAUNCHES)
+    per_request = {**{name: 0 for name in KERNELS}, "mask_assembly": 1}
+    print(f"serve yolo_pose: {YP_REQUESTS} requests x {YP_BATCH} frames, launches {launches} "
+          f"(kernel B by variant: {variants})")
+    require(launches == {name: YP_REQUESTS * n for name, n in per_request.items()}
+            and variants == {("mask_assembly", "no crop"): YP_REQUESTS},
+            f"yolo_pose: launch counts {launches} {variants}")
+    for out in answers:
+        check_yolo_pose_outputs(out, YP_BATCH)
+    print(f"serve yolo_pose: at the served thresholds "
+          f"{sum(int(a.valid.sum()) for a in answers)} detections valid, "
+          f"{sum(int(a.pose_valid.sum()) for a in answers)} poses valid (random weights)")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    one = pipe(frame)
+    torch.cuda.synchronize()
+    require(dict(kernels.LAUNCHES) == per_request,
+            f"yolo_pose batch 1: launch counts {dict(kernels.LAUNCHES)}")
+    check_yolo_pose_outputs(one, 1)
+    print(f"serve yolo_pose batch 1: launches {dict(kernels.LAUNCHES)}")
+
+    # Kernel against plain, every slot decoded (confidence 0), on each
+    # request's one forward; then the two whole pipelines.
+    all_slots = dataclasses.replace(knobs, confidence_threshold=0.0)
+    pose_args = (cfg, torch.tensor(serve.object_points, device="cuda"),
+                 torch.tensor(serve.camera_matrix, device="cuda"), knobs.keypoint_score_threshold)
+    worst, n_slots = (0.0, 0, 0, 0.0), 0
+    for r in requests + [frame]:
+        with torch.inference_mode():
+            pred = net(yolo_pose_image(r))
+            got, ref = (attach_pnp(decode_yolo_pose(pred, cfg, all_slots.top_k,
+                                                    all_slots.iou_threshold, 0.0, impl=impl),
+                                   *pose_args) for impl in ("kernel", "plain"))
+        e, ties, moved, pose_e = compare_yolo_pose_decodes(got, ref)
+        worst = (max(worst[0], e), worst[1] + ties, worst[2] + moved, max(worst[3], pose_e))
+        n_slots += got.valid.numel()
+    pipe0, plain0 = yolo_pose_pipelines(net, all_slots)
+    whole = [compare_yolo_pose_decodes(pipe0(r), plain0(r)) for r in requests]
+    print(f"serve yolo_pose: decoded kernel vs plain at confidence 0 on one forward each, "
+          f"{YP_REQUESTS} x {YP_BATCH} + 1 frames ({n_slots} slots): valid, labels, boxes and "
+          f"scores equal, belief maps max_abs_err {worst[0]:.3g} (atol {MASK_ATOL}), "
+          f"{worst[1]} of {n_slots * cfg.belief_depth} maps near-tied (top two within "
+          f"{YP_TIE:g}), {worst[2]} keypoints moved (each on a near-tie), poses of "
+          f"slots with equal keypoints max_abs_err {worst[3]:.3g} (atol {POSE_ATOL}); the "
+          f"whole pipelines: {sum(w[2] for w in whole)} keypoints moved")
+    check_yolo_pose_pnp()
+    row = time_yolo_pose(net, proto, coeff, card)
+    print(f"yolo_pose phase {time.perf_counter() - t0:.1f} s")
+    del net, pred
+    torch.cuda.empty_cache()
+    return (launches, entries, variants), max(b_err, worst[0]), row
+
+
+def time_yolo_pose(net, proto, coeff, card):
+    """Kernel B at the belief call against its plain version (the kernels
+    line's row), the request at batch 16 with and without PnP (kernels
+    and plain), its device busy time and idle share, and its stages one
+    by one."""
+    serve = BENCH_YOLO_POSE
+    cfg, knobs = serve.model, YOLO_POSE_DECODE
+    k_ms, p_ms = abba(lambda: assemble_mask_cuda(proto, coeff),
+                      lambda: assemble_mask_batch(proto, coeff), 50)
+    d_ms = queued_ms(lambda: assemble_mask_cuda(proto, coeff), 50)
+    n_out = coeff.shape[0] * coeff.shape[1] * proto.shape[2] * proto.shape[3]
+    # the P-term dot and the sigmoid (4) an output
+    b_ms, by = bound(nbytes(proto, coeff) + 4 * n_out, (2 * proto.shape[1] + 4) * n_out,
+                     PEAK["f32"])
+    timed = (f"proto {list(proto.shape)} K={coeff.shape[1]} (10 detections x 9 keypoints) "
+             f"no crop, the yolo_pose decode's call")
+    print(f"time mask_assembly_belief {timed}: kernel {k_ms:.4f} ms ({d_ms:.4f} ms on the "
+          f"device), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), library none ({card})")
+    row = {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": None, "timed": timed}
+
+    frames = request_frames(14, (YP_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    for pnp in (True, False):
+        pipe, plain = yolo_pose_pipelines(net, pnp=pnp)
+        k_ms, p_ms = abba(lambda: pipe(frames), lambda: plain(frames), YP_ITERS)
+        busy_ms, n_kernels = device_busy(lambda: pipe(frames))
+        idle = "not measured" if busy_ms is None else f"{1 - busy_ms / k_ms:.1%}"
+        what = "with PnP" if pnp else "without PnP"
+        print(f"time pipeline yolo_pose {what} batch {YP_BATCH} (upload + resize + bf16 "
+              f"YOLO-Pose + decode + belief peaks{' + PnP' if pnp else ''}): kernels "
+              f"{k_ms:.3f} ms = {YP_BATCH * 1000 / k_ms:.2f} frames/s, plain {p_ms:.3f} ms = "
+              f"{YP_BATCH * 1000 / p_ms:.2f} frames/s; the kernels' request: {n_kernels} device "
+              f"kernels and copies, busy {busy_ms} ms, the device idle {idle} of the request "
+              f"({card})")
+    pose_args = (cfg, torch.tensor(serve.object_points, device="cuda"),
+                 torch.tensor(serve.camera_matrix, device="cuda"), knobs.keypoint_score_threshold)
+    with torch.inference_mode():
+        on_card = frames.to("cuda")
+        img = yolo_pose_image(on_card)
+        pred = net(img)
+        dets = decode_yolo_pose(pred, cfg, knobs.top_k, knobs.iou_threshold,
+                                knobs.confidence_threshold)
+        stages = {
+            "upload": lambda: frames.to("cuda", non_blocking=True),
+            "resize + normalise (bf16)": lambda: yolo_pose_image(on_card),
+            "forward": lambda: net(img),
+            "NMS + belief peaks (kernel B)": lambda: decode_yolo_pose(
+                pred, cfg, knobs.top_k, knobs.iou_threshold, knobs.confidence_threshold),
+            "PnP": lambda: attach_pnp(dets, *pose_args),
+        }
+        for fn in stages.values():
+            fn()
+        stage_ms = {name: time_ms(fn, YP_ITERS) for name, fn in stages.items()}
+        busy = {name: device_busy(fn) for name, fn in stages.items()}
+    print(f"time stages yolo_pose batch {YP_BATCH} (ms back to back; device kernels and copies "
+          f"a call, ms busy): " + ", ".join(f"{name} {ms:.3f} ({busy[name][1]}, "
+                                            f"{busy[name][0]})"
+                                            for name, ms in stage_ms.items()) + f" ({card})")
+    return row
+
+
 # The north_star CenterNet's early trunk at batch 32, each conv alone in
 # cuDNN: (name, C_in, C_out, kernel, stride, input H, W, dtype).
 EARLY_CONVS = (
@@ -3682,6 +4030,8 @@ def main(argv=None) -> int:
     served["train"] = train_phase(errs, card)
     served["train_cli"] = train_cli_phase(card)
     served["train_yolact"] = train_yolact_phase(card)
+    served["yolo_pose"], errs["mask_assembly_belief"], times["mask_assembly_belief"] = (
+        yolo_pose_phase(card))
 
     def launches(path, row):
         kernel, entry = ROWS[row]

@@ -14,7 +14,9 @@ protonet upsamples of ``bench.py --int8-transpose pallas`` (kernel D).
 configuration that ``bench.py --keypoints`` serves (keypoint heatmaps,
 affinity and depth heads, the matcher and PnP), as a bf16 net or as an
 int8 chain.  ``CHAIN_INT8`` and ``DCN_CHAIN_INT8`` are the int8-chain
-pairs of ``bench.py --chain-int8`` and ``--deform``.
+pairs of ``bench.py --chain-int8`` and ``--deform``.  ``BENCH_YOLO_POSE``
+is the YOLO-Pose net, object points and camera of ``bench.py
+--yolo-pose``, served in bf16.
 """
 
 from __future__ import annotations
@@ -39,9 +41,11 @@ from tauv_vision_tpu_torch.configs.yolact import (
     YolactModelConfig,
     YolactTrainConfig,
 )
+from tauv_vision_tpu_torch.configs.yolo_pose import YoloPoseModelConfig
 
 __all__ = [
     "AngleConfig",
+    "BENCH_YOLO_POSE",
     "CHAIN_INT8",
     "CenternetModelConfig",
     "CenternetTrainConfig",
@@ -56,8 +60,10 @@ __all__ = [
     "ObjectConfigSet",
     "ServedCenternetRecipe",
     "ServedRecipe",
+    "ServedYoloPose",
     "YolactModelConfig",
     "YolactTrainConfig",
+    "YoloPoseModelConfig",
     "centernet_config",
     "get_head_channels",
     "keypoints_config",
@@ -244,3 +250,48 @@ CHAIN_INT8 = ServedRecipe(
 # 3-cell window as the JAX graph's Pallas kernel.
 DCN_CHAIN_INT8 = replace(CHAIN_INT8, centernet=replace(CHAIN_INT8.centernet, deform=True,
                                                        dcn_max_offset=3.0))
+
+
+@dataclass(frozen=True)
+class ServedYoloPose:
+    """A served YOLO-Pose: the net's configuration, the type its convs
+    compute in (``YoloPose(dtype=)``) and its normalised input is rounded
+    to, and the object's model points ([Kp, 3], metres) and the camera
+    ([3, 3] intrinsics) that PnP recovers its pose with."""
+
+    model: YoloPoseModelConfig
+    dtype: torch.dtype
+    input_dtype: torch.dtype
+    object_points: Tuple[Tuple[float, float, float], ...]
+    camera_matrix: Tuple[Tuple[float, float, float], ...]
+
+
+# ``bench.py --yolo-pose``'s bf16 rung (``build_yolo_pose``,
+# ``bench.py:443-493``): the reference training recipe's YOLO-Pose
+# (``yolo_pose/scripts/train.py:54-120``) at 480x960, ResNet-18, a 64-wide
+# FPN, 21 classes, 16 mask prototypes, two Pointnet stages (7, 5, 64), 9
+# keypoints on 16 belief prototypes, 18 affinities on 16, anchors 24-384
+# at aspect ratio 1; ``YoloPose(dtype=bf16)`` fed the bf16 image of
+# ``make_yolo_pose_pipeline``'s default, and PnP on 9 model points seen by
+# a 700 px camera centred on the input.
+BENCH_YOLO_POSE = ServedYoloPose(
+    model=YoloPoseModelConfig(
+        in_w=960, in_h=480, feature_depth=64, n_classes=21,
+        n_prototype_masks=16,
+        n_masknet_layers_pre_upsample=1, n_masknet_layers_post_upsample=1,
+        pointnet_layers=((7, 5, 64), (7, 5, 64)),
+        pointnet_feature_depth=64,
+        prototype_belief_depth=16, prototype_affinity_depth=16,
+        belief_depth=9, affinity_depth=18,
+        n_prediction_head_layers=1, n_fpn_downsample_layers=2,
+        belief_sigma=2.0, affinity_radius=6.0,
+        anchor_scales=(24, 48, 96, 192, 384), anchor_aspect_ratios=(1.0,),
+        box_variances=(0.1, 0.2), iou_pos_threshold=0.5,
+        iou_neg_threshold=0.4, negative_example_ratio=3,
+    ),
+    dtype=torch.bfloat16,
+    input_dtype=torch.bfloat16,
+    object_points=tuple((0.1 * (i % 3) - 0.1, 0.1 * (i // 3) - 0.1, 0.05 * (i % 2))
+                        for i in range(9)),
+    camera_matrix=((700.0, 0.0, 480.0), (0.0, 700.0, 240.0), (0.0, 0.0, 1.0)),
+)

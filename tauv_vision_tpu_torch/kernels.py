@@ -14,7 +14,7 @@ served path went through the kernels (``chip_smoke.py``);
 ``ENTRY_LAUNCHES`` counts the same launches by C entry point, which tells
 a kernel's variants apart (kernels C's and E's f32 and bf16), and
 ``VARIANT_LAUNCHES`` by (counter, variant) where a wrapper names one
-(kernel A its K).
+(kernel A its K, kernel B whether it crops).
 """
 
 from __future__ import annotations

@@ -50,7 +50,8 @@ def assemble_mask_cuda(
     kernel or raises.  All inputs f32; ``box=None`` skips the crop.  The
     prototypes are [B, P, H, W] NCHW-contiguous, or the NHWC view
     ``x.permute(0, 3, 1, 2)`` of a contiguous [B, H, W, P] ``x``, which
-    the kernel reads in place."""
+    the kernel reads in place.  A launch also counts under the variant
+    "crop" or "no crop" (``kernels.VARIANT_LAUNCHES``)."""
     b, p, h, w = mask_prototype.shape
     k = mask_coeff.shape[1]
     if tuple(mask_coeff.shape) != (b, k, p):
@@ -77,5 +78,6 @@ def assemble_mask_cuda(
         mask_prototype.data_ptr(), mask_coeff.data_ptr(),
         None if box is None else box.data_ptr(), out.data_ptr(),
         b, p, k, h, w, int(nhwc),
+        variant="no crop" if box is None else "crop",
     )
     return out

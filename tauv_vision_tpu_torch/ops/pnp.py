@@ -4,7 +4,8 @@ tensor ops, so pose recovery stays on the device inside the request.
 
 Masked points weigh 0, so the ragged ">= 6 keypoints" gate of the
 reference becomes a fixed-shape computation: PnP runs for every
-detection slot and ``n_points >= MIN_POINTS`` validates the result.
+detection slot and ``n_points >= min_points`` (``MIN_POINTS`` unless the
+caller passes another, as YOLO-Pose's 4) validates the result.
 
 The solver works on a batch of problems directly (``solve_pnp`` is a
 batch of one), and the residual's Jacobian is written out by hand
@@ -139,6 +140,7 @@ def solve_pnp_batch(
     camera_matrix: torch.Tensor,
     mask: torch.Tensor,
     n_iterations: int = PNP_ITERATIONS,
+    min_points: int = MIN_POINTS,
 ) -> PnPResult:
     """LM-refined PnP for a batch of point sets.
 
@@ -147,6 +149,7 @@ def solve_pnp_batch(
       image_points: [N, P, 2] (u, v) pixel observations.
       camera_matrix: [3, 3] (or [3, 4]) intrinsics.
       mask: [N, P] bool validity of each correspondence.
+      min_points: the correspondences a valid pose needs.
     """
     fx, fy = camera_matrix[0, 0], camera_matrix[1, 1]
     cx, cy = camera_matrix[0, 2], camera_matrix[1, 2]
@@ -201,7 +204,7 @@ def solve_pnp_batch(
     rotation = so3_exp(params[:, :3])
     translation = params[:, 3:]
     error = (residual(_camera_points(params, object_points)) ** 2).sum(-1) / n_safe[:, 0]
-    valid = (n_points >= MIN_POINTS) & torch.isfinite(error)
+    valid = (n_points >= min_points) & torch.isfinite(error)
     return PnPResult(rotation=rotation, translation=translation, error=error, valid=valid)
 
 

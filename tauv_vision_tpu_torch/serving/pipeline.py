@@ -5,11 +5,13 @@ Each ``make_*_pipeline`` returns ``fn(img_uint8 [B, H, W, 3])`` that
 uploads the frames to ``device`` (the card unless the caller passes
 "cpu"), preprocesses, runs the net and decodes, under
 ``torch.inference_mode``.  The decode knobs live in
-``SERVING_DECODE`` and nowhere else.  ``dtype`` is the normalised
+``SERVING_DECODE`` (the CenterNet's and the YOLACT's) and
+``YOLO_POSE_DECODE`` and nowhere else.  ``dtype`` is the normalised
 image's type: the JAX functions' parameter, whose default there is bf16;
 the port's default is f32, and a served recipe passes its own
 (``configs.NORTH_STAR.input_dtype``, ``configs.KEYPOINTS.input_dtype``,
-and the int8 chains' bf16 through ``serving/quantize_chain.py``).
+and the int8 chains' bf16 through ``serving/quantize_chain.py``), but for
+``make_yolo_pose_pipeline``, whose default is the JAX function's bf16.
 
 ``depth_window_z``, ``mask_mean_z`` and ``back_project`` turn decoded
 detections and a depth image into camera-frame 3D points, for the node
@@ -26,10 +28,12 @@ import torch
 
 from tauv_vision_tpu_torch.configs.centernet import CenternetModelConfig, ObjectConfigSet
 from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig
+from tauv_vision_tpu_torch.configs.yolo_pose import YoloPoseModelConfig
 from tauv_vision_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from tauv_vision_tpu_torch.ops.image import normalize_image, preprocess, resize_frames
 from tauv_vision_tpu_torch.serving.centernet_decode import decode, decode_keypoints
 from tauv_vision_tpu_torch.serving.yolact_decode import decode_yolact
+from tauv_vision_tpu_torch.serving.yolo_pose_decode import attach_pnp, decode_yolo_pose
 
 # ImageNet statistics, the constants both reference nodes normalise with.
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -50,6 +54,20 @@ class DecodeKnobs:
 
 
 SERVING_DECODE = DecodeKnobs()
+
+
+@dataclass(frozen=True)
+class YoloPoseKnobs:
+    """Decode settings of the served YOLO-Pose (``bench.py:485-490``, the
+    JAX ``make_yolo_pose_pipeline``'s defaults)."""
+
+    top_k: int = 10                 # Fast-NMS candidates
+    iou_threshold: float = 0.5      # Fast-NMS overlap
+    confidence_threshold: float = 0.5  # class confidence
+    keypoint_score_threshold: float = 0.3  # a belief peak PnP uses
+
+
+YOLO_POSE_DECODE = YoloPoseKnobs()
 
 
 def _upload(img_uint8, device) -> torch.Tensor:
@@ -120,6 +138,40 @@ def make_yolact_pipeline(model, model_config: YolactModelConfig,
             return decode_yolact(model(img), model_config, knobs.top_k,
                                  knobs.iou_threshold,
                                  knobs.confidence_threshold, impl=impl)
+
+    return pipeline
+
+
+def make_yolo_pose_pipeline(model, model_config: YoloPoseModelConfig,
+                            object_points=None, camera_matrix=None,
+                            device=DEFAULT_DEVICE,
+                            knobs: YoloPoseKnobs = YOLO_POSE_DECODE,
+                            impl: str = "kernel", dtype=torch.bfloat16):
+    """``fn(img_uint8) -> YoloPoseDetections``: belief-peak keypoints, and
+    each detection's pose when ``object_points`` ([Kp, 3]) and
+    ``camera_matrix`` ([3, 3]) are given (uploaded once, here): PnP runs
+    over the decoded keypoints (``attach_pnp``), the math of the JAX
+    function's fused branch.  ``model(img)`` takes the normalised NCHW
+    image."""
+    device = resolve_device(device)
+    out_hw = (model_config.in_h, model_config.in_w)
+    want_pnp = object_points is not None and camera_matrix is not None
+    if want_pnp:
+        object_points, camera_matrix = (
+            torch.as_tensor(np.asarray(a, np.float32), device=device)
+            for a in (object_points, camera_matrix))
+
+    def pipeline(img_uint8):
+        with torch.inference_mode():
+            img = preprocess(_upload(img_uint8, device), out_hw,
+                             IMAGENET_MEAN, IMAGENET_STDDEV, dtype)
+            dets = decode_yolo_pose(model(img), model_config, knobs.top_k,
+                                    knobs.iou_threshold, knobs.confidence_threshold,
+                                    impl=impl)
+            if want_pnp:
+                dets = attach_pnp(dets, model_config, object_points, camera_matrix,
+                                  knobs.keypoint_score_threshold)
+            return dets
 
     return pipeline
 

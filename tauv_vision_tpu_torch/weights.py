@@ -245,3 +245,58 @@ def yolact_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
                                 if p[0] == "protonet" and p[1].startswith("upsample")
                                 else _HWIO_TO_OIHW),
     )
+
+
+# The YOLO-Pose trunk, FPN and protonet are the YOLACT's under the JAX
+# package's own module names.
+_YOLACT_PREFIXES = {"backbone": "_backbone", "fpn": "_feature_pyramid", "protonet": "_masknet"}
+_YOLACT_PREFIX_OF = {v: k for k, v in _YOLACT_PREFIXES.items()}
+
+
+def _yolo_pose_name(path: Path) -> str:
+    top, rest = path[0], path[1:]
+    if top in _YOLACT_PREFIXES:
+        prefix, _, name = _yolact_name(path).partition(".")
+        return f"{_YOLACT_PREFIX_OF[prefix]}.{name}"
+    if top == "pointnet":
+        branch, i = rest[0].rsplit("_", 1)
+        conv = re.fullmatch(r"conv_(\d+)", rest[1])
+        layer = f"convs.{conv[1]}" if conv else rest[1]
+        return f"pointnet.{branch}.{i}.{layer}"
+    if top == "prediction_head":
+        shared = re.fullmatch(r"shared_(\d+)", rest[0])
+        if shared:
+            return ".".join(("prediction_head.shared", shared[1]) + rest[1:])
+        return f"prediction_head.{rest[0]}"
+    raise ValueError(f"unrecognised YOLO-Pose module {'/'.join(path)}")
+
+
+def yolo_pose_flax_path(name: str) -> str:
+    """The JAX package's module path (``pointnet/belief_0/conv_1``,
+    ``prediction_head/shared_0/bottleneck/conv1``, ``backbone/layer1_0/conv1``)
+    of a port ``YoloPose`` module name (``pointnet.belief.0.convs.1``,
+    ``prediction_head.shared.0.bottleneck.conv1``,
+    ``backbone.layer1.0.conv1``): the inverse of the naming used by
+    ``yolo_pose_state_dict_from_flax``."""
+    top, _, rest = name.partition(".")
+    if top in _YOLACT_PREFIXES:
+        return yolact_flax_path(f"{_YOLACT_PREFIXES[top]}.{rest}")
+    parts = rest.split(".")
+    if top == "pointnet":
+        layer = f"conv_{parts[3]}" if parts[2] == "convs" else parts[2]
+        return f"pointnet/{parts[0]}_{parts[1]}/{layer}"
+    if top == "prediction_head":
+        if parts[0] == "shared":
+            return "/".join([f"prediction_head/shared_{parts[1]}"] + parts[2:])
+        return f"prediction_head/{parts[0]}"
+    raise ValueError(f"unrecognised YOLO-Pose module {name}")
+
+
+def yolo_pose_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """``YoloPose`` weights -> the port's ``YoloPose`` state dict."""
+    return _convert(
+        variables, _yolo_pose_name,
+        transpose_of=lambda p: (_HWIO_TO_TRANSPOSED
+                                if p[0] == "protonet" and p[1].startswith("upsample")
+                                else _HWIO_TO_OIHW),
+    )

@@ -193,6 +193,24 @@ def test_torch_assemble_mask_kernel_on_card(cuda, crop, p, w, layout):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("b", [16, 1])
+def test_torch_assemble_belief_kernel_on_card(cuda, b, layout):
+    """The YOLO-Pose decode's call: 10 detections x 9 keypoints against 16
+    belief prototypes at 30x60, no crop."""
+    k, p, h, w = 90, 16, 30, 60
+    proto = _normal((b, h, w, p), 4).to(cuda).permute(0, 3, 1, 2)   # the NHWC view
+    if layout == "nchw":
+        proto = proto.contiguous()
+    coeff = torch.tanh(_normal((b, k, p), 5)).to(cuda)
+    before = kernels.VARIANT_LAUNCHES.get(("mask_assembly", "no crop"), 0)
+    got = assemble_mask_cuda(proto, coeff)
+    want = assemble_mask_batch(proto, coeff)
+    torch.cuda.synchronize()
+    assert kernels.VARIANT_LAUNCHES[("mask_assembly", "no crop")] == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
 # Served shapes (f = 2 and 4 at batch 2) and f = 8, ragged row ends (Wo =
 # 14, 20 and 26: not a multiple of an 8-output run), rows wider than one
 # 256-column band (Wo = 300), and f = 1.
