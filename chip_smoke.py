@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Ten served paths: five pair a CenterNet with a YOLACT through
+Twelve served paths: five pair a CenterNet with a YOLACT through
 ``make_combined_pipeline``, two serve the CenterNet and the YOLACT as
 int8 chains in two requests, as ``bench.py`` times them, two serve
-the CenterNet node's full configuration alone, and one serves YOLO-Pose:
+the CenterNet node's full configuration alone, and three serve YOLO-Pose:
 
 - ``plain_ida``: the CenterpointDLA34 with plain-conv IDA (the IDA that
   ``bench.py`` serves with no flags), all f32, beside the f32 YOLACT;
@@ -50,7 +50,14 @@ the CenterNet node's full configuration alone, and one serves YOLO-Pose:
 - ``yolo_pose``: ``bench.py --yolo-pose``'s bf16 rung
   (``configs.BENCH_YOLO_POSE``): the bf16 YOLO-Pose at 480x960 through
   ``make_yolo_pose_pipeline`` at batch 16: Fast-NMS, the belief maps
-  through kernel B without the crop, their peaks and PnP on the card.
+  through kernel B without the crop, their peaks and PnP on the card;
+- ``yolo_pose_int8``: ``bench.py --yolo-pose``'s ``value``, the same net
+  and decode over the int8 chain (``make_yolo_pose_chain_pipeline``:
+  per-tensor scales of the bf16 net on 2 frames, every conv with 16 input
+  channels or more int8, heads included, f32 joins, the protonet's
+  transposed convs in bf16, ``configs.BENCH_YOLO_POSE.chain``);
+- ``yolo_pose_per_layer_int8``: its ``--per-layer-int8`` rung, the bf16
+  net with each calibrated conv computed in int8 (``quantized_call``).
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -187,7 +194,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
    of the same keypoints (1e-3); then kernel B's row at that call, the
    request's frames/s at batch 16 with and without PnP (kernels and
    plain), its device kernels, busy time and idle share, and its stages
-   (upload, preprocess, forward, NMS + belief peaks, PnP).
+   (upload, preprocess, forward, NMS + belief peaks, PnP);
+10. yolo_pose_int8: ``bench.py --yolo-pose``'s two int8 rungs on the
+   same net: ``calibrate`` on 2 frames (64 convs, printed as the bench's
+   ``quantized_convs``); the integer core (im2col + ``torch._int_mm``)
+   int32-equal to the float64 conv at every distinct integer conv of the
+   chain at batch 16 and 1 (the Pointnet's 7x7 convs at C = 64 and 96,
+   the heads' 22 and 4 outputs padded to 24 and 8, batch 1's 32-row
+   level) and at the 7x7 shapes on random and saturated codes; each rung
+   answers 2 requests of 16 frames and one of 1, kernel B (no crop)
+   launched once a request and nothing else; kernel against plain at
+   confidence 0 on each request's one forward and the whole pipelines,
+   slot for slot as in phase 9; each rung's decode against the bf16
+   rung's, printed, not gated (random weights); then both rungs' and the
+   bf16 rung's requests at batch 16 with and without PnP (frames/s,
+   kernels and copies a request, idle share), each rung's stages and its
+   forward's device split from ``torch.profiler`` (im2col, ``_int_mm``,
+   cuDNN, the rest).
 
 Prints one JSON line describing the kernels, with each kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -258,7 +281,7 @@ from tauv_vision_tpu_torch.ops.conv_transpose import (
 from tauv_vision_tpu_torch.ops import conv_transpose, deform_conv
 from tauv_vision_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_cuda
 from tauv_vision_tpu_torch.ops.image import normalize_image, preprocess, resize_frames
-from tauv_vision_tpu_torch.ops.int8_conv import conv2d_int8_f64
+from tauv_vision_tpu_torch.ops.int8_conv import conv2d_int8_f64, conv2d_int8_im2col
 from tauv_vision_tpu_torch.ops.masks import assemble_mask_batch, assemble_mask_cuda
 from tauv_vision_tpu_torch.ops.peaks import peak_decode, peak_decode_cuda
 from tauv_vision_tpu_torch.ops.pnp import solve_pnp_batch
@@ -296,14 +319,17 @@ from tauv_vision_tpu_torch.serving.pipeline import (
     make_yolact_pipeline,
     make_yolo_pose_pipeline,
 )
-from tauv_vision_tpu_torch.serving.quantize import calibrate, strip_scales
+from tauv_vision_tpu_torch.serving import quantize
+from tauv_vision_tpu_torch.serving.quantize import calibrate, quantized_call, strip_scales
 from tauv_vision_tpu_torch.serving.quantize_chain import (
     ChainCtx,
     dla34_chain_forward,
     make_centernet_chain_pipeline,
     make_centernet_keypoint_chain_pipeline,
     make_yolact_chain_pipeline,
+    make_yolo_pose_chain_pipeline,
     yolact_chain_forward,
+    yolo_pose_chain_forward,
 )
 from tauv_vision_tpu_torch.serving.yolact_decode import decode_yolact
 from tauv_vision_tpu_torch.serving.yolo_pose_decode import (
@@ -324,7 +350,11 @@ from tauv_vision_tpu_torch.train.steps import (
 )
 from tauv_vision_tpu_torch.train.trainer import Trainer, TrainerConfig
 from tauv_vision_tpu_torch.train.yolact_task import match_anchors, yolact_loss
-from tauv_vision_tpu_torch.weights import centerpoint_calibration_paths, centerpoint_flax_path
+from tauv_vision_tpu_torch.weights import (
+    centerpoint_calibration_paths,
+    centerpoint_flax_path,
+    yolo_pose_flax_path,
+)
 
 FRAME_H, FRAME_W = 480, 640
 CHECK_BATCH = 8
@@ -443,8 +473,10 @@ CHAIN_PAIRS = {"chain_int8": (CHAIN_INT8, "plain_ida"), "dcn_chain_int8": (DCN_C
 KP_INT8 = "keypoints_int8"
 # The paths whose launches the kernels line reports: the served paths and
 # the trainer's run.
+YP_INT8, YP_PER_LAYER = "yolo_pose_int8", "yolo_pose_per_layer_int8"
 ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8, "train", "train_cli",
-                                                             "train_yolact", "yolo_pose")
+                                                             "train_yolact", "yolo_pose",
+                                                             YP_INT8, YP_PER_LAYER)
 PAIR_ITERS = 5        # timed repetitions of a pair path's request at batch 32
 CHAIN_ITERS = 5       # of each of a chain pair's two requests
 # The paths beside an int8-chain YOLACT, and its recipe on each.
@@ -801,7 +833,7 @@ def chain_calls(ctx, forward, img):
             record["maps"][path] = y
         if y.dtype == torch.int8:
             record["codes"][path] = y
-        if path in UPSAMPLES:
+        if path in UPSAMPLES and path in ctx.scales:   # kernel D's calls
             qk, deq, bias, out_scale, taps = ctx.transpose_args(path, D_NEXT[path])
             record["transpose"].append((inp, qk, deq, bias, out_scale, "leaky", torch.int8, taps))
         return y
@@ -2405,7 +2437,8 @@ def chain_split(forward, img, reps: int = 3):
         with record_function("chain.int8_conv"):
             return conv(*args)
 
-    quantize_chain.conv2d_int8 = annotated
+    # The chain's integer convs, and quantized_call's (the per-layer path).
+    quantize_chain.conv2d_int8 = quantize.conv2d_int8 = annotated
     try:
         forward(img)
         torch.cuda.synchronize()
@@ -2414,7 +2447,7 @@ def chain_split(forward, img, reps: int = 3):
                 forward(img)
             torch.cuda.synchronize()
     finally:
-        quantize_chain.conv2d_int8 = conv
+        quantize_chain.conv2d_int8 = quantize.conv2d_int8 = conv
     rows = prof.key_averages()
     # The annotated range also appears on the device's timeline: not a kernel.
     kernel_rows = [e for e in rows
@@ -3666,7 +3699,7 @@ def yolo_pose_near_ties(belief):
     return (top[..., 0] - top[..., 1]) <= YP_TIE
 
 
-def compare_yolo_pose_decodes(got, ref):
+def compare_yolo_pose_decodes(got, ref, tag="yolo_pose"):
     """Kernel against plain decode of the same forward, slot for slot:
     detections equal, belief maps within MASK_ATOL, keypoints equal but on
     the plain maps' near-ties, and a slot whose keypoints all agree posed
@@ -3674,19 +3707,19 @@ def compare_yolo_pose_decodes(got, ref):
     worst pose err)."""
     for name in ("valid", "label", "box", "score"):
         require(torch.equal(getattr(got, name), getattr(ref, name)),
-                f"yolo_pose kernel vs plain: {name} differs")
+                f"{tag} kernel vs plain: {name} differs")
     err = (got.belief - ref.belief).abs().max().item()
-    require(err <= MASK_ATOL, f"yolo_pose kernel vs plain: belief maps err {err}")
+    require(err <= MASK_ATOL, f"{tag} kernel vs plain: belief maps err {err}")
     tie = yolo_pose_near_ties(ref.belief)
     moved = (got.keypoint_y != ref.keypoint_y) | (got.keypoint_x != ref.keypoint_x)
     require(not bool((moved & ~tie).any()),
-            f"yolo_pose kernel vs plain: {int((moved & ~tie).sum())} keypoints moved off a tie")
+            f"{tag} kernel vs plain: {int((moved & ~tie).sum())} keypoints moved off a tie")
     same = ~moved.any(-1)
     require(torch.equal(got.pose_valid[same], ref.pose_valid[same]),
-            "yolo_pose kernel vs plain: pose_valid differs on equal keypoints")
+            f"{tag} kernel vs plain: pose_valid differs on equal keypoints")
     pose_err = max((getattr(got, n)[same] - getattr(ref, n)[same]).abs().max().item()
                    for n in ("pose_rotation", "pose_translation")) if bool(same.any()) else 0.0
-    require(pose_err <= POSE_ATOL, f"yolo_pose kernel vs plain: pose err {pose_err}")
+    require(pose_err <= POSE_ATOL, f"{tag} kernel vs plain: pose err {pose_err}")
     return err, int(tie.sum()), int(moved.sum()), pose_err
 
 
@@ -3904,6 +3937,271 @@ def time_yolo_pose(net, proto, coeff, card):
     return row
 
 
+# ---- phase 10 -----------------------------------------------------------
+
+YP_INT8_ITERS = 5         # timed requests of each kind
+YP_RUNGS = (YP_INT8, YP_PER_LAYER)
+# The Pointnet's 7x7 convs at the bench's call (30x60 maps, 64 out): the
+# stage-0 convs read 64 channels, stage 1's first (belief, affinity, FPN
+# level 1) = 96; at batch 16 and 1.
+POINTNET_7X7 = ((16, 64), (16, 96), (1, 64), (1, 96))
+
+
+def yolo_pose_int8_forwards(net, scales):
+    """{rung: fn(img) -> YoloPosePrediction}: the chain forward and the
+    per-layer net (``quantized_call``), at the recipe's dtypes."""
+    recipe = BENCH_YOLO_POSE.chain
+    ctx = ChainCtx(net, scales, dtype=recipe.dtype, join_dtype=recipe.join_dtype,
+                   path_of=yolo_pose_flax_path)
+    return {YP_INT8: yolo_pose_chain_forward(ctx),
+            YP_PER_LAYER: quantized_call(net, scales, paths_of=yolo_pose_flax_path)}, ctx
+
+
+def yolo_pose_int8_pipelines(net, scales, knobs=YOLO_POSE_DECODE, pnp=True):
+    """{rung: (the served pipeline on kernel B, on its plain version)}."""
+    serve, device = BENCH_YOLO_POSE, torch.device("cuda")
+    points = (serve.object_points, serve.camera_matrix) if pnp else (None, None)
+    per_layer = quantized_call(net, scales, paths_of=yolo_pose_flax_path)
+    return {
+        YP_INT8: tuple(make_yolo_pose_chain_pipeline(net, scales, *points, device, knobs,
+                                                     impl=impl) for impl in ("kernel", "plain")),
+        YP_PER_LAYER: tuple(make_yolo_pose_pipeline(per_layer, serve.model, *points, device,
+                                                    knobs, impl=impl, dtype=serve.input_dtype)
+                            for impl in ("kernel", "plain")),
+    }
+
+
+def check_yolo_pose_int8_convs(ctx, forward, images):
+    """The integer core at the YOLO-Pose chain's own calls (every distinct
+    integer conv of a forward of each image batch) and at the Pointnet's
+    7x7 convs on full-range random codes and on saturated ones (the
+    largest accumulator, 127^2 49 96): im2col + ``torch._int_mm`` against
+    the float64 conv, int32 for int32.  Returns the distinct shapes."""
+    shapes = {}
+    for img in images:
+        with torch.inference_mode():
+            record = chain_calls(ctx, forward, img)
+        for q, qk, stride, padding in record["int8_conv"]:
+            shapes.setdefault((tuple(q.shape), tuple(qk.shape), tuple(stride), padding),
+                              (q, qk, stride, padding))
+        del record
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    cases = dict(shapes)
+    for b, c in POINTNET_7X7:
+        q = torch.randint(-127, 128, (b, 30, 60, c), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        qk = torch.randint(-127, 128, (7, 7, c, 64), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        cases[("random", b, c)] = (q, qk, (1, 1), 3)
+    cases[("saturated", 1, 96)] = (torch.full((1, 30, 60, 96), 127, dtype=torch.int8,
+                                              device="cuda"),
+                                   torch.full((7, 7, 96, 64), 127, dtype=torch.int8,
+                                              device="cuda"), (1, 1), 3)
+    rows = set()
+    for key, (q, qk, stride, padding) in cases.items():
+        got = conv2d_int8_im2col(q, qk, stride, padding)
+        want = conv2d_int8_f64(q, qk, stride, padding)
+        torch.cuda.synchronize()
+        require(got.dtype == want.dtype == torch.int32 and torch.equal(got, want),
+                f"conv2d_int8 YOLO-Pose chain {key}: differs from float64")
+        rows.add(got.shape[0] * got.shape[1] * got.shape[2])
+    big = sorted({(k[0][0], k[0][3]) for k in shapes if k[1][:2] == (7, 7)})
+    narrow = sorted({k[1][3] for k in shapes if k[1][3] % 8})
+    small_rows = sorted(r for r in rows if r <= 64)
+    print(f"check conv2d_int8 yolo_pose_int8: the chain's {len(shapes)} distinct integer convs "
+          f"at batch {sorted({k[0][0] for k in shapes})} bit-equal to the float64 conv, int32 "
+          f"(7x7 Pointnet convs at (batch, C) {big}, K up to {max(49 * c for _, c in big)}; "
+          f"output widths {narrow} padded to 8; maps of <= 64 rows {small_rows}); and at the "
+          f"7x7 shapes on random and saturated codes ({len(cases) - len(shapes)} cases)")
+    require(big == sorted(POINTNET_7X7, key=lambda t: (t[0], t[1])) and narrow == [4, 22],
+            f"yolo_pose_int8: the chain's 7x7 convs {big}, narrow widths {narrow}")
+    return shapes
+
+
+def decode_distance(got, ref):
+    """(slots whose validity, label or box (beyond 1e-3) differ, keypoints
+    that differ, the largest score difference, the largest belief-map
+    difference) of two decodes of the same frames."""
+    box_far = (got.box - ref.box).abs().amax(-1) > 1e-3
+    slots = (got.valid != ref.valid) | (got.label != ref.label) | box_far
+    keypoints = (got.keypoint_y != ref.keypoint_y) | (got.keypoint_x != ref.keypoint_x)
+    return (int(slots.sum()), int(keypoints.sum()), (got.score - ref.score).abs().max().item(),
+            (got.belief - ref.belief).abs().max().item())
+
+
+def yolo_pose_int8_phase(card):
+    """Serve ``bench.py --yolo-pose``'s two int8 rungs (see the module
+    docstring); returns ({rung: the served run's launches by kernel, by
+    entry point, by variant}, kernel B's error on their decodes)."""
+    t0 = time.perf_counter()
+    serve = BENCH_YOLO_POSE
+    cfg, knobs, recipe = serve.model, YOLO_POSE_DECODE, serve.chain
+    net = yolo_pose_net()
+    cal = request_frames(15, (N_CALIBRATION, FRAME_H, FRAME_W, 3))
+    scales = strip_scales(calibrate(net, [yolo_pose_image(cal)], per_channel=recipe.per_channel,
+                                    paths_of=yolo_pose_flax_path), recipe.float_paths)
+    # ResNet 19, FPN 8, protonet 4, Pointnet 24, head 9: every conv with 16
+    # or more input channels but the stem's and the transposed convs'.
+    require(len(scales) == 64 and not any("upsample" in p for p in scales),
+            f"yolo_pose_int8: {len(scales)} calibrated convs")
+    print(f"int8 yolo_pose: quantized_convs {len(scales)} (per-tensor scales of the bf16 net on "
+          f"{N_CALIBRATION} frames, nothing stripped, f32 joins, bf16 transposes)")
+    requests = [request_frames(12, (YP_REQUESTS, YP_BATCH, FRAME_H, FRAME_W, 3))[i].pin_memory()
+                for i in range(YP_REQUESTS)]
+    frame = request_frames(13, (1, FRAME_H, FRAME_W, 3)).pin_memory()
+    forwards, ctx = yolo_pose_int8_forwards(net, scales)
+    check_yolo_pose_int8_convs(ctx, forwards[YP_INT8],
+                               [yolo_pose_image(requests[0]), yolo_pose_image(frame)])
+    sections = {"calibrate + integer core": time.perf_counter() - t0}
+
+    # The served requests of each rung, every launch counted.
+    served = {}
+    per_request = {**{name: 0 for name in KERNELS}, "mask_assembly": 1}
+    pipes = yolo_pose_int8_pipelines(net, scales)
+    for rung, (pipe, _) in pipes.items():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        answers = [pipe(r) for r in requests]
+        torch.cuda.synchronize()
+        served[rung] = (dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES),
+                        dict(kernels.VARIANT_LAUNCHES))
+        launches, _, variants = served[rung]
+        print(f"serve {rung}: {YP_REQUESTS} requests x {YP_BATCH} frames, launches {launches} "
+              f"(kernel B by variant: {variants})")
+        require(launches == {name: YP_REQUESTS * n for name, n in per_request.items()}
+                and variants == {("mask_assembly", "no crop"): YP_REQUESTS},
+                f"{rung}: launch counts {launches} {variants}")
+        for out in answers:
+            check_yolo_pose_outputs(out, YP_BATCH)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        one = pipe(frame)
+        torch.cuda.synchronize()
+        require(dict(kernels.LAUNCHES) == per_request
+                and kernels.VARIANT_LAUNCHES == {("mask_assembly", "no crop"): 1},
+                f"{rung} batch 1: launch counts {dict(kernels.LAUNCHES)}")
+        check_yolo_pose_outputs(one, 1)
+        print(f"serve {rung}: at the served thresholds "
+              f"{sum(int(a.valid.sum()) for a in answers)} detections valid, "
+              f"{sum(int(a.pose_valid.sum()) for a in answers)} poses valid (random weights); "
+              f"batch 1 launches {dict(kernels.LAUNCHES)}")
+
+    sections["serve"] = time.perf_counter() - t0 - sum(sections.values())
+    # Kernel against plain at confidence 0 on each request's one forward,
+    # then the two whole pipelines; each rung's decode against the bf16
+    # rung's on the same weights and frames, printed, not gated.
+    all_slots = dataclasses.replace(knobs, confidence_threshold=0.0)
+    pose_args = (cfg, torch.tensor(serve.object_points, device="cuda"),
+                 torch.tensor(serve.camera_matrix, device="cuda"), knobs.keypoint_score_threshold)
+    bf16_pipe, _ = yolo_pose_pipelines(net, all_slots)
+    b_err = 0.0
+    for rung, forward in forwards.items():
+        worst, n_slots = (0.0, 0, 0, 0.0), 0
+        for r in requests + [frame]:
+            with torch.inference_mode():
+                pred = forward(yolo_pose_image(r))
+                got, ref = (attach_pnp(decode_yolo_pose(pred, cfg, all_slots.top_k,
+                                                        all_slots.iou_threshold, 0.0,
+                                                        impl=impl), *pose_args)
+                            for impl in ("kernel", "plain"))
+            e, ties, moved, pose_e = compare_yolo_pose_decodes(got, ref, rung)
+            worst = (max(worst[0], e), worst[1] + ties, worst[2] + moved, max(worst[3], pose_e))
+            n_slots += got.valid.numel()
+        pipe0, plain0 = yolo_pose_int8_pipelines(net, scales, all_slots)[rung]
+        answers = [pipe0(r) for r in requests]
+        whole = [compare_yolo_pose_decodes(a, plain0(r), rung) for a, r in zip(answers, requests)]
+        b_err = max(b_err, worst[0], *(w[0] for w in whole))
+        print(f"serve {rung}: decoded kernel vs plain at confidence 0 on one forward each, "
+              f"{YP_REQUESTS} x {YP_BATCH} + 1 frames ({n_slots} slots): valid, labels, boxes "
+              f"and scores equal, belief maps max_abs_err {worst[0]:.3g} (atol {MASK_ATOL}), "
+              f"{worst[1]} of {n_slots * cfg.belief_depth} maps near-tied (top two within "
+              f"{YP_TIE:g}), {worst[2]} keypoints moved (each on a near-tie), poses of slots "
+              f"with equal keypoints max_abs_err {worst[3]:.3g} (atol {POSE_ATOL}); the whole "
+              f"pipelines: {sum(w[2] for w in whole)} keypoints moved")
+        far = [decode_distance(a, bf16_pipe(r)) for a, r in zip(answers, requests)]
+        print(f"report {rung} against the bf16 yolo_pose decode, same weights and frames, "
+              f"confidence 0 ({YP_REQUESTS} x {YP_BATCH} frames, "
+              f"{YP_REQUESTS * YP_BATCH * all_slots.top_k} slots, "
+              f"{YP_REQUESTS * YP_BATCH * all_slots.top_k * cfg.belief_depth} keypoints; random "
+              f"weights, not gated): slots differing {sum(f[0] for f in far)}, keypoints "
+              f"differing {sum(f[1] for f in far)}, max score diff "
+              f"{max(f[2] for f in far):.3g}, max belief-map diff {max(f[3] for f in far):.3g}")
+    sections["kernel vs plain, against bf16"] = time.perf_counter() - t0 - sum(sections.values())
+    time_yolo_pose_int8(net, scales, forwards, card)
+    sections["time"] = time.perf_counter() - t0 - sum(sections.values())
+    print(f"yolo_pose_int8 phase {time.perf_counter() - t0:.1f} s (" + ", ".join(
+        f"{name} {sec:.1f} s" for name, sec in sections.items()) + ")")
+    del net, forwards, ctx, pipes
+    torch.cuda.empty_cache()
+    return served, b_err
+
+
+def time_yolo_pose_int8(net, scales, forwards, card):
+    """Each int8 rung's request at batch 16, with and without PnP, beside
+    the bf16 rung's in the same run: frames/s, device kernels and copies
+    a request, busy time and idle share; its stages one by one; and each
+    int8 forward's device split from torch.profiler."""
+    serve = BENCH_YOLO_POSE
+    cfg, knobs = serve.model, YOLO_POSE_DECODE
+    frames = request_frames(14, (YP_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    for pnp in (True, False):
+        pipes = {"yolo_pose (bf16)": yolo_pose_pipelines(net, pnp=pnp)[0],
+                 **{rung: p[0] for rung, p in yolo_pose_int8_pipelines(
+                     net, scales, pnp=pnp).items()}}
+        for pipe in pipes.values():
+            pipe(frames)
+            pipe(frames)
+        ms = {name: time_ms(lambda: pipe(frames), YP_INT8_ITERS) for name, pipe in pipes.items()}
+        what = "with PnP" if pnp else "without PnP"
+        for name, pipe in pipes.items():
+            # one profiled request: a request with PnP is ~9,000 events
+            busy_ms, n_kernels = device_busy(lambda: pipe(frames), reps=1)
+            idle = "not measured" if busy_ms is None else f"{1 - busy_ms / ms[name]:.1%}"
+            print(f"time pipeline {name} {what} batch {YP_BATCH} (upload + resize + "
+                  f"forward + decode + belief peaks{' + PnP' if pnp else ''}): {ms[name]:.3f} "
+                  f"ms = {YP_BATCH * 1000 / ms[name]:.2f} frames/s; {n_kernels} device kernels "
+                  f"and copies a request, kernel B launched once, busy {busy_ms} ms, the device "
+                  f"idle {idle} of the request ({card})")
+    pose_args = (cfg, torch.tensor(serve.object_points, device="cuda"),
+                 torch.tensor(serve.camera_matrix, device="cuda"), knobs.keypoint_score_threshold)
+    with torch.inference_mode():
+        on_card = frames.to("cuda")
+        img = yolo_pose_image(on_card)
+        for rung, forward in forwards.items():
+            pred = forward(img)
+            dets = decode_yolo_pose(pred, cfg, knobs.top_k, knobs.iou_threshold,
+                                    knobs.confidence_threshold)
+            stages = {
+                "upload": lambda: frames.to("cuda", non_blocking=True),
+                "resize + normalise (bf16)": lambda: yolo_pose_image(on_card),
+                "forward": lambda: forward(img),
+                "NMS + belief peaks (kernel B)": lambda: decode_yolo_pose(
+                    pred, cfg, knobs.top_k, knobs.iou_threshold, knobs.confidence_threshold),
+                "PnP": lambda: attach_pnp(dets, *pose_args),
+            }
+            for fn in stages.values():
+                fn()
+            stage_ms = {name: time_ms(fn, YP_INT8_ITERS) for name, fn in stages.items()}
+            busy = {name: device_busy(fn, reps=1) for name, fn in stages.items()}
+            print(f"time stages {rung} batch {YP_BATCH} (ms back to back; device kernels and "
+                  f"copies a call, ms busy): " + ", ".join(
+                      f"{name} {ms:.3f} ({busy[name][1]}, {busy[name][0]})"
+                      for name, ms in stage_ms.items()) + f" ({card})")
+            split, _ = chain_split(forward, img)
+            if split is None:
+                print(f"time split {rung} forward: not measured (the profiler recorded no "
+                      f"device activity)")
+                continue
+            wall = stage_ms["forward"]
+            print(f"time split {rung} forward batch {YP_BATCH} (device ms from torch.profiler, 3 "
+                  f"forwards): {split}; im2col {split['im2col'] / split['busy']:.1%} of device "
+                  f"time, _int_mm {split['int_mm'] / split['busy']:.1%}, cuDNN "
+                  f"{split['cudnn_conv'] / split['busy']:.1%}, the rest (epilogues, quantize, "
+                  f"BatchNorms, joins, pools, casts) {split['other'] / split['busy']:.1%}; busy "
+                  f"{split['busy']:.3f} of {wall:.3f} ms back to back, the device idle "
+                  f"{1 - split['busy'] / wall:.1%} ({card})")
+
+
 # The north_star CenterNet's early trunk at batch 32, each conv alone in
 # cuDNN: (name, C_in, C_out, kernel, stride, input H, W, dtype).
 EARLY_CONVS = (
@@ -4032,6 +4330,9 @@ def main(argv=None) -> int:
     served["train_yolact"] = train_yolact_phase(card)
     served["yolo_pose"], errs["mask_assembly_belief"], times["mask_assembly_belief"] = (
         yolo_pose_phase(card))
+    int8_served, b_err = yolo_pose_int8_phase(card)
+    served.update(int8_served)
+    errs["mask_assembly_belief"] = max(errs["mask_assembly_belief"], b_err)
 
     def launches(path, row):
         kernel, entry = ROWS[row]

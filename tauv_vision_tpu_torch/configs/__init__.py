@@ -16,7 +16,8 @@ affinity and depth heads, the matcher and PnP), as a bf16 net or as an
 int8 chain.  ``CHAIN_INT8`` and ``DCN_CHAIN_INT8`` are the int8-chain
 pairs of ``bench.py --chain-int8`` and ``--deform``.  ``BENCH_YOLO_POSE``
 is the YOLO-Pose net, object points and camera of ``bench.py
---yolo-pose``, served in bf16.
+--yolo-pose``, served in bf16, with the recipe of its int8 rungs (the
+chain and ``--per-layer-int8``).
 """
 
 from __future__ import annotations
@@ -142,16 +143,17 @@ class CenternetRecipe:
 
 @dataclass(frozen=True)
 class YolactChainRecipe:
-    """The int8 YOLACT chain's recipe: per-channel ``calibrate`` scales
-    with ``float_paths`` stripped (they run in ``dtype``), residual joins
-    and feature taps rounded to ``join_dtype``, and the protonet's two
-    transposed convs int8 in and out (kernel D) when ``int8_transposes``
-    adds their scales."""
+    """An int8 chain's recipe (the YOLACT's, and the YOLO-Pose's, which
+    shares its trunk): per-channel or per-tensor ``calibrate`` scales with
+    ``float_paths`` stripped (they run in ``dtype``), residual joins and
+    feature taps rounded to ``join_dtype`` (None keeps f32), and the
+    protonet's two transposed convs int8 in and out (kernel D) when
+    ``int8_transposes`` adds their scales."""
 
     per_channel: bool
     float_paths: Tuple[str, ...]
     dtype: torch.dtype
-    join_dtype: torch.dtype
+    join_dtype: Optional[torch.dtype]
     int8_transposes: bool
 
 
@@ -256,14 +258,16 @@ DCN_CHAIN_INT8 = replace(CHAIN_INT8, centernet=replace(CHAIN_INT8.centernet, def
 class ServedYoloPose:
     """A served YOLO-Pose: the net's configuration, the type its convs
     compute in (``YoloPose(dtype=)``) and its normalised input is rounded
-    to, and the object's model points ([Kp, 3], metres) and the camera
-    ([3, 3] intrinsics) that PnP recovers its pose with."""
+    to, the object's model points ([Kp, 3], metres) and the camera ([3, 3]
+    intrinsics) that PnP recovers its pose with, and ``chain``, the recipe
+    of its int8 rungs."""
 
     model: YoloPoseModelConfig
     dtype: torch.dtype
     input_dtype: torch.dtype
     object_points: Tuple[Tuple[float, float, float], ...]
     camera_matrix: Tuple[Tuple[float, float, float], ...]
+    chain: YolactChainRecipe
 
 
 # ``bench.py --yolo-pose``'s bf16 rung (``build_yolo_pose``,
@@ -273,7 +277,14 @@ class ServedYoloPose:
 # keypoints on 16 belief prototypes, 18 affinities on 16, anchors 24-384
 # at aspect ratio 1; ``YoloPose(dtype=bf16)`` fed the bf16 image of
 # ``make_yolo_pose_pipeline``'s default, and PnP on 9 model points seen by
-# a 700 px camera centred on the input.
+# a 700 px camera centred on the input.  Its int8 rungs (``bench.py:258-287,
+# 371-382,1139-1170``) read the bf16 net with per-tensor scales that
+# ``calibrate`` takes from it on the bf16 images of the first 2 frames, no
+# path stripped (every conv with 16 input channels or more int8, heads
+# included): the chain (``make_yolo_pose_chain_pipeline``, the bench's
+# ``value``) with f32 joins, its float ops in bf16 on the bf16 image and
+# the protonet's transposed convs in bf16 (the JAX chain takes no int8
+# transpose), and ``--per-layer-int8`` (``quantized_call`` on the net).
 BENCH_YOLO_POSE = ServedYoloPose(
     model=YoloPoseModelConfig(
         in_w=960, in_h=480, feature_depth=64, n_classes=21,
@@ -294,4 +305,6 @@ BENCH_YOLO_POSE = ServedYoloPose(
     object_points=tuple((0.1 * (i % 3) - 0.1, 0.1 * (i // 3) - 0.1, 0.05 * (i % 2))
                         for i in range(9)),
     camera_matrix=((700.0, 0.0, 480.0), (0.0, 700.0, 240.0), (0.0, 0.0, 1.0)),
+    chain=YolactChainRecipe(per_channel=False, float_paths=(), dtype=torch.bfloat16,
+                            join_dtype=None, int8_transposes=False),
 )

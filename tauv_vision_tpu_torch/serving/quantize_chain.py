@@ -1,5 +1,5 @@
-"""The chain-fused int8 forwards of the YOLACT and the DLA-34 CenterNet
-(counterpart of ``tauv_vision_tpu/serving/quantize_chain.py``).
+"""The chain-fused int8 forwards of the YOLACT, the DLA-34 CenterNet and
+YOLO-Pose (counterpart of ``tauv_vision_tpu/serving/quantize_chain.py``).
 
 Activations stay int8 from conv to conv: each calibrated conv runs as an
 int8 x int8 -> int32 convolution (``ops/int8_conv.py``), and its epilogue
@@ -17,9 +17,10 @@ Activations are NHWC, as in the JAX chain, so that four int8 channels
 share one 32-bit word for the kernels and the tests compare without
 transposes; the float convs run ``F.conv2d`` on the NCHW views.
 
-The chain reads the port's ``Yolact`` or ``CenterpointDLA34`` module; its
-parameters and scales are found by the JAX module path
-(``weights.yolact_flax_path``, ``weights.centerpoint_flax_path``).  The
+The chain reads the port's ``Yolact``, ``CenterpointDLA34`` or ``YoloPose``
+module; its parameters and scales are found by the JAX module path
+(``weights.yolact_flax_path``, ``weights.centerpoint_flax_path``,
+``weights.yolo_pose_flax_path``).  The
 quantized weights, folded BatchNorm affines and float weights are
 computed at first use and kept, so the module's weights must not change
 while a context serves.
@@ -37,6 +38,15 @@ branch down and right by half the overshoot), where the JAX chain imports
 the symmetric ``models.dla.pad_to_match``; and a tree of depth 2 runs no
 projection of its own input, which the JAX chain computes and discards.
 
+The YOLO-Pose chain (``yolo_pose_chain_forward``) is the YOLACT's
+ResNet-18, FPN and protonet chains (the protonet's transposed convs in
+``dtype``: the JAX YOLO-Pose chain takes no int8 transpose), the Pointnet
+cascade on FPN level 1 with every conv -> leaky -> conv link of a stage
+int8, each stage's output f32 and a later stage's input the (belief,
+affinity, FPN level 1) concatenation in ``dtype``, and the shared head's
+five output convs, with f32 joins (``join_dtype=None``) as the JAX chain
+keeps them.
+
 Rounding: every epilogue op here is one PyTorch op that rounds once, as
 the JAX chain's ops do when run one by one, so that a layer's int8 codes
 equal the JAX ``run_layer``'s on the same int8 input.  Compiled, XLA
@@ -48,7 +58,8 @@ correctly rounded, so the BatchNorm folds take an f64 root.
 
 Not ported here: asymmetric ranges, ``wq_override``, gains and bias
 corrections, the capture and sequential-calibration hooks, ``f32_paths``,
-and the YOLO-Pose chain.
+and the YOLO-Pose pipeline's ``split_pnp`` (a dispatch split that fences
+a TPU runtime fault; the port runs PnP after the decode in any case).
 """
 
 from __future__ import annotations
@@ -60,7 +71,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tauv_vision_tpu_torch.configs import CHAIN_INT8, KEYPOINTS, NORTH_STAR
+from tauv_vision_tpu_torch.configs import BENCH_YOLO_POSE, CHAIN_INT8, KEYPOINTS, NORTH_STAR
 from tauv_vision_tpu_torch.configs.centernet import CenternetModelConfig, get_head_channels
 from tauv_vision_tpu_torch.device import DEFAULT_DEVICE
 from tauv_vision_tpu_torch.models.centernet import Prediction
@@ -76,6 +87,7 @@ from tauv_vision_tpu_torch.models.centerpoint_dla import (
     prediction_from_heads,
 )
 from tauv_vision_tpu_torch.models.yolact import Yolact, YolactPrediction
+from tauv_vision_tpu_torch.models.yolo_pose import HEAD_OUTPUTS, YoloPose, YoloPosePrediction
 from tauv_vision_tpu_torch.ops.conv_transpose import depthwise_upsample, depthwise_upsample_cuda
 from tauv_vision_tpu_torch.ops.image import resize_bilinear_nhwc
 from tauv_vision_tpu_torch.ops.int8_conv import conv2d_int8
@@ -87,12 +99,19 @@ from tauv_vision_tpu_torch.ops.transpose_conv import (
 from tauv_vision_tpu_torch.params import cast_parameter
 from tauv_vision_tpu_torch.serving.pipeline import (
     SERVING_DECODE,
+    YOLO_POSE_DECODE,
     DecodeKnobs,
+    YoloPoseKnobs,
     make_centernet_keypoint_pipeline,
     make_centernet_pipeline,
     make_yolact_pipeline,
+    make_yolo_pose_pipeline,
 )
-from tauv_vision_tpu_torch.weights import centerpoint_flax_path, yolact_flax_path
+from tauv_vision_tpu_torch.weights import (
+    centerpoint_flax_path,
+    yolact_flax_path,
+    yolo_pose_flax_path,
+)
 
 BN_EPS = 1e-5
 IMPLS = ("kernel", "plain")
@@ -126,6 +145,16 @@ def _wq(kernel: torch.Tensor, in_scale=None) -> Tuple[torch.Tensor, torch.Tensor
     scale = torch.clamp_min(absmax, 1e-6) / 127.0
     q = torch.clamp(torch.round(kernel / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def _int8_weights(kernel: torch.Tensor, act_scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(qk int8 HWIO, deq [O] f32) of a calibrated conv's HWIO kernel: with
+    a per-channel activation scale folded into the kernel, deq is the
+    weight scale; else activation scale x weight scale."""
+    if _is_per_channel(act_scale):
+        return _wq(kernel, in_scale=act_scale)
+    qk, w_scale = _wq(kernel)
+    return qk, torch.as_tensor(act_scale, dtype=torch.float32, device=kernel.device) * w_scale
 
 
 def _quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -169,7 +198,8 @@ CHAIN_MODULES = (nn.Conv2d, nn.ConvTranspose2d, nn.BatchNorm2d, DepthwiseUpsampl
 class ChainCtx:
     """A module's parameters plus calibration scales for a chain-fused
     forward: a ``Yolact`` (``path_of=weights.yolact_flax_path``, the
-    default) or a ``CenterpointDLA34`` (``weights.centerpoint_flax_path``).
+    default), a ``CenterpointDLA34`` (``weights.centerpoint_flax_path``) or
+    a ``YoloPose`` (``weights.yolo_pose_flax_path``).
 
     ``scales`` values are floats (per tensor) or per-input-channel
     vectors (``calibrate(per_channel=True)``).  A transposed conv with a
@@ -228,17 +258,10 @@ class ChainCtx:
         return (y.to(torch.float32) - mean) * mul + bias
 
     def int8_weights(self, path: str) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(qk int8 HWIO, deq [O] f32) of a calibrated conv: with a
-        per-channel scale folded into the kernel, deq is the weight
-        scale; else s_in * weight scale."""
-        def make():
-            kernel = _hwio(self.modules[path]).detach()
-            s_in = self.scales[path]
-            if _is_per_channel(s_in):
-                return _wq(kernel, in_scale=s_in)
-            qk, w_scale = _wq(kernel)
-            return qk, self.s(path) * w_scale
-        return self._memo(("int8", path), make)
+        """(qk int8 HWIO, deq [O] f32) of a calibrated conv
+        (``_int8_weights``)."""
+        return self._memo(("int8", path), lambda: _int8_weights(
+            _hwio(self.modules[path]).detach(), self.scales[path]))
 
     def transpose_args(self, path: str, next_path: Optional[str]):
         """Kernel D's weights of a calibrated transposed conv: (qk, deq,
@@ -686,3 +709,108 @@ def make_centernet_keypoint_chain_pipeline(model: CenterpointDLA34,
     return make_centernet_keypoint_pipeline(dla34_chain_forward(ctx), model_config,
                                             model.object_config, projection_matrix, device,
                                             knobs, impl=impl, dtype=dtype)
+
+
+# ------------------------------------------------------- YOLO-Pose chain
+
+
+def _pointnet_stage_chain(ctx: ChainCtx, x, prefix: str, kernel: int, count: int):
+    """A Pointnet stage: conv_0 .. conv_{count-2} (k x k), reduce and out
+    (1x1), leaky between convs and none after ``out``, each link int8
+    where both ends are calibrated.  Returns the stage's f32 NHWC map."""
+    chain = ([f"{prefix}/conv_{i}" for i in range(count - 1)]
+             + [f"{prefix}/reduce", f"{prefix}/out"])
+    pads = [kernel // 2] * (count - 1) + [0, 0]
+    for i, (path, pad) in enumerate(zip(chain, pads)):
+        last = i == len(chain) - 1
+        x = ctx.run_layer(x, path, padding=pad, act=None if last else "leaky",
+                          next_path=None if last else chain[i + 1])
+    return x.to(torch.float32, memory_format=torch.contiguous_format)
+
+
+def _pointnet_chain(ctx: ChainCtx, fpn1, pointnet_layers):
+    """The Pointnet cascade on FPN level 1: stage 0 reads the level; a later
+    stage reads (belief, affinity, level) cast to ``ctx.dtype`` and
+    concatenated on the channel axis in that order, its affinity branch
+    the belief the stage has just made.  Returns (beliefs, affinities)."""
+    def joined(belief, affinity):
+        return torch.cat([t.to(ctx.dtype) for t in (belief, affinity, fpn1)], dim=-1)
+
+    beliefs, affinities = [], []
+    for i, (kernel, count, _) in enumerate(pointnet_layers):
+        x = fpn1 if i == 0 else joined(beliefs[-1], affinities[-1])
+        belief = _pointnet_stage_chain(ctx, x, f"pointnet/belief_{i}", kernel, count)
+        x = fpn1 if i == 0 else joined(belief, affinities[-1])
+        affinities.append(_pointnet_stage_chain(ctx, x, f"pointnet/affinity_{i}", kernel, count))
+        beliefs.append(belief)
+    return beliefs, affinities
+
+
+def _yolo_pose_head_chain(ctx: ChainCtx, fpn_output, n_shared: int,
+                          shapes) -> Tuple[torch.Tensor, ...]:
+    """The shared head on one FPN level: ``n_shared`` extra stages, then the
+    five 3x3 output convs in ``HEAD_OUTPUTS`` order, each flattened from
+    NHWC to [B, h*w*A, *shapes[name]] (``YoloPoseHead.shapes``), the mask,
+    belief and affinity coefficients tanh'd in the conv's output dtype;
+    all f32."""
+    x = fpn_output
+    for i in range(n_shared):
+        x = _extra_stage(ctx, x, f"prediction_head/shared_{i}")
+    b = fpn_output.shape[0]
+    outs = []
+    for name in HEAD_OUTPUTS:
+        y = ctx.run_layer(x, f"prediction_head/{name}", padding=1).reshape(b, -1, *shapes[name])
+        outs.append((y if name in ("classification", "box") else torch.tanh(y))
+                    .to(torch.float32))
+    return tuple(outs)
+
+
+def yolo_pose_chain_forward(ctx: ChainCtx) -> Callable[[torch.Tensor], YoloPosePrediction]:
+    """``fn(img) -> YoloPosePrediction`` running the chain-int8 forward of
+    ``ctx``'s ``YoloPose`` (ResNet-18 only, as the JAX chain); ``img`` is
+    the normalised NCHW image, cast to ``ctx.dtype`` inside.  The
+    prototypes are f32 NHWC maps."""
+    model = ctx.model
+    if not isinstance(model, YoloPose):
+        raise TypeError(f"yolo_pose_chain_forward needs a YoloPose, got {type(model)}")
+    cfg = model.config
+    if cfg.backbone_depth != 18:
+        raise NotImplementedError("the chain forward covers the ResNet-18 backbone")
+    shapes = model.prediction_head.shapes
+
+    def forward(img: torch.Tensor) -> YoloPosePrediction:
+        with torch.inference_mode():
+            taps = resnet18_chain(ctx, _nhwc(img.to(ctx.dtype)))
+            fpn_outputs = fpn_chain(ctx, taps, cfg.n_fpn_downsample_layers)
+            proto = protonet_chain(ctx, fpn_outputs[0], cfg.n_masknet_layers_pre_upsample,
+                                   cfg.n_masknet_layers_post_upsample)
+            beliefs, affinities = _pointnet_chain(ctx, fpn_outputs[1], cfg.pointnet_layers)
+            heads = [_yolo_pose_head_chain(ctx, f, cfg.n_prediction_head_layers, shapes)
+                     for f in fpn_outputs]
+            classification, box, mask, belief, affinity = (torch.cat(t, dim=1)
+                                                           for t in zip(*heads))
+        return YoloPosePrediction(
+            classification=classification, box_encoding=box, mask_coeff=mask,
+            belief_coeff=belief, affinity_coeff=affinity, anchor=model.anchor,
+            mask_prototype=proto, belief_prototypes=tuple(beliefs),
+            affinity_prototypes=tuple(affinities))
+
+    return forward
+
+
+def make_yolo_pose_chain_pipeline(model: YoloPose, scales: Dict[str, object],
+                                  object_points=None, camera_matrix=None,
+                                  device=DEFAULT_DEVICE, knobs: YoloPoseKnobs = YOLO_POSE_DECODE,
+                                  *, impl: str = "kernel", dtype=BENCH_YOLO_POSE.chain.dtype):
+    """uint8 frames -> ``YoloPoseDetections`` through the chain-int8
+    YOLO-Pose forward (``make_yolo_pose_pipeline`` with the chain in place
+    of the model, on the image in ``dtype``, which is also the chain's
+    float dtype), and PnP when ``object_points`` and ``camera_matrix`` are
+    given; joins stay f32 (``configs.BENCH_YOLO_POSE.chain.join_dtype``), as
+    the JAX chain keeps them.  The defaults serve the ``value`` of
+    ``bench.py --yolo-pose``; ``impl`` picks kernel B or its plain version
+    for the belief maps."""
+    ctx = ChainCtx(model, scales, dtype=dtype, join_dtype=BENCH_YOLO_POSE.chain.join_dtype,
+                   impl=impl, path_of=yolo_pose_flax_path)
+    return make_yolo_pose_pipeline(yolo_pose_chain_forward(ctx), model.config, object_points,
+                                   camera_matrix, device, knobs, impl=impl, dtype=dtype)

@@ -10,7 +10,9 @@ and 2: exactly, since integer sums are exact in any order.  A conv whose
 output channels are not a multiple of 8 (the CenterNet chain's heads: 1,
 2 and 4) runs with zero output channels up to the next multiple, sliced
 off after: held at N = 1, 2, 4 and 16 at batch 1, at the heads' 90x160
-map and at a few pixels.  The card repeats the check on ``conv2d_int8``
+map and at a few pixels, and the YOLO-Pose chain's shapes: the Pointnet's 7x7
+convs (K = 3,136 and 4,704) and its heads' 4 and 22 outputs.  The card
+repeats the check on ``conv2d_int8``
 (``test_torch_kernels_cuda.py``).
 """
 
@@ -76,3 +78,24 @@ def test_torch_conv2d_int8_im2col_pads_output_channels(n, hw, k):
     want = conv2d_int8_f64(q, qk, 1, (k - 1) // 2)
     assert got.shape == want.shape == (1, *hw, n) and got.dtype == torch.int32
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("c,fill", [(64, None), (96, None), (96, 127)],
+                         ids=["c64", "c96", "c96_saturated"])
+def test_torch_conv2d_int8_im2col_pointnet_7x7_matches_f64(c, fill):
+    """The YOLO-Pose Pointnet's 7x7 convs at the bench's 30x60 map, batch 1
+    (K = 3,136 and 4,704; saturated codes give the largest accumulator,
+    127^2 49 96): exact."""
+    shapes = (1, 30, 60, c), (7, 7, c, 64)
+    q, qk = ((torch.full(s, fill, dtype=torch.int8) if fill else _codes(s, c + i))
+             for i, s in enumerate(shapes))
+    got = conv2d_int8_im2col(q, qk, 1, 3)
+    assert got.shape == (1, 30, 60, 64) and torch.equal(got, conv2d_int8_f64(q, qk, 1, 3))
+
+
+@pytest.mark.parametrize("n", [4, 22])
+def test_torch_conv2d_int8_im2col_yolo_pose_head_widths(n):
+    """The YOLO-Pose head's box (4) and class (22) output convs, 3x3 over
+    64 channels, padded to 8 and 24 output channels: exact."""
+    q, qk = _codes((2, 4, 8, 64), n), _codes((3, 3, 64, n), 300 + n)
+    assert torch.equal(conv2d_int8_im2col(q, qk, 1, 1), conv2d_int8_f64(q, qk, 1, 1))
