@@ -145,13 +145,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
 6. train: the DCN CenterNet as the JAX package trains it (bf16, the
    3-cell DCN window, the flax init) on the synthetic squares at batch 32
    and 360x640: the kernel path's train step against the plain path's
-   (f32 at batch 8, bf16 at 32), 20 overfit steps through ``Trainer``,
+   (f32 at batch 8, bf16 at 32), 10 overfit steps through ``Trainer``,
    kernels C and E at the trained net's calls, a checkpoint round trip,
    two steps from one checkpoint run twice (with cuDNN's default and its
    deterministic algorithms: which gradients repeat bit for bit, and the
    step's time), the timed step and its ``torch.profiler`` split;
 7. train_cli: the training CLI (``scripts/train_centernet.py``) on two
-   dataset directories of 96 train and 32 val 640x360 PNGs each (the
+   dataset directories of 48 train and 16 val 640x360 PNGs each (the
    squares with ``samples_torpedo``'s four classes, written by the port's
    writer), ``samples_torpedo`` at full width and batch 32: two epochs of
    3 batches with watch lines every 2 steps, then a warm start from its
@@ -171,8 +171,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    first loss, a checkpoint round trip, two steps from one checkpoint run
    twice (both losses and every gradient bit-equal), the timed step
    with its ``torch.profiler`` split; then the CLI on four directories of
-   96 train and 12 val 640x360 PNGs with seg maps, 8 loader threads: two
-   epochs of 16 batches with watch lines, a warm start, the CLI's images/s
+   48 train and 12 val 640x360 PNGs with seg maps, 8 loader threads: two
+   epochs of 8 batches with watch lines, a warm start, the CLI's images/s
    with host reading included, the loader's host ms a batch and the
    device's idle share.  JAX's YOLACT training reaches no Pallas kernel,
    so the phase launches none of the port's;
@@ -210,7 +210,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
    bf16 rung's requests at batch 16 with and without PnP (frames/s,
    kernels and copies a request, idle share), each rung's stages and its
    forward's device split from ``torch.profiler`` (im2col, ``_int_mm``,
-   cuDNN, the rest).
+   cuDNN, the rest);
+11. train_yolo_pose: YOLO-Pose as the JAX package trains it
+   (``scripts/train_yolo_pose.py``'s configuration: bf16, the flax init,
+   960x480, batch 4, the warm-up Adam) on ``write_square_fat_dataset``'s
+   Falling Things frames (projected cubes, 960x540): ``yolo_pose_loss``
+   on the card against the CPU on one forward's predictions at batch 4
+   with ties planted in the background confidence and the match IoUs
+   (identical anchor sets, each loss within 1e-5), every gradient of a
+   step finite and non-zero (but the FPN levels no anchor trains), 60
+   overfit steps through ``Trainer`` below 0.6 of the first loss (the
+   recipe's lr, a 5-step warm-up: the recipe's 2,000 would hardly move), a
+   checkpoint round trip (parameters, Adam moments and the warm-up count
+   equal, the next loss bit-equal), two steps from one checkpoint run
+   twice (bit-equal), the timed step at batch 4 and 16 with its
+   ``torch.profiler`` split and peak memory; then the CLI on a tree of two
+   environments of 24 frames, 4 loader threads: two epochs of 8 batches
+   with watch lines, then a profiled epoch; the CLI's images/s with host
+   reading included, the loader's host ms a batch and the device's idle
+   share.  JAX's YOLO-Pose training reaches no Pallas kernel, so the phase
+   launches none of the port's.
 
 Prints one JSON line describing the kernels, with each kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -256,23 +275,31 @@ from tauv_vision_tpu_torch.configs import (
 )
 from tauv_vision_tpu_torch.configs import samples_torpedo
 from tauv_vision_tpu_torch.data.dataset_dir import Split
+from tauv_vision_tpu_torch.data.falling_things import (
+    FallingThingsDataset,
+    FallingThingsEnvironment,
+    FallingThingsObject,
+    FallingThingsVariant,
+)
 from tauv_vision_tpu_torch.data.pose_dataset import PoseDataset, collate_pose_samples
 from tauv_vision_tpu_torch.data.segmentation_dataset import (
     SegmentationDataset,
     collate_segmentation_samples,
 )
 from tauv_vision_tpu_torch.data.synthetic import (
+    FAT_SIZE,
     SquareDatasetConfig,
     generate_square_batch,
     generate_square_seg_batch,
     seg_truth,
     square_object_config,
+    write_square_fat_dataset,
     write_square_pose_dataset,
     write_square_seg_dataset,
 )
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
 from tauv_vision_tpu_torch.models.yolact import Yolact, YolactPrediction
-from tauv_vision_tpu_torch.models.yolo_pose import YoloPose
+from tauv_vision_tpu_torch.models.yolo_pose import YoloPose, YoloPosePrediction
 from tauv_vision_tpu_torch.ops.anchors import fpn_level_sizes, get_all_anchors
 from tauv_vision_tpu_torch.ops.conv_transpose import (
     depthwise_upsample,
@@ -296,6 +323,7 @@ from tauv_vision_tpu_torch.scripts import (
     op_probe,
     train_centernet,
     train_yolact,
+    train_yolo_pose,
 )
 from tauv_vision_tpu_torch.scripts.kernel_times import queued_ms, time_ms
 from tauv_vision_tpu_torch.serving import quantize_chain
@@ -342,14 +370,16 @@ from tauv_vision_tpu_torch.serving.yolo_pose_decode import (
 from tauv_vision_tpu_torch.train import steps as train_steps
 from tauv_vision_tpu_torch.train.checkpoint import CheckpointManager
 from tauv_vision_tpu_torch.train.metrics import MultiWriter, StdoutWriter
-from tauv_vision_tpu_torch.train.state import TrainState, adam_with_clip
+from tauv_vision_tpu_torch.train.state import TrainState, adam_with_clip, warmup_adam
 from tauv_vision_tpu_torch.train.steps import (
     make_centernet_train_step,
     make_yolact_train_step,
+    make_yolo_pose_train_step,
     model_mode,
 )
 from tauv_vision_tpu_torch.train.trainer import Trainer, TrainerConfig
-from tauv_vision_tpu_torch.train.yolact_task import match_anchors, yolact_loss
+from tauv_vision_tpu_torch.train.yolact_task import match_anchor_sets, match_anchors, yolact_loss
+from tauv_vision_tpu_torch.train.yolo_pose_task import yolo_pose_loss
 from tauv_vision_tpu_torch.weights import (
     centerpoint_calibration_paths,
     centerpoint_flax_path,
@@ -476,7 +506,8 @@ KP_INT8 = "keypoints_int8"
 YP_INT8, YP_PER_LAYER = "yolo_pose_int8", "yolo_pose_per_layer_int8"
 ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8, "train", "train_cli",
                                                              "train_yolact", "yolo_pose",
-                                                             YP_INT8, YP_PER_LAYER)
+                                                             YP_INT8, YP_PER_LAYER,
+                                                             "train_yolo_pose")
 PAIR_ITERS = 5        # timed repetitions of a pair path's request at batch 32
 CHAIN_ITERS = 5       # of each of a chain pair's two requests
 # The paths beside an int8-chain YOLACT, and its recipe on each.
@@ -2581,7 +2612,7 @@ def time_chain_paths(chains, nets, cn_cfg, yl, yl_cfg, yl_scales, kp_net, kp_sca
 TRAIN_BATCH = 32          # samples_torpedo's batch, at its 360x640
 TRAIN_F32_BATCH = 8
 TRAIN_OBJECTS = 16        # squares a frame at most: 64 keypoint slots, max_keypoints' default
-OVERFIT_STEPS = 20
+OVERFIT_STEPS = 10
 TRAIN_TIMED_STEPS = 3
 # A train step is sensitive to its last bits (training BatchNorm on the
 # deepest levels, ReLU kinks, the DCN): the kernel path is held to the
@@ -2976,7 +3007,7 @@ def time_train(state, img, truth, step, card):
 
 # ---- phase 7: train_cli -------------------------------------------------
 
-CLI_TRAIN, CLI_VAL = 96, 32   # samples of each of the two dataset directories
+CLI_TRAIN, CLI_VAL = 48, 16   # samples of each of the two dataset directories
 CLI_DATASETS = 2
 CLI_BATCHES = 3               # --epoch-n-batches
 CLI_WATCH_EVERY = 2
@@ -3121,10 +3152,12 @@ def check_cli_runs(label, base, state, warm, batches, watch_every, fresh_state):
     return train, val, warm_train, watch, steps, trained
 
 
-def print_cli_time(label, epochs, batch, host_ms, workers, prof, batches, peak, card):
+def print_cli_time(label, epochs, batch, host_ms, workers, prof, batches, peak, card,
+                   profiled="warm start's"):
     """The CLI's ``time`` line: images/s with host reading included
     (``cli_images_per_s``), the loader's host ms a batch on one thread,
-    the device's idle share over the warm start's steps, peak memory."""
+    the device's idle share over the ``profiled`` run's steps, peak
+    memory."""
     idle = steps_idle_share(prof)
     print(f"time {label}: {cli_images_per_s(epochs, batch):.2f} images/s (host reading "
           f"included: the train images of epoch 1 over its wall time, the loader's waits "
@@ -3133,7 +3166,7 @@ def print_cli_time(label, epochs, batch, host_ms, workers, prof, batches, peak, 
           f"{[(e, round(t, 3), n, round(f, 3)) for e, t, n, f in epochs]}), "
           f"the loader's host work {host_ms:.1f} ms a batch of {batch} on one thread (decode, "
           f"augment, collate; {workers} threads in the CLI), the device idle "
-          f"{'not measured' if idle is None else f'{idle:.1%}'} over the warm start's "
+          f"{'not measured' if idle is None else f'{idle:.1%}'} over the {profiled} "
           f"{batches} steps, peak memory allocated {peak:.2f} GiB ({card})")
 
 
@@ -3239,7 +3272,7 @@ YL_TIMED_STEPS = 3
 YL_LOSS_RTOL = 1e-5       # card against CPU, each loss on the same predictions
 YL_OHEM_TIES = 400        # negatives a sample given one classification row
 YL_CLI_DATASETS = 4      # directories, written on as many threads
-YL_CLI_TRAIN, YL_CLI_VAL = 96, 12   # samples of each: epochs of 16 batches, val 2
+YL_CLI_TRAIN, YL_CLI_VAL = 48, 12   # samples of each: epochs of 8 batches, val 2
 YL_CLI_WORKERS = 8
 YL_CLI_WATCH_EVERY = 2
 
@@ -3307,13 +3340,13 @@ def planted_yolact_ties(mc, tc):
     return img, truth, tied
 
 
-def plant_ohem_ties(prediction, tied):
+def plant_ohem_ties(prediction, tied, bg_logit=-4.0):
     """Every tied anchor of a sample gets one classification row: the
-    background's logit 4 below the rest (hard negatives)."""
+    background's logit ``bg_logit`` below the rest (hard negatives)."""
     cls = prediction.classification.clone()
     for b, anchors in enumerate(tied):
         row = torch.zeros(cls.shape[-1], device=cls.device)
-        row[0] = -4.0
+        row[0] = bg_logit
         cls[b, anchors.to(cls.device)] = row
     return dataclasses.replace(prediction, classification=cls)
 
@@ -3503,21 +3536,29 @@ def train_yolact_phase(card):
 
 
 def time_yolact_step(state, img, truth, step, tc, card):
-    """Images/s and peak memory of the bf16 train step at batch 24 (CUDA
-    events after warm-up), its ``mask_clipped``, and its device split
-    from ``torch.profiler``: the forward with the loss, the loss alone,
-    the backward, the optimizer."""
+    """``time_train_step`` at batch 24, with the step's ``mask_clipped``."""
+    clipped = int(step(state, img, truth)[1].mask_clipped)
+    time_train_step("train_yolact", state, img, truth, step, YL_TIMED_STEPS, card,
+                    f"; mask_clipped {clipped} (cap {tc.max_positive_anchors})")
+
+
+def time_train_step(label, state, img, truth, step, iters, card, note=""):
+    """Images/s and peak memory of a bf16 train step with a loss range
+    (CUDA events after warm-up), and its device split from
+    ``torch.profiler``: the forward with the loss, the loss alone, the
+    backward, the optimizer."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, losses = step(state, img, truth)
+    batch = img.shape[0]
+    step(state, img, truth)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = time_ms(lambda: step(state, img, truth), YL_TIMED_STEPS)
+    ms = time_ms(lambda: step(state, img, truth), iters)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"time train_yolact step bf16 batch {YL_BATCH}: {ms:.3f} ms a step = "
-          f"{YL_BATCH * 1000 / ms:.2f} images/s; peak memory allocated {peak:.2f} GiB; "
-          f"mask_clipped {int(losses.mask_clipped)} (cap {tc.max_positive_anchors}) ({card})")
+    print(f"time {label} step bf16 batch {batch}: {ms:.3f} ms a step = "
+          f"{batch * 1000 / ms:.2f} images/s; peak memory allocated {peak:.2f} GiB{note} "
+          f"({card})")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(state, img, truth)
         torch.cuda.synchronize()
@@ -3525,7 +3566,7 @@ def time_yolact_step(state, img, truth, step, tc, card):
     ranges = (train_steps.FORWARD, train_steps.LOSS, train_steps.OPTIMIZER)
     kernel_rows = [e for e in rows if e.device_type == DeviceType.CUDA and e.key not in ranges]
     if not kernel_rows:
-        print("time train_yolact split: not measured (the profiler recorded no device activity)")
+        print(f"time {label} split: not measured (the profiler recorded no device activity)")
         return
 
     def range_ms(name):
@@ -3536,7 +3577,7 @@ def time_yolact_step(state, img, truth, step, tc, card):
     split = {"forward (with the loss)": range_ms(train_steps.FORWARD),
              "loss": range_ms(train_steps.LOSS), "optimizer": range_ms(train_steps.OPTIMIZER)}
     split["backward"] = busy - split["forward (with the loss)"] - split["optimizer"]
-    print(f"time train_yolact split (torch.profiler, one step, device ms): "
+    print(f"time {label} split batch {batch} (torch.profiler, one step, device ms): "
           f"{ {k: round(v, 3) for k, v in split.items()} }, device busy {busy:.3f} of the step's "
           f"{ms:.3f} ms back to back ({card})")
 
@@ -3555,7 +3596,7 @@ def yolact_cli_config(**changes):
 
 def train_yolact_cli(card):
     """The YOLACT CLI on PNG dataset directories at its full configuration:
-    two epochs of 16 batches with watch lines, then a warm start."""
+    two epochs of 8 batches with watch lines, then a warm start."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -3630,7 +3671,7 @@ def train_yolact_cli(card):
 
 YP_BATCH = 16             # bench.py --yolo-pose's batch
 YP_REQUESTS = 2
-YP_ITERS = 10             # timed requests of each kind
+YP_ITERS = 5              # timed requests of each kind
 YP_SEED = 11
 YP_POSE_ATOL = 1e-3       # PnP on the card against the CPU, same keypoints
 YP_TIE = 1e-5             # a belief map's top two values this close: a near-tie
@@ -4202,6 +4243,376 @@ def time_yolo_pose_int8(net, scales, forwards, card):
                   f"{1 - split['busy'] / wall:.1%} ({card})")
 
 
+# ---- phase 11: train_yolo_pose ----------------------------------------------
+
+YP_TRAIN_BATCH = 4        # the YOLO-Pose CLI's --batch-size
+YP_TRAIN_BATCHES = (YP_TRAIN_BATCH, 16)   # timed: the recipe's, and bench.py --yolo-pose's
+YP_TRAIN_LR = 1e-4        # the CLI's --lr
+# The recipe warms the learning rate up over 10 epochs of 200 batches: a
+# short run would hardly move, so the phase's own steps warm up over 5.
+YP_WARMUP = 5
+YP_OVERFIT_STEPS = 60
+YP_OVERFIT_BAR = 0.6      # tests/test_integration_train.py:207, as train_yolact's
+YP_TRAIN_TIMED = 5
+YP_LOSS_RTOL = 1e-5       # card against CPU, each loss on the same predictions
+YP_OHEM_TIES = 400        # negatives a sample given one classification row
+# Their background logit: below any of the random net's 21-class rows, so
+# that OHEM's 3 x n_pos hardest negatives all come from the tie.
+YP_TIED_BG_LOGIT = -30.0
+YP_COPIES = 20            # truth slots added to a sample, copies of level-0 anchors
+YP_CLI_FRAMES = 24        # frames in each of the CLI's two environments
+YP_CLI_ENVIRONMENTS = (FallingThingsEnvironment.Kitchen0, FallingThingsEnvironment.Temple3)
+YP_CLI_BATCHES = 8        # --epoch-n-batches
+YP_CLI_WATCH_EVERY = 2
+YP_CLI_WORKERS = 4        # the CLI's BatchLoader threads
+
+
+def fat_batches(root, seed, n):
+    """(reader, numpy (img, truth) of its first ``n`` frames collated at the
+    CLI's 960x480) over ``write_square_fat_dataset``'s frames at Falling
+    Things' 960x540, 1-3 cubes each, written to ``root``."""
+    mc = train_yolo_pose.model_config
+    write_square_fat_dataset(root, np.random.default_rng(seed), n, *FAT_SIZE, max_objects=3)
+    ds = FallingThingsDataset(root, FallingThingsVariant.SINGLE, list(FallingThingsEnvironment),
+                              objects=[FallingThingsObject.MustardBottle])
+    return ds, train_yolo_pose.collate_fat([ds[i] for i in range(n)], mc.in_h, mc.in_w)
+
+
+def yolo_pose_train_model(seed=0):
+    """The YOLO-Pose as the CLI trains it: bf16, the flax init from a
+    seed."""
+    return YoloPose(train_yolo_pose.model_config, torch.Generator().manual_seed(seed),
+                    device="cuda", dtype=torch.bfloat16, init="flax")
+
+
+def yolo_pose_train_state(seed=0):
+    model = yolo_pose_train_model(seed)
+    return TrainState(model, warmup_adam(model.parameters(), YP_TRAIN_LR, YP_WARMUP, 1.0))
+
+
+def to_card(img, truth):
+    return torch.from_numpy(img).cuda().permute(0, 3, 1, 2).contiguous(), truth.to("cuda")
+
+
+def pose_prediction_on(prediction, device):
+    def move(v):
+        return tuple(t.to(device) for t in v) if isinstance(v, tuple) else v.to(device)
+
+    return dataclasses.replace(prediction, **{f.name: move(getattr(prediction, f.name))
+                                              for f in dataclasses.fields(prediction)})
+
+
+def plant_yolo_pose_ties(img, truth):
+    """(truth with IoU ties planted, YP_OHEM_TIES negatives a sample to tie
+    in OHEM): YP_COPIES slots added after the collated ones take copies of
+    level-0 anchors (the first twice: an argmax tie across objects),
+    painted into the seg map where it shows background, with keypoints at
+    the box's centre and its corners: more anchors of an IoU of 1 (or
+    equal ones) than the cap of 16 keeps."""
+    mc = train_yolo_pose.model_config
+    slots = truth.valid.shape[1]
+
+    def pad(a):
+        return np.pad(a, [(0, 0), (0, YP_COPIES)] + [(0, 0)] * (a.ndim - 2))
+
+    truth = dataclasses.replace(truth, **{f.name: pad(getattr(truth, f.name))
+                                          for f in dataclasses.fields(truth)
+                                          if f.name != "seg_map"},
+                                seg_map=truth.seg_map.copy())
+    anchor = get_all_anchors(mc.in_h, mc.in_w, mc.n_fpn_levels, mc.anchor_scales,
+                             mc.anchor_aspect_ratios)
+    h0, w0 = fpn_level_sizes(mc.in_h, mc.in_w, mc.n_fpn_levels)[0]
+    rng = np.random.default_rng(2)
+    ys, xs = np.meshgrid(np.arange(mc.in_h), np.arange(mc.in_w), indexing="ij")
+    corners = np.asarray([(0, 0)] + [(y, x) for y in (-0.5, 0.5) for x in (-0.5, 0.5)] * 2,
+                         np.float32)
+    for b in range(len(img)):
+        picks = rng.choice(h0 * w0, size=YP_COPIES, replace=False)
+        picks[1] = picks[0]
+        for slot, j in enumerate(picks, start=slots):
+            cy, cx, h, w = anchor[j]
+            truth.box[b, slot] = anchor[j]
+            truth.valid[b, slot] = True
+            truth.classification[b, slot] = truth.classification[b, 0]
+            inside = ((np.abs(ys - cy * mc.in_h) <= h * mc.in_h / 2)
+                      & (np.abs(xs - cx * mc.in_w) <= w * mc.in_w / 2))
+            truth.seg_map[b][inside & (truth.seg_map[b] == 255)] = slot
+            scale = np.asarray([mc.in_h, mc.in_w], np.float32)
+            truth.keypoints[b, slot] = (np.asarray([cy, cx]) + corners * np.asarray([h, w])) * scale
+            truth.keypoint_valid[b, slot] = True
+            truth.centers[b, slot] = truth.keypoints[b, slot, 0]
+    stub = YoloPosePrediction(
+        classification=torch.zeros(len(img), len(anchor), mc.n_classes + 1), box_encoding=None,
+        mask_coeff=None, belief_coeff=None, affinity_coeff=None,
+        anchor=torch.from_numpy(anchor), mask_prototype=None, belief_prototypes=None,
+        affinity_prototypes=None)
+    sets = match_anchor_sets(stub, truth.to("cpu"), mc, 16)
+    negative = sets.match_iou <= mc.iou_neg_threshold
+    tied = [torch.from_numpy(rng.choice(torch.nonzero(negative[b])[:, 0].numpy(), YP_OHEM_TIES,
+                                        replace=False)) for b in range(len(img))]
+    return truth, tied
+
+
+def check_yolo_pose_loss_card_vs_cpu(img_np, truth_np):
+    """``yolo_pose_loss`` on the card and on the CPU on the same f32
+    predictions (one bf16 training-mode forward of the net, ties planted):
+    identical positive, OHEM-selected and capped anchor sets, each loss
+    within YP_LOSS_RTOL relative."""
+    mc = train_yolo_pose.model_config
+    truth_np, tied = plant_yolo_pose_ties(img_np, truth_np)
+    img, truth = to_card(img_np, truth_np)
+    model = yolo_pose_train_model()
+    with torch.no_grad(), model_mode(model, True):
+        prediction = plant_ohem_ties(model(img), tied, YP_TIED_BG_LOGIT)
+    del model
+    cpu = pose_prediction_on(prediction, "cpu")
+    t0 = time.perf_counter()
+    card_sets = match_anchor_sets(prediction, truth, mc, 16)
+    card = yolo_pose_loss(prediction, truth, mc)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_sets = match_anchor_sets(cpu, truth_np.to("cpu"), mc, 16)
+    ref = yolo_pose_loss(cpu, truth_np.to("cpu"), mc)
+    cpu_s = time.perf_counter() - t0
+    for f in dataclasses.fields(card_sets):
+        require(torch.equal(getattr(card_sets, f.name).cpu(), getattr(cpu_sets, f.name)),
+                f"train_yolo_pose loss: {f.name} differs between the card and the CPU")
+    errs = {}
+    for f in dataclasses.fields(ref):
+        got, want = float(getattr(card, f.name)), float(getattr(ref, f.name))
+        require(want > 0, f"train_yolo_pose loss: {f.name} is {want!r}")
+        errs[f.name] = abs(got - want) / want
+        require(errs[f.name] <= YP_LOSS_RTOL, f"train_yolo_pose loss: {f.name} {got!r} on the "
+                                               f"card, {want!r} on the CPU")
+    bg = torch.softmax(cpu.classification, -1)[..., 0]
+    ohem_ties = cap_ties = 0
+    for b in range(len(img_np)):
+        neg = cpu_sets.match_iou[b] <= mc.iou_neg_threshold
+        chosen, dropped = cpu_sets.selected[b] & neg, neg & ~cpu_sets.selected[b]
+        ohem_ties += bool(set(bg[b][chosen].tolist()) & set(bg[b][dropped].tolist()))
+        kept = torch.zeros_like(cpu_sets.positive[b])
+        kept[cpu_sets.top_anchor[b][cpu_sets.top_valid[b]]] = True
+        iou = cpu_sets.match_iou[b]
+        cap_ties += bool(set(iou[kept].tolist()) & set(iou[cpu_sets.positive[b] & ~kept].tolist()))
+    n_pos = cpu_sets.positive.sum(1)
+    require(ohem_ties > 0 and cap_ties > 0 and int(n_pos.max()) > 16,
+            f"train_yolo_pose loss: OHEM's cut falls in a tie in {ohem_ties} of {len(img_np)} "
+            f"samples, the cap's in {cap_ties}; at most {int(n_pos.max())} positives a sample")
+    print(f"train_yolo_pose loss, card against CPU on one bf16 forward's f32 predictions at batch "
+          f"{len(img_np)} ({len(cpu.anchor)} anchors, ties planted): positive, OHEM-selected and "
+          f"top-16 sets identical ({int(n_pos.sum())} positives, {int(n_pos.min())}-"
+          f"{int(n_pos.max())} a sample, {int(cpu_sets.selected.sum())} selected); OHEM's cut "
+          f"inside a tie in {ohem_ties} samples, the cap's in {cap_ties}; relative error "
+          f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (bar {YP_LOSS_RTOL}); loss "
+          f"{card_s * 1e3:.1f} ms on the card, {cpu_s * 1e3:.1f} ms on the CPU")
+    del prediction, cpu, card_sets
+    torch.cuda.empty_cache()
+
+
+def yolo_pose_zero_by_construction(sets):
+    """FPN level 3 is the first downsample conv of level 2's output, level
+    4 the second's of level 3: the downsample conv k has no gradient when
+    no anchor from level 3 + k on is trained (positive or OHEM's), level
+    2's output conv none when no anchor from level 2 on is."""
+    mc = train_yolo_pose.model_config
+    sizes = fpn_level_sizes(mc.in_h, mc.in_w, mc.n_fpn_levels)
+    starts = np.cumsum([0] + [h * w * mc.n_anchors_per_cell for h, w in sizes])
+    trained = [bool(sets.selected[:, starts[i]:starts[i + 1]].any()) for i in range(len(sizes))]
+    zero = set()
+    if not any(trained[2:]):
+        zero |= {f"fpn._prediction_layers.2.{leaf}" for leaf in ("weight", "bias")}
+    for k in range(mc.n_fpn_downsample_layers):
+        if not any(trained[3 + k:]):
+            zero |= {f"fpn._downsample_layers.{k}.{leaf}" for leaf in ("weight", "bias")}
+    return zero
+
+
+def yolo_pose_grads(img, truth):
+    """One train step from the flax init: every gradient finite, and
+    non-zero but where no anchor of a level trains."""
+    mc = train_yolo_pose.model_config
+    state = yolo_pose_train_state()
+    model = state.model
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad(), model_mode(model, True):
+        sets = match_anchor_sets(model(img), truth, mc, 16)
+    model.load_state_dict(start)   # that forward moved the running statistics
+    _, losses = make_yolo_pose_train_step(mc)(state, img, truth)
+    zero = yolo_pose_zero_by_construction(sets)
+    for name, p in model.named_parameters():
+        g = p.grad
+        if name in zero:
+            require(g is None or not g.any(), f"train_yolo_pose: {name} has a gradient")
+            continue
+        require(g is not None and bool(torch.isfinite(g).all()) and bool(g.any()),
+                f"train_yolo_pose: {name}'s gradient is missing, not finite or zero")
+    n = sum(1 for _ in model.parameters())
+    print(f"train_yolo_pose step: {n - len(zero)} of {n} gradients finite and non-zero, "
+          f"{len(zero)} zero by construction {sorted(zero)}; losses "
+          f"{ {k: round(float(v), 5) for k, v in dataclasses.asdict(losses).items()} }")
+    del state, model
+    torch.cuda.empty_cache()
+
+
+def train_yolo_pose_phase(card):
+    """Train YOLO-Pose on the card (see the module docstring); returns the
+    phase's launch counts (by kernel, by entry point, by variant)."""
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    mc = train_yolo_pose.model_config
+    with tempfile.TemporaryDirectory() as directory:
+        _, (img16_np, truth16_np) = fat_batches(pathlib.Path(directory), 40, 16)
+    img_np, truth_np = img16_np[:YP_TRAIN_BATCH], dataclasses.replace(truth16_np, **{
+        f.name: getattr(truth16_np, f.name)[:YP_TRAIN_BATCH]
+        for f in dataclasses.fields(truth16_np)})
+    print(f"train_yolo_pose data: 16 synthetic Falling Things frames at {FAT_SIZE[1]}x"
+          f"{FAT_SIZE[0]} collated at {mc.in_w}x{mc.in_h}, {int(truth16_np.valid.sum())} cubes "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check_yolo_pose_loss_card_vs_cpu(img_np, truth_np)
+    img, truth = to_card(img_np, truth_np)
+    yolo_pose_grads(img, truth)
+
+    state = yolo_pose_train_state()
+    step = make_yolo_pose_train_step(mc)
+    totals = _Totals()
+    trainer = Trainer(step, None, state,
+                      TrainerConfig(n_epochs=1, epoch_n_batches=YP_OVERFIT_STEPS,
+                                    overfit_single_batch=True),
+                      writer=MultiWriter(totals))
+    t1 = time.perf_counter()
+    state = trainer.fit(lambda: itertools.repeat((img_np, truth_np), YP_OVERFIT_STEPS))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    t = totals.totals
+    require(len(t) == YP_OVERFIT_STEPS and all(np.isfinite(t)), f"train_yolo_pose: losses {t}")
+    require(t[-1] < YP_OVERFIT_BAR * t[0], f"train_yolo_pose: the overfit's last loss {t[-1]} "
+                                           f"is not below {YP_OVERFIT_BAR} of its first {t[0]}")
+    print(f"train_yolo_pose overfit: {YP_OVERFIT_STEPS} bf16 steps at batch {YP_TRAIN_BATCH} "
+          f"through Trainer (lr {YP_TRAIN_LR}, warm-up {YP_WARMUP} steps), loss {t[0]:.6g} -> "
+          f"{t[-1]:.6g} ({t[-1] / t[0]:.3f} of the first; bar {YP_OVERFIT_BAR}), {fit_s:.1f} s")
+
+    # Checkpoint: the parameters, Adam moments and warm-up count restore
+    # equal into a fresh model and optimizer, and the next loss equals the
+    # uninterrupted run's; then two steps from the checkpoint, twice.
+    with tempfile.TemporaryDirectory() as directory:
+        manager = CheckpointManager(pathlib.Path(directory))
+        manager.save(state.step, state, metrics={"loss": t[-1]})
+        saved = torch.load(pathlib.Path(directory) / str(state.step) / "state.pt",
+                           map_location="cuda", weights_only=True)
+        going = float(step(state, img, truth)[1].total)
+
+        def restored():
+            return manager.restore(yolo_pose_train_state(seed=1))
+
+        fresh = restored()
+        moments = fresh.optimizer.state_dict()
+        require(all(torch.equal(v, saved["model"][k]) for k, v in fresh.model.state_dict().items())
+                and all(torch.equal(moments["state"][i][k], s[k])
+                        for i, s in saved["optimizer"]["state"].items() for k in ("mu", "nu"))
+                and moments["param_groups"][0]["count"] == YP_OVERFIT_STEPS,
+                "train_yolo_pose checkpoint: the restore differs from the saved state")
+        resumed = float(step(fresh, img, truth)[1].total)
+        require(fresh.step == YP_OVERFIT_STEPS + 1 and resumed == going,
+                f"train_yolo_pose checkpoint: next loss {resumed!r} against {going!r}")
+        print(f"train_yolo_pose checkpoint: restored step {YP_OVERFIT_STEPS} into a fresh model "
+              f"and optimizer, parameters, Adam moments and warm-up count "
+              f"{YP_OVERFIT_STEPS} equal to the saved ones; the next loss {resumed!r} equals the "
+              f"uninterrupted run's")
+        del fresh, saved
+        torch.cuda.empty_cache()
+        runs = [two_steps(restored, step, img, truth) for _ in range(2)]
+    (l1, g1), (l2, g2) = runs
+    differ = sorted(n for n in g1 if not torch.equal(g1[n], g2[n]))
+    print(f"train_yolo_pose repeat: two steps from one checkpoint, twice: losses {l1} and {l2}, "
+          f"bit-equal: step 1 {l1[0] == l2[0]}, step 2 {l1[1] == l2[1]}; {len(g1) - len(differ)} "
+          f"of {len(g1)} gradients after step 1 bit-equal, differing: {differ}")
+    require(l1 == l2 and not differ, "train_yolo_pose repeat: two runs of two steps from one "
+                                     f"checkpoint differ (gradients {differ})")
+    time_train_step("train_yolo_pose", state, img, truth, step, YP_TRAIN_TIMED, card)
+    img16, truth16 = to_card(img16_np, truth16_np)
+    time_train_step("train_yolo_pose", state, img16, truth16, step, YP_TRAIN_TIMED, card)
+    del state, trainer, img16, truth16
+    torch.cuda.empty_cache()
+    train_yolo_pose_cli(card)
+    launches = (dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES),
+                dict(kernels.VARIANT_LAUNCHES))
+    require(not any(launches[0].values()), f"train_yolo_pose: port kernels launched "
+                                           f"{launches[0]}; JAX's YOLO-Pose training reaches none")
+    print(f"train_yolo_pose launches: {sum(launches[0].values())} port-kernel launches in the "
+          f"phase (JAX's YOLO-Pose training reaches no Pallas kernel)")
+    print(f"train_yolo_pose phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def train_yolo_pose_cli(card):
+    """The YOLO-Pose CLI on a Falling Things tree of two environments at its
+    full configuration: two epochs of YP_CLI_BATCHES batches with watch
+    lines, then one profiled epoch in a second run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    mc = train_yolo_pose.model_config
+    with tempfile.TemporaryDirectory() as directory:
+        base = pathlib.Path(directory)
+        write_square_fat_dataset(base / "fat", np.random.default_rng(50), YP_CLI_FRAMES,
+                                 *FAT_SIZE, environments=YP_CLI_ENVIRONMENTS, max_objects=3)
+        t_data = time.perf_counter() - t0
+        ds = FallingThingsDataset(base / "fat", FallingThingsVariant.SINGLE,
+                                  list(FallingThingsEnvironment),
+                                  objects=[FallingThingsObject.MustardBottle])
+        host_ms = loader_host_ms(ds, lambda b: train_yolo_pose.collate_fat(b, mc.in_h, mc.in_w),
+                                 YP_TRAIN_BATCH)
+        common = ["--fat-root", str(base / "fat"), "--epoch-n-batches", str(YP_CLI_BATCHES),
+                  "--warmup-epochs", "1", "--no-figures"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t2 = time.perf_counter()
+        with train_epoch_times() as epochs:
+            state = train_yolo_pose.main(common + [
+                "--results-dir", str(base / "run"), "--n-epochs", "2",
+                "--watch-every", str(YP_CLI_WATCH_EVERY)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t2
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train_yolo_pose.main(common + ["--results-dir", str(base / "again"),
+                                           "--n-epochs", "1"])
+            torch.cuda.synchronize()
+        records = cli_records(base / "run")
+        manager = CheckpointManager(base / "run" / "checkpoints")
+        steps, manifest = manager.all_steps(), manager.load_config("model_config")
+    n_train = 2 * YP_CLI_BATCHES
+    train = [r for r in records if "train/total" in r]
+    watch = [r for r in records if "watch/global_grad_norm" in r]
+    require(len(train) == n_train and state.step == n_train
+            and all(math.isfinite(v) for r in train for k, v in r.items()
+                    if k.startswith("train/")),
+            f"train_yolo_pose cli: {len(train)} train records, step {state.step}")
+    trained = {n.replace(".", "/") for n, p in state.model.named_parameters()
+               if p.grad is not None}
+    require([r["step"] for r in watch] == list(range(0, n_train, YP_CLI_WATCH_EVERY)) and all(
+        {k[len("watch/"):-len("/grad_norm")] for k in r if k.endswith("/grad_norm")} == trained
+        for r in watch), "train_yolo_pose cli: the watch lines do not cover every trained "
+                         "parameter")
+    require(steps == [YP_CLI_BATCHES] and manifest == json.loads(json.dumps(mc.to_dict())),
+            f"train_yolo_pose cli: checkpoints {steps}, or the model_config manifest differs "
+            f"from the CLI's")
+    print(f"train_yolo_pose cli: a Falling Things tree of {len(YP_CLI_ENVIRONMENTS)} "
+          f"environments x {YP_CLI_FRAMES} {FAT_SIZE[1]}x{FAT_SIZE[0]} frames of 1-3 cubes "
+          f"written in {t_data:.1f} s; the CLI (its module-literal config: bf16, batch "
+          f"{YP_TRAIN_BATCH}, {YP_CLI_WORKERS} loader threads, --warmup-epochs 1) trained "
+          f"{n_train} steps over 2 epochs with --watch-every {YP_CLI_WATCH_EVERY} in {run_s:.1f} "
+          f"s: losses {[round(r['train/total'], 4) for r in train]}; {len(watch)} watch lines "
+          f"over {len(trained)} parameters; checkpoint {steps} (every 5 epochs) and "
+          f"model_config.json")
+    print_cli_time("train_yolo_pose cli", epochs, YP_TRAIN_BATCH, host_ms, YP_CLI_WORKERS, prof,
+                   YP_CLI_BATCHES, peak, card, profiled="second run's")
+    print(f"train_yolo_pose cli {time.perf_counter() - t0:.1f} s")
+    del state
+    torch.cuda.empty_cache()
+
+
 # The north_star CenterNet's early trunk at batch 32, each conv alone in
 # cuDNN: (name, C_in, C_out, kernel, stride, input H, W, dtype).
 EARLY_CONVS = (
@@ -4333,6 +4744,7 @@ def main(argv=None) -> int:
     int8_served, b_err = yolo_pose_int8_phase(card)
     served.update(int8_served)
     errs["mask_assembly_belief"] = max(errs["mask_assembly_belief"], b_err)
+    served["train_yolo_pose"] = train_yolo_pose_phase(card)
 
     def launches(path, row):
         kernel, entry = ROWS[row]

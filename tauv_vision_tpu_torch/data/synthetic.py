@@ -6,17 +6,21 @@ squares with their instance segmentation (``generate_square_seg_batch``,
 the YOLACT's).  Numpy on the host, bit-equal to the JAX package's on the
 same generator; the batch goes to the device at the step (``.to``).
 ``write_square_pose_dataset`` and ``write_square_seg_dataset`` write such
-squares as dataset directories, for the training CLIs' readers.
+squares as dataset directories, for the training CLIs' readers, and
+``write_square_fat_dataset`` writes projected cubes as a Falling Things
+tree, for the YOLO-Pose CLI's.
 """
 
 from __future__ import annotations
 
+import json
 import pathlib
 from dataclasses import dataclass
 from math import pi
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+from PIL import Image
 
 from tauv_vision_tpu_torch.configs.centernet import AngleConfig, ObjectConfig, ObjectConfigSet
 from tauv_vision_tpu_torch.data.dataset_dir import (
@@ -27,6 +31,11 @@ from tauv_vision_tpu_torch.data.dataset_dir import (
     write_splits,
 )
 from tauv_vision_tpu_torch.data.dataset_dir import BACKGROUND_SEG
+from tauv_vision_tpu_torch.data.falling_things import (
+    FallingThingsEnvironment,
+    FallingThingsObject,
+    FallingThingsVariant,
+)
 from tauv_vision_tpu_torch.train.centernet_task import CenternetTruth
 from tauv_vision_tpu_torch.train.yolact_task import YolactTruth
 
@@ -296,3 +305,116 @@ def write_square_seg_dataset(root: pathlib.Path, rng: np.random.Generator, n_tra
     write_splits(root, {"train": ids[:n_train], "val": ids[n_train:], "test": []})
     write_classes(root, list(labels))
     write_meta(root, "tauv_vision_tpu_torch", "synthetic squares", "2026-01-01T00:00:00")
+
+
+# The Falling Things exporter's intrinsics of its 960x540 frames
+# (``_camera_settings.json``), scaled with the frame by the writer.
+FAT_INTRINSICS = (768.1605834960938, 768.1605834960938, 480.0, 270.0)
+FAT_SIZE = (540, 960)
+FAT_SEG_ID = 12          # the exporter's segmentation id of the one object
+FAT_OBJECT = FallingThingsObject.MustardBottle   # the CLI's --object default
+FAT_SIDE = (0.1, 0.3)            # a cube's side, in frame heights at its depth
+FAT_DEPTH_CM = (40.0, 90.0)
+# A cube's corners in its own frame, in half-sides.
+CUBE_CORNERS = tuple((x, y, z) for x in (1, -1) for y in (1, -1) for z in (1, -1))
+
+
+def _quat_xyzw_about_z(theta: float) -> List[float]:
+    return [0.0, 0.0, float(np.sin(theta / 2)), float(np.cos(theta / 2))]
+
+
+def _fat_intrinsics(h: int, w: int) -> Tuple[float, float, float, float]:
+    fx, fy, cx, cy = FAT_INTRINSICS
+    return fx * w / FAT_SIZE[1], fy * h / FAT_SIZE[0], cx * w / FAT_SIZE[1], cy * h / FAT_SIZE[0]
+
+
+def _fat_cube_frame(rng: np.random.Generator, h: int, w: int, n_objects: int):
+    """One Falling Things frame of ``n_objects`` cubes of ``FAT_OBJECT``
+    planted in the camera's frame (at a depth in ``FAT_DEPTH_CM``, a side
+    that spans ``FAT_SIDE`` of the frame's height there, a turn about the
+    optical axis), their 8 corners projected through the
+    pinhole camera of ``FAT_INTRINSICS`` scaled to h x w, each painted as
+    the filled extent of its projection over noise (a later cube over an
+    earlier one), with the seg map (``FAT_SEG_ID`` on a cube, 0 elsewhere)
+    and a 16-bit depth map (1e-4 m units).  Returns (img uint8 [h, w, 3],
+    seg uint8 [h, w], depth uint16 [h, w], the ``.left.json`` dict)."""
+    fx, fy, cx, cy = _fat_intrinsics(h, w)
+    img = rng.integers(0, 77, (h, w, 3), np.uint8)
+    seg = np.zeros((h, w), np.uint8)
+    depth = np.full((h, w), 30000, np.uint16)
+    objects = []
+    for _ in range(n_objects):
+        side_px = float(rng.uniform(*FAT_SIDE)) * h
+        z = float(rng.uniform(*FAT_DEPTH_CM))
+        side_cm = side_px * z / fy
+        # The centre's projection lands a side inside the frame, so that
+        # the turned cube's projection stays inside.
+        u = float(rng.uniform(side_px, w - side_px))
+        v = float(rng.uniform(side_px, h - side_px))
+        location = np.array([(u - cx) * z / fx, (v - cy) * z / fy, z])
+        theta = float(rng.uniform(0, np.pi / 2))
+        rot = np.array([[np.cos(theta), -np.sin(theta), 0.0],
+                        [np.sin(theta), np.cos(theta), 0.0], [0.0, 0.0, 1.0]])
+        cuboid = location + (np.asarray(CUBE_CORNERS) * side_cm / 2) @ rot.T    # [8, 3] cm
+        projected = np.stack([fx * cuboid[:, 0] / cuboid[:, 2] + cx,
+                              fy * cuboid[:, 1] / cuboid[:, 2] + cy], axis=-1)  # (x, y)
+        x0, y0 = projected.min(axis=0)
+        x1, y1 = projected.max(axis=0)
+        rows, cols = slice(int(np.floor(y0)), int(np.ceil(y1))), slice(int(np.floor(x0)),
+                                                                         int(np.ceil(x1)))
+        img[rows, cols] = rng.integers(128, 256, 3, np.uint8)
+        seg[rows, cols] = FAT_SEG_ID
+        depth[rows, cols] = int(round(z * 100))      # cm -> 1e-4 m
+        objects.append({
+            "class": FAT_OBJECT.value.upper(),   # the reader lower-cases the class
+            "location": location.tolist(),
+            "quaternion_xyzw": _quat_xyzw_about_z(theta),
+            "bounding_box": {"top_left": [float(y0), float(x0)],
+                             "bottom_right": [float(y1), float(x1)]},
+            "cuboid_centroid": location.tolist(),
+            "projected_cuboid_centroid": [u, v],
+            "cuboid": cuboid.tolist(),
+            "projected_cuboid": projected.tolist(),
+        })
+    left = {"camera_data": {"location_worldframe": rng.uniform(-200, 200, 3).tolist(),
+                            "quaternion_xyzw_worldframe": [0.0, 0.0, 0.0, 1.0]},
+            "objects": objects}
+    return img, seg, depth, left
+
+
+def write_square_fat_dataset(root: pathlib.Path, rng: np.random.Generator, n_frames: int,
+                             h: int, w: int,
+                             environments: Sequence[FallingThingsEnvironment] = (
+                                 FallingThingsEnvironment.Kitchen0,),
+                             max_objects: int = 1, empty: Sequence[int] = ()) -> None:
+    """A Falling Things tree (``single/<FAT_OBJECT>/<env>/``) of ``n_frames``
+    ``_fat_cube_frame`` frames in each of ``environments``, each of 1 to
+    ``max_objects`` cubes, the frames whose index is in ``empty`` with no
+    object: ``NNNNNN.left.jpg``, ``.left.seg.png``, ``.left.depth.png``
+    and ``.left.json``, beside each environment's
+    ``_camera_settings.json`` and ``_object_settings.json``.  The other
+    environments' directories are made empty: the YOLO-Pose CLI reads
+    every environment."""
+    fx, fy, cx, cy = _fat_intrinsics(h, w)
+    for env in FallingThingsEnvironment:
+        directory = (pathlib.Path(root) / FallingThingsVariant.SINGLE.value
+                     / FAT_OBJECT.value / env.value)
+        directory.mkdir(parents=True, exist_ok=True)
+        with open(directory / "_camera_settings.json", "w") as fp:
+            json.dump({"camera_settings": [{
+                "name": "left", "horizontal_fov": 64,
+                "intrinsic_settings": {"fx": fx, "fy": fy, "cx": cx, "cy": cy, "s": 0},
+                "captured_image_size": {"width": w, "height": h}}]}, fp)
+        with open(directory / "_object_settings.json", "w") as fp:
+            json.dump({"exported_object_classes": [FAT_OBJECT.value],
+                       "exported_objects": [{"class": FAT_OBJECT.value,
+                                             "segmentation_class_id": FAT_SEG_ID}]}, fp)
+        for i in range(n_frames if env in environments else 0):
+            n = 0 if i in empty else int(rng.integers(1, max_objects + 1))
+            img, seg, depth, left = _fat_cube_frame(rng, h, w, n)
+            stem = directory / f"{i:06d}"
+            Image.fromarray(img).save(stem.with_suffix(".left.jpg"), format="JPEG")
+            Image.fromarray(seg).save(stem.with_suffix(".left.seg.png"), format="PNG")
+            Image.fromarray(depth).save(stem.with_suffix(".left.depth.png"), format="PNG")
+            with open(stem.with_suffix(".left.json"), "w") as fp:
+                json.dump(left, fp)

@@ -5,12 +5,15 @@
 - ``smooth_l1``: ``F.smooth_l1_loss`` with no reduction;
 - ``binary_cross_entropy``: with both the prediction and the target
   clipped to [eps, 1 - eps];
-- ``clip``: ``jnp.clip``, with its gradient 1/2 at a bound;
+- ``clip``: ``jnp.clip``, two-sided or from below, with its gradient 1/2
+  at a bound;
 - ``softmax_cross_entropy``: ``F.cross_entropy`` with integer labels and
   no reduction, over the last axis.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -42,14 +45,16 @@ def smooth_l1(prediction: torch.Tensor, truth: torch.Tensor, beta: float = 1.0) 
     return torch.where(diff < beta, 0.5 * diff ** 2 / beta, diff - 0.5 * beta)
 
 
-def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+def clip(x: torch.Tensor, lo: float, hi: Optional[float] = None) -> torch.Tensor:
     """``jnp.clip(x, lo, hi)``: minimum(hi, maximum(lo, x)), the bounds
-    rounded to x's dtype.  Its gradient is JAX's: 1 inside, 0 outside and
-    1/2 at a bound (``torch.maximum`` splits a tie as ``lax.max`` does;
-    ``torch.clamp`` would pass all of it)."""
-    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
-    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(hi_t, torch.maximum(lo_t, x))
+    rounded to x's dtype; with ``hi`` None, from below only (``jnp.clip(x,
+    lo)``).  Its gradient is JAX's: 1 inside, 0 outside and 1/2 at a bound
+    (``torch.maximum`` splits a tie as ``lax.max`` does; ``torch.clamp``
+    would pass all of it)."""
+    out = torch.maximum(torch.full((), lo, dtype=x.dtype, device=x.device), x)
+    if hi is None:
+        return out
+    return torch.minimum(torch.full((), hi, dtype=x.dtype, device=x.device), out)
 
 
 def binary_cross_entropy(prediction: torch.Tensor, truth: torch.Tensor,

@@ -17,8 +17,8 @@ with optax's f32 arithmetic:
   takes 1 - b^t in f64: optax's f32 1 - 0.999 is 1.3e-5 off, which moves
   an update by ~1e-5 relative, so it is replaced by ``ClippedAdam``;
 - the warm-up's learning rate at the t-th update (t from 0) is optax's
-  ``(0 - lr) (1 - min(t, warmup) / warmup) + lr`` in f32, so the first
-  update moves nothing.
+  ``(0 - lr) (1 - min(t, warmup) / warmup) + lr`` in f32, every operand
+  rounded to f32 first, so the first update moves nothing.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ class ClippedAdam(torch.optim.Optimizer):
         if warmup <= 0:
             return lr
         frac = 1.0 - _f32(min(group["count"], warmup)) / warmup
-        return _f32(_f32(_f32(-lr) * _f32(frac)) + lr)
+        return _f32(_f32(_f32(-lr) * _f32(frac)) + _f32(lr))
 
     @torch.no_grad()
     def step(self, closure=None):

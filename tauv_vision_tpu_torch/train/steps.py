@@ -1,17 +1,18 @@
 """Train and eval steps of the CenterNet and the YOLACT (counterpart of
 ``tauv_vision_tpu/train/steps.py``, without the mesh: data-parallel
-training comes later).
+training comes later), and YOLO-Pose's train step (the JAX YOLO-Pose
+CLI's ``loss_fn`` and ``make_step``, ``scripts/train_yolo_pose.py``).
 
 ``step(state, img, truth) -> (state, losses)``: img [B, 3, H, W] f32 and
-the truth (``CenternetTruth.to``, ``YolactTruth.to``) on the model's
-device.  A step sets the
+the truth (``CenternetTruth.to``, ``YolactTruth.to``,
+``YoloPoseTruth.to``) on the model's device.  A step sets the
 model's mode for its own forward and gives the modules back the modes they
 had, so a served net that shares the model is not left in training mode.
 Training runs with autograd on; it raises inside ``torch.inference_mode``,
 where no graph is recorded (the serving pipelines open one).  The train
 step's forward and optimizer step are ``torch.profiler`` ranges
-(``FORWARD``, ``OPTIMIZER``; the YOLACT's loss also ``LOSS``, inside
-``FORWARD``), which a profile reads the step's split from (on the card
+(``FORWARD``, ``OPTIMIZER``; the YOLACT's and YOLO-Pose's loss also
+``LOSS``, inside ``FORWARD``), which a profile reads the step's split from (on the card
 autograd runs the backward on a thread of its own, outside any range
 opened here).
 """
@@ -33,9 +34,11 @@ from tauv_vision_tpu_torch.configs.centernet import (
 from tauv_vision_tpu_torch.models.centerpoint_dla import sow_dcn_offsets
 from tauv_vision_tpu_torch.train.centernet_task import CenternetTruth, centernet_loss
 from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig, YolactTrainConfig
+from tauv_vision_tpu_torch.configs.yolo_pose import YoloPoseModelConfig
 from tauv_vision_tpu_torch.train.state import TrainState
 from tauv_vision_tpu_torch.train.watch import watch_metrics
 from tauv_vision_tpu_torch.train.yolact_task import YolactTruth, yolact_loss
+from tauv_vision_tpu_torch.train.yolo_pose_task import YoloPoseTruth, yolo_pose_loss
 
 
 FORWARD = "train_step/forward"
@@ -127,19 +130,15 @@ def make_centernet_eval_step(
     return step
 
 
-def make_yolact_train_step(
-    model_config: YolactModelConfig,
-    train_config: YolactTrainConfig,
-    watch: bool = False,
-):
-    """One optimizer step on the YOLACT loss of a batch: forward in
-    training mode (batch statistics, the running ones updated),
-    ``yolact_loss``, backward and the optimizer's step (clipping
-    included).  The losses come back detached, on the device.  ``watch``:
-    the step returns (state, losses, ``watch_metrics`` of the parameters
-    and raw gradients before the optimizer's step)."""
+def _loss_train_step(loss_fn, watch: bool):
+    """One optimizer step on ``loss_fn(prediction, truth)``: forward in
+    training mode (batch statistics, the running ones updated), the loss,
+    backward and the optimizer's step (clipping included).  The losses
+    come back detached, on the device.  ``watch``: the step returns
+    (state, losses, ``watch_metrics`` of the parameters and raw gradients
+    before the optimizer's step)."""
 
-    def step(state: TrainState, img: torch.Tensor, truth: YolactTruth):
+    def step(state: TrainState, img: torch.Tensor, truth):
         if torch.is_inference_mode_enabled():
             raise RuntimeError("a train step cannot run inside torch.inference_mode")
         model, optimizer = state.model, state.optimizer
@@ -148,7 +147,7 @@ def make_yolact_train_step(
             with record_function(FORWARD):
                 prediction = model(img)
                 with record_function(LOSS):
-                    losses = yolact_loss(prediction, truth, model_config, train_config)
+                    losses = loss_fn(prediction, truth)
             losses.total.backward()
         stats = watch_metrics(model) if watch else None
         with record_function(OPTIMIZER):
@@ -159,6 +158,31 @@ def make_yolact_train_step(
         return state, losses.detach()
 
     return step
+
+
+def make_yolact_train_step(
+    model_config: YolactModelConfig,
+    train_config: YolactTrainConfig,
+    watch: bool = False,
+):
+    """``_loss_train_step`` on ``yolact_loss`` (a ``YolactTruth``)."""
+    return _loss_train_step(
+        lambda prediction, truth: yolact_loss(prediction, truth, model_config, train_config),
+        watch)
+
+
+def make_yolo_pose_train_step(
+    model_config: YoloPoseModelConfig,
+    watch: bool = False,
+    max_positive_anchors: int = 16,
+):
+    """``_loss_train_step`` on ``yolo_pose_loss`` (a ``YoloPoseTruth``), as
+    the JAX YOLO-Pose CLI's step; there is no eval step (the JAX CLI has
+    none)."""
+    def loss(prediction, truth: YoloPoseTruth):
+        return yolo_pose_loss(prediction, truth, model_config, max_positive_anchors)
+
+    return _loss_train_step(loss, watch)
 
 
 def make_yolact_eval_step(model_config: YolactModelConfig, train_config: YolactTrainConfig):

@@ -123,10 +123,20 @@ class AnchorSets:
     top_valid: torch.Tensor     # [B, K] bool: which of them are positive
 
 
-@torch.no_grad()
 def match_anchors(prediction: YolactPrediction, truth: YolactTruth,
                   model_config: YolactModelConfig,
                   train_config: YolactTrainConfig) -> AnchorSets:
+    return match_anchor_sets(prediction, truth, model_config,
+                             train_config.max_positive_anchors)
+
+
+@torch.no_grad()
+def match_anchor_sets(prediction, truth, model_config, k_cap) -> AnchorSets:
+    """``match_anchors`` of any prediction with ``classification`` and
+    ``anchor`` (the YOLACT's, YOLO-Pose's) against any truth with ``box``
+    and ``valid``, under any config with the IoU thresholds and
+    ``negative_example_ratio``, the mask loss capped at ``k_cap`` anchors
+    a sample (None: no cap)."""
     cfg = model_config
     iou = iou_matrix(prediction.anchor[None], truth.box) * truth.valid[:, None, :].float()
     match_iou = iou.amax(dim=2)
@@ -142,7 +152,6 @@ def match_anchors(prediction: YolactPrediction, truth: YolactTruth,
     k = cfg.negative_example_ratio * positive.sum(dim=1, keepdim=True)  # [B, 1]
     selected = positive | (negative & (neg_rank < k) & torch.isfinite(neg_scores))
 
-    k_cap = train_config.max_positive_anchors
     if k_cap is None:
         top_anchor = match_index[:, :0]
         top_valid = positive[:, :0]
