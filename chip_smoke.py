@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Twelve served paths: five pair a CenterNet with a YOLACT through
-``make_combined_pipeline``, two serve the CenterNet and the YOLACT as
-int8 chains in two requests, as ``bench.py`` times them, two serve
-the CenterNet node's full configuration alone, and three serve YOLO-Pose:
+Sixteen served paths: five pair a CenterNet with a YOLACT through
+``make_combined_pipeline``, six serve the CenterNet and the YOLACT in
+int8 as two requests, as ``bench.py`` times them, two serve the
+CenterNet node's full configuration alone, and three serve YOLO-Pose:
 
 - ``plain_ida``: the CenterpointDLA34 with plain-conv IDA (the IDA that
   ``bench.py`` serves with no flags), all f32, beside the f32 YOLACT;
@@ -57,7 +57,21 @@ the CenterNet node's full configuration alone, and three serve YOLO-Pose:
   channels or more int8, heads included, f32 joins, the protonet's
   transposed convs in bf16, ``configs.BENCH_YOLO_POSE.chain``);
 - ``yolo_pose_per_layer_int8``: its ``--per-layer-int8`` rung, the bf16
-  net with each calibrated conv computed in int8 (``quantized_call``).
+  net with each calibrated conv computed in int8 (``quantized_call``);
+- ``parity_int8``: ``bench.py --parity-int8`` (``configs.PARITY_INT8``,
+  ``serving/int8_pair.py``): ``chain_int8``'s bf16 CenterNet as an int8
+  chain with per-channel scales of 2 frames and its bf16 tail
+  (``head_``, ``level0_``, ``level1_``, ``ida_up``, ``dla_up``) in bf16,
+  and the bf16 YOLACT as an int8 chain with per-channel scales, its
+  prediction head and ``protonet/output`` in bf16, f32 joins, bf16
+  protonet upsamples; ``parity_int8_corrected`` adds ``--mse
+  --bias-correct`` (MSE-refined scales, bias corrections) and
+  ``parity_int8_seq`` ``--mse --seq-correct`` (the sequential fits' gains
+  and corrections on 4 frames);
+- ``per_layer_int8``: ``bench.py --per-layer-int8`` on the pair
+  (``configs.PER_LAYER_INT8``): both bf16 nets with every conv of 16
+  input channels or more in int8 through ``quantized_call``, per-tensor
+  scales, kernel C inside the CenterNet.
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -145,16 +159,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
 6. train: the DCN CenterNet as the JAX package trains it (bf16, the
    3-cell DCN window, the flax init) on the synthetic squares at batch 32
    and 360x640: the kernel path's train step against the plain path's
-   (f32 at batch 8, bf16 at 32), 10 overfit steps through ``Trainer``,
+   (f32 at batch 8, bf16 at 32), 6 overfit steps through ``Trainer``,
    kernels C and E at the trained net's calls, a checkpoint round trip,
    two steps from one checkpoint run twice (with cuDNN's default and its
    deterministic algorithms: which gradients repeat bit for bit, and the
    step's time), the timed step and its ``torch.profiler`` split;
 7. train_cli: the training CLI (``scripts/train_centernet.py``) on two
-   dataset directories of 48 train and 16 val 640x360 PNGs each (the
+   dataset directories of 32 train and 16 val 640x360 PNGs each (the
    squares with ``samples_torpedo``'s four classes, written by the port's
    writer), ``samples_torpedo`` at full width and batch 32: two epochs of
-   3 batches with watch lines every 2 steps, then a warm start from its
+   2 batches with watch lines every 2 steps, then a warm start from its
    checkpoint for one epoch; every loss finite, the restored parameters
    and Adam moments equal to the saved ones, the watch lines covering
    every trained parameter, 8 C and 16 E launches a forward; the CLI's
@@ -171,8 +185,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    first loss, a checkpoint round trip, two steps from one checkpoint run
    twice (both losses and every gradient bit-equal), the timed step
    with its ``torch.profiler`` split; then the CLI on four directories of
-   48 train and 12 val 640x360 PNGs with seg maps, 8 loader threads: two
-   epochs of 8 batches with watch lines, a warm start, the CLI's images/s
+   24 train and 12 val 640x360 PNGs with seg maps, 8 loader threads: two
+   epochs of 4 batches with watch lines, a warm start, the CLI's images/s
    with host reading included, the loader's host ms a batch and the
    device's idle share.  JAX's YOLACT training reaches no Pallas kernel,
    so the phase launches none of the port's;
@@ -225,11 +239,33 @@ Phases, each fatal on failure (exit code != 0, no result line):
    equal, the next loss bit-equal), two steps from one checkpoint run
    twice (bit-equal), the timed step at batch 4 and 16 with its
    ``torch.profiler`` split and peak memory; then the CLI on a tree of two
-   environments of 24 frames, 4 loader threads: two epochs of 8 batches
+   environments of 24 frames, 4 loader threads: two epochs of 4 batches
    with watch lines, then a profiled epoch; the CLI's images/s with host
    reading included, the loader's host ms a batch and the device's idle
    share.  JAX's YOLO-Pose training reaches no Pallas kernel, so the phase
-   launches none of the port's.
+   launches none of the port's;
+12. int8_pair: the four paths above: each calibrated on the card as
+   ``bench.py`` calibrates it (``int8_pair.calibrate_pair``: the convs
+   counted, the gains and corrections finite); 4 requests of 8 frames,
+   kernels A, B and C counted from 0 (one A, one B and 8 bf16 C a
+   request, nothing else), held to the plain versions (decodes 100%
+   matched, CenterNet p95 <= 1e-3, masks within 1e-5); ``parity_int8``,
+   ``parity_int8_seq`` and ``per_layer_int8`` at batch 32 as the chain
+   pairs (frames/s, kernels and plain; busy time and idle share), and each
+   net's forward with its device split (im2col, ``_int_mm``, C, cuDNN,
+   the rest);
+13. qat: ``qat.qat_distill`` on ``parity_int8``'s bf16 CenterNet at
+   360x640 on a fixed batch of 8 synthetic squares
+   (``generate_square_batch``), per-channel scales stripped of ``head_``
+   (the JAX default ``--qat-strip``): 10 steps at the recipe's lr 2e-5,
+   timed (ms a step, peak memory), their losses printed; 10 steps at
+   1e-6, gated: the distillation loss finite and lower after than before,
+   every fake-quantized conv's weight gradient finite and non-zero, 8
+   bf16 C launches a forward of the student and of the teacher; then the
+   distilled weights served through a fresh ``parity_int8`` pair
+   (calibrated anew, 2 requests, kernels against plain as in phase 12).
+
+Each phase prints its seconds, and the script its total.
 
 Prints one JSON line describing the kernels, with each kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -261,12 +297,16 @@ import torch.nn.functional as F
 from tauv_vision_tpu_torch import kernels
 from tauv_vision_tpu_torch.configs import (
     BENCH_YOLO_POSE,
+    CALIBRATION_FRAMES,
     CHAIN_INT8,
     DCN_CHAIN_INT8,
     DCN_NORTH_STAR,
     INT8_CHAIN_YOLACT,
     KEYPOINTS,
     NORTH_STAR,
+    PARITY_INT8,
+    PER_LAYER_INT8,
+    SEQ_FRAMES,
     ClassConfig,
     ClassConfigSet,
     centernet_config,
@@ -347,7 +387,11 @@ from tauv_vision_tpu_torch.serving.pipeline import (
     make_yolact_pipeline,
     make_yolo_pose_pipeline,
 )
-from tauv_vision_tpu_torch.serving import quantize
+from tauv_vision_tpu_torch.serving import qat, quantize
+from tauv_vision_tpu_torch.serving.int8_pair import (
+    calibrate_pair,
+    make_int8_pair_pipelines,
+)
 from tauv_vision_tpu_torch.serving.quantize import calibrate, quantized_call, strip_scales
 from tauv_vision_tpu_torch.serving.quantize_chain import (
     ChainCtx,
@@ -507,9 +551,12 @@ YP_INT8, YP_PER_LAYER = "yolo_pose_int8", "yolo_pose_per_layer_int8"
 ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8, "train", "train_cli",
                                                              "train_yolact", "yolo_pose",
                                                              YP_INT8, YP_PER_LAYER,
-                                                             "train_yolo_pose")
-PAIR_ITERS = 5        # timed repetitions of a pair path's request at batch 32
-CHAIN_ITERS = 5       # of each of a chain pair's two requests
+                                                             "train_yolo_pose", "parity_int8",
+                                                             "parity_int8_corrected",
+                                                             "parity_int8_seq", "per_layer_int8",
+                                                             "qat")
+PAIR_ITERS = 3        # timed repetitions of a pair path's request at batch 32
+CHAIN_ITERS = 3       # of each of a chain pair's two requests
 # The paths beside an int8-chain YOLACT, and its recipe on each.
 CHAIN_RECIPES = {"int8_chain": INT8_CHAIN_YOLACT, "north_star": NORTH_STAR.yolact,
                  "dcn_north_star": DCN_NORTH_STAR.yolact}
@@ -523,6 +570,14 @@ CHAIN_P95 = 1e-3
 DCN_PATHS = ("dcn_ida", "dcn_north_star")
 # The bf16 CenterNets: {path: (recipe, the f32 path whose weights it serves)}.
 BF16_NETS = {"north_star": (NORTH_STAR, "plain_ida"), "dcn_north_star": (DCN_NORTH_STAR, "dcn_ida")}
+
+
+def lap(label: str, since: float) -> float:
+    """Print the seconds since ``since`` as a section of a phase; returns
+    now."""
+    now = time.perf_counter()
+    print(f"section {label}: {now - since:.1f} s")
+    return now
 
 
 def fail(msg: str) -> None:
@@ -2099,6 +2154,7 @@ def abba(kernel_fn, plain_fn, iters: int, warmup: int = 3, timer=time_ms):
 
 def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, profile_dir,
                kp_net, kp_maps):
+    t_start = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(1)
     b = CHECK_BATCH
     times, bounds, device = {}, {}, {}
@@ -2178,15 +2234,15 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         window = nets[path][1].deform_convs()[0].max_offset
         timed(row, lambda: [deform_conv2d_cuda(*c, taps=t, max_offset=window)
                             for c, t in zip(dcns, taps)],
-              lambda: [deform_conv2d(*c, max_offset=window) for c in dcns], 20)
+              lambda: [deform_conv2d(*c, max_offset=window) for c in dcns], 10)
         bounds[row] = dcn_bound(dcns)
         dcn_rows[row] = (dcns, taps, window)
         other = None if window is not None else DCN_WINDOW
         o_ms, o_plain = abba(lambda: [deform_conv2d_cuda(*c, taps=t, max_offset=other)
                                       for c, t in zip(dcns, taps)],
-                             lambda: [deform_conv2d(*c, max_offset=other) for c in dcns], 10)
+                             lambda: [deform_conv2d(*c, max_offset=other) for c in dcns], 5)
         o_dev = queued_ms(lambda: [deform_conv2d_cuda(*c, taps=t, max_offset=other)
-                                   for c, t in zip(dcns, taps)], 10)
+                                   for c, t in zip(dcns, taps)], 5)
         print(f"time {row} at window {other} (the row's own: {window}), all {N_DCN} calls of "
               f"one batch-{b} {path} forward: kernel {o_ms:.4f} ms ({o_dev:.4f} ms on the "
               f"device), plain {o_plain:.4f} ms, bound {bounds[row][0]:.4f} ms "
@@ -2244,7 +2300,7 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         for (shape, o), (c, n_calls) in dcn_shapes(dcns).items():
             t = deform_conv.kernel_weights(c[3])
             k_ms, p_ms = abba(lambda: deform_conv2d_cuda(*c, taps=t, max_offset=window),
-                              lambda: deform_conv2d(*c, max_offset=window), 10, timer=queued_ms)
+                              lambda: deform_conv2d(*c, max_offset=window), 5, timer=queued_ms)
             print(f"time {row} {shape} -> O={o} window {window} (x{n_calls} a forward, plan "
                   f"{dcn_plan(shape, o, c[0].dtype)}): kernel {k_ms:.4f} ms on the "
                   f"device = {dcn_flop([c]) / 1e9 / k_ms:.2f} TFLOP/s, plain {p_ms:.4f} ms "
@@ -2303,6 +2359,7 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
     p1_verdict(p1_rows, early_convs(cn_cfg, card), card)
 
     device = torch.device("cuda")
+    t_sec = lap("time kernels", t_start)
     frames = request_frames(1, (FPS_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
     pipes = {}
     for path, (cn, cn_plain) in nets.items():
@@ -2313,6 +2370,7 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
               f"frames/s, plain {p_ms:.3f} ms = {FPS_BATCH * 1000 / p_ms:.2f} frames/s "
               f"({card})")
         pipes[path] = pipe
+    t_sec = lap("time pair paths", t_sec)
 
     # The request's stages one by one, on device-resident frames.
     knobs = SERVING_DECODE
@@ -2356,10 +2414,12 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         }
         for fn in stages.values():
             fn()
-        stage_ms = {name: time_ms(fn, 5) for name, fn in stages.items()}
+        stage_ms = {name: time_ms(fn, 3) for name, fn in stages.items()}
     print(f"time stages batch {FPS_BATCH}: " + ", ".join(
         f"{name} {ms:.3f} ms" for name, ms in stage_ms.items()) + f" ({card})")
+    t_sec = lap("time pair stages", t_sec)
     time_keypoints(kp_net, card)
+    lap("time keypoints", t_sec)
     print(f"peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     if profile_dir is not None:
@@ -2407,8 +2467,8 @@ def time_keypoints(kp_net, card):
     knobs = SERVING_DECODE
     frames = request_frames(7, (KP_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
     pipe, plain = keypoint_pipelines(kp_net, device, knobs)
-    k_ms, p_ms = abba(lambda: pipe(frames), lambda: plain(frames), 10)
-    busy_ms, n_kernels = device_busy(lambda: pipe(frames))
+    k_ms, p_ms = abba(lambda: pipe(frames), lambda: plain(frames), 5)
+    busy_ms, n_kernels = device_busy(lambda: pipe(frames), reps=1)
     idle = "not measured" if busy_ms is None else f"{1 - busy_ms / k_ms:.1%}"
     print(f"time pipeline keypoints batch {KP_BATCH} (upload + resize + bf16 CenterNet + "
           f"decode + matcher + PnP): kernels {k_ms:.3f} ms = {KP_BATCH * 1000 / k_ms:.2f} "
@@ -2443,8 +2503,8 @@ def time_keypoints(kp_net, card):
         }
         for fn in stages.values():
             fn()
-        stage_ms = {name: time_ms(fn, 10) for name, fn in stages.items()}
-        busy = {name: device_busy(fn) for name, fn in stages.items()}
+        stage_ms = {name: time_ms(fn, 3) for name, fn in stages.items()}
+        busy = {name: device_busy(fn, reps=1) for name, fn in stages.items()}
     print(f"time stages keypoints batch {KP_BATCH} (ms back to back; device kernels and "
           f"copies a call, ms busy): " + ", ".join(
               f"{name} {ms:.3f} ({busy[name][1]}, {busy[name][0]})"
@@ -2560,7 +2620,7 @@ def time_chain_paths(chains, nets, cn_cfg, yl, yl_cfg, yl_scales, kp_net, kp_sca
         }
         for fn in stages.values():
             fn()
-        stage_ms = {name: time_ms(fn, 5) for name, fn in stages.items()}
+        stage_ms = {name: time_ms(fn, 3) for name, fn in stages.items()}
         print(f"time stages chain pairs batch {FPS_BATCH}: " + ", ".join(
             f"{name} {ms:.3f} ms" for name, ms in stage_ms.items()) + f" ({card})")
         for tag, fwd, wall in (("chain_int8", cn_fwd,
@@ -2587,9 +2647,9 @@ def time_chain_paths(chains, nets, cn_cfg, yl, yl_cfg, yl_scales, kp_net, kp_sca
     kp_frames = request_frames(7, (KP_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
     pipe, plain = keypoint_chain_pipelines(kp_net, kp_scales)
     bf16_pipe, _ = keypoint_pipelines(kp_net, device, knobs)
-    k_ms, p_ms = abba(lambda: pipe(kp_frames), lambda: plain(kp_frames), 5)
-    b_ms, _ = abba(lambda: bf16_pipe(kp_frames), lambda: pipe(kp_frames), 5)
-    busy_ms, n_kernels = device_busy(lambda: pipe(kp_frames))
+    k_ms, p_ms = abba(lambda: pipe(kp_frames), lambda: plain(kp_frames), 3)
+    b_ms, _ = abba(lambda: bf16_pipe(kp_frames), lambda: pipe(kp_frames), 3)
+    busy_ms, n_kernels = device_busy(lambda: pipe(kp_frames), reps=1)
     idle = "not measured" if busy_ms is None else f"{1 - busy_ms / k_ms:.1%}"
     kp = kp_net[0]
     img = preprocess(kp_frames.to(device), (kp_net[3].in_h, kp_net[3].in_w), IMAGENET_MEAN,
@@ -2597,7 +2657,7 @@ def time_chain_paths(chains, nets, cn_cfg, yl, yl_cfg, yl_scales, kp_net, kp_sca
     kp_fwd = keypoint_chain_forward(kp, kp_scales, "kernel")
     with torch.inference_mode():
         kp_fwd(img)
-        fwd_ms, bf16_fwd_ms = abba(lambda: kp_fwd(img), lambda: kp(img), 5)
+        fwd_ms, bf16_fwd_ms = abba(lambda: kp_fwd(img), lambda: kp(img), 3)
     print(f"time pipeline {KP_INT8} batch {KP_BATCH} (upload + bf16 preprocess + int8 chain + "
           f"decode + matcher + PnP): kernels {k_ms:.3f} ms = {KP_BATCH * 1000 / k_ms:.2f} "
           f"frames/s, plain {p_ms:.3f} ms = {KP_BATCH * 1000 / p_ms:.2f} frames/s, the bf16 "
@@ -2612,8 +2672,8 @@ def time_chain_paths(chains, nets, cn_cfg, yl, yl_cfg, yl_scales, kp_net, kp_sca
 TRAIN_BATCH = 32          # samples_torpedo's batch, at its 360x640
 TRAIN_F32_BATCH = 8
 TRAIN_OBJECTS = 16        # squares a frame at most: 64 keypoint slots, max_keypoints' default
-OVERFIT_STEPS = 10
-TRAIN_TIMED_STEPS = 3
+OVERFIT_STEPS = 6
+TRAIN_TIMED_STEPS = 2
 # A train step is sensitive to its last bits (training BatchNorm on the
 # deepest levels, ReLU kinks, the DCN): the kernel path is held to the
 # plain path within the larger of a bar and YARDSTICK times the plain
@@ -2838,6 +2898,7 @@ def train_phase(errs, card):
           f"{int(truth_np.keypoint_valid.sum())} keypoints ({time.perf_counter() - t0:.1f} s)")
     check_train_step(torch.float32, TRAIN_F32_BATCH, data)
     check_train_step(torch.bfloat16, TRAIN_BATCH, data)
+    t_sec = lap("train kernel vs plain steps", t0)
 
     # The overfit: Trainer on one batch, as the CLI's --overfit runs it.
     model = train_model(oc, torch.bfloat16)
@@ -2866,6 +2927,7 @@ def train_phase(errs, card):
           f"launches {want}")
     # The kernels at the trained net's calls, whose offsets have moved off 0.
     check_train_kernel_calls(errs, data, state.model.state_dict())
+    t_sec = lap("train overfit and kernel calls", t_sec)
 
     # Checkpoint: save, restore into a fresh model and optimizer (the same
     # parameters, statistics, moments and count), and the next step's loss
@@ -2907,7 +2969,9 @@ def train_phase(errs, card):
         del fresh
         torch.cuda.empty_cache()
         repeat_steps(restored, step, img, truth, card)
+    t_sec = lap("train checkpoint and repeats", t_sec)
     time_train(state, img, truth, step, card)
+    lap("train timed step and split", t_sec)
     print(f"train phase {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -3007,9 +3071,9 @@ def time_train(state, img, truth, step, card):
 
 # ---- phase 7: train_cli -------------------------------------------------
 
-CLI_TRAIN, CLI_VAL = 48, 16   # samples of each of the two dataset directories
+CLI_TRAIN, CLI_VAL = 32, 16   # samples of each of the two dataset directories
 CLI_DATASETS = 2
-CLI_BATCHES = 3               # --epoch-n-batches
+CLI_BATCHES = 2               # --epoch-n-batches
 CLI_WATCH_EVERY = 2
 CLI_SIDES = (24.0, 96.0)      # the squares' sides in pixels, at 360x640
 CLI_CONFIG = """
@@ -3213,6 +3277,7 @@ def train_cli_phase(card):
                     "--watch-every", str(CLI_WATCH_EVERY)])
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t2
+            t3 = lap("train_cli data, loader and first run", t0)
             launches = (dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES),
                         dict(kernels.VARIANT_LAUNCHES))
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3221,6 +3286,7 @@ def train_cli_phase(card):
                     "--results-dir", str(base / "warm"), "--config", "cli_warm",
                     "--checkpoint", str(base / "run" / "checkpoints")])
                 torch.cuda.synchronize()
+            t3 = lap("train_cli profiled warm start", t3)
         finally:
             sys.path.remove(str(base))
             for name in ("cli_config", "cli_warm"):
@@ -3234,6 +3300,7 @@ def train_cli_phase(card):
 
         train, val, warm_train, watch, steps, trained = check_cli_runs(
             "train_cli", base, state, warm, CLI_BATCHES, CLI_WATCH_EVERY, fresh_state)
+        lap("train_cli checks", t3)
 
     n_train = 2 * CLI_BATCHES
     n_val = 2 * (CLI_DATASETS * CLI_VAL // tc.batch_size)
@@ -3272,7 +3339,7 @@ YL_TIMED_STEPS = 3
 YL_LOSS_RTOL = 1e-5       # card against CPU, each loss on the same predictions
 YL_OHEM_TIES = 400        # negatives a sample given one classification row
 YL_CLI_DATASETS = 4      # directories, written on as many threads
-YL_CLI_TRAIN, YL_CLI_VAL = 48, 12   # samples of each: epochs of 8 batches, val 2
+YL_CLI_TRAIN, YL_CLI_VAL = 24, 12   # samples of each: epochs of 4 batches, val 2
 YL_CLI_WORKERS = 8
 YL_CLI_WATCH_EVERY = 2
 
@@ -3596,7 +3663,7 @@ def yolact_cli_config(**changes):
 
 def train_yolact_cli(card):
     """The YOLACT CLI on PNG dataset directories at its full configuration:
-    two epochs of 8 batches with watch lines, then a warm start."""
+    two epochs of 4 batches with watch lines, then a warm start."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -3671,7 +3738,7 @@ def train_yolact_cli(card):
 
 YP_BATCH = 16             # bench.py --yolo-pose's batch
 YP_REQUESTS = 2
-YP_ITERS = 5              # timed requests of each kind
+YP_ITERS = 3              # timed requests of each kind
 YP_SEED = 11
 YP_POSE_ATOL = 1e-3       # PnP on the card against the CPU, same keypoints
 YP_TIE = 1e-5             # a belief map's top two values this close: a near-tie
@@ -3942,7 +4009,7 @@ def time_yolo_pose(net, proto, coeff, card):
     for pnp in (True, False):
         pipe, plain = yolo_pose_pipelines(net, pnp=pnp)
         k_ms, p_ms = abba(lambda: pipe(frames), lambda: plain(frames), YP_ITERS)
-        busy_ms, n_kernels = device_busy(lambda: pipe(frames))
+        busy_ms, n_kernels = device_busy(lambda: pipe(frames), reps=1)
         idle = "not measured" if busy_ms is None else f"{1 - busy_ms / k_ms:.1%}"
         what = "with PnP" if pnp else "without PnP"
         print(f"time pipeline yolo_pose {what} batch {YP_BATCH} (upload + resize + bf16 "
@@ -3970,7 +4037,7 @@ def time_yolo_pose(net, proto, coeff, card):
         for fn in stages.values():
             fn()
         stage_ms = {name: time_ms(fn, YP_ITERS) for name, fn in stages.items()}
-        busy = {name: device_busy(fn) for name, fn in stages.items()}
+        busy = {name: device_busy(fn, reps=1) for name, fn in stages.items()}
     print(f"time stages yolo_pose batch {YP_BATCH} (ms back to back; device kernels and copies "
           f"a call, ms busy): " + ", ".join(f"{name} {ms:.3f} ({busy[name][1]}, "
                                             f"{busy[name][0]})"
@@ -3980,7 +4047,7 @@ def time_yolo_pose(net, proto, coeff, card):
 
 # ---- phase 10 -----------------------------------------------------------
 
-YP_INT8_ITERS = 5         # timed requests of each kind
+YP_INT8_ITERS = 3         # timed requests of each kind
 YP_RUNGS = (YP_INT8, YP_PER_LAYER)
 # The Pointnet's 7x7 convs at the bench's call (30x60 maps, 64 out): the
 # stage-0 convs read 64 channels, stage 1's first (belief, affinity, FPN
@@ -4253,7 +4320,7 @@ YP_TRAIN_LR = 1e-4        # the CLI's --lr
 YP_WARMUP = 5
 YP_OVERFIT_STEPS = 60
 YP_OVERFIT_BAR = 0.6      # tests/test_integration_train.py:207, as train_yolact's
-YP_TRAIN_TIMED = 5
+YP_TRAIN_TIMED = 3
 YP_LOSS_RTOL = 1e-5       # card against CPU, each loss on the same predictions
 YP_OHEM_TIES = 400        # negatives a sample given one classification row
 # Their background logit: below any of the random net's 21-class rows, so
@@ -4262,7 +4329,7 @@ YP_TIED_BG_LOGIT = -30.0
 YP_COPIES = 20            # truth slots added to a sample, copies of level-0 anchors
 YP_CLI_FRAMES = 24        # frames in each of the CLI's two environments
 YP_CLI_ENVIRONMENTS = (FallingThingsEnvironment.Kitchen0, FallingThingsEnvironment.Temple3)
-YP_CLI_BATCHES = 8        # --epoch-n-batches
+YP_CLI_BATCHES = 4        # --epoch-n-batches
 YP_CLI_WATCH_EVERY = 2
 YP_CLI_WORKERS = 4        # the CLI's BatchLoader threads
 
@@ -4694,6 +4761,278 @@ def p1_verdict(rows, early, card):
               f"(estimate) ({card})")
 
 
+# ---- phase 12: int8_pair ------------------------------------------------
+
+# The pair's two other int8 profiles of bench.py, each its CenterNet and
+# its YOLACT as two requests (bench.py:1620-1627): --parity-int8 plain,
+# with --mse --bias-correct and with --mse --seq-correct, and
+# --per-layer-int8.
+PAIR_INT8 = {"parity_int8": PARITY_INT8,
+             "parity_int8_corrected": dataclasses.replace(PARITY_INT8, mse=True,
+                                                          bias_correct=True),
+             "parity_int8_seq": dataclasses.replace(PARITY_INT8, mse=True, seq_correct=True),
+             "per_layer_int8": PER_LAYER_INT8}
+PAIR_INT8_TIMED = ("parity_int8", "parity_int8_seq", "per_layer_int8")
+# Calibrated convs of the CenterNet and the YOLACT: the parity chains
+# strip the bf16 tail (bench.py:1373) and the YOLACT's head and protonet
+# output; per layer, every conv of 16 input channels or more, the two
+# projections the JAX forward discards included (their keys come from the
+# tree's own projection).
+PAIR_INT8_CONVS = {"parity": (36, 30), "per_layer": (60, 38)}
+
+
+def int8_pair_nets(nets, yl, yl_cfg):
+    """({impl: the recipe's bf16 CenterNet with f32 BatchNorm outputs on
+    ``plain_ida``'s weights, kernel C or its plain version}, the bf16
+    YOLACT on ``yl``'s weights), as ``bench.py`` builds them for these
+    profiles."""
+    device = torch.device("cuda")
+    oc, _ = centernet_config()
+    cns = {}
+    for impl in ("kernel", "plain"):
+        cn = CenterpointDLA34(oc, up_impl=impl, device=device,
+                              **PARITY_INT8.centernet_kwargs()).eval()
+        cn.load_state_dict(nets["plain_ida"][0].state_dict())
+        cns[impl] = cn
+    yl_bf16 = Yolact(yl_cfg, device=device, dtype=PARITY_INT8.input_dtype).eval()
+    yl_bf16.load_state_dict(yl.state_dict())
+    return cns, yl_bf16
+
+
+def int8_pair_pipes(recipe, cns, cn_cfg, yl_bf16, cal, knobs=SERVING_DECODE):
+    """{impl: (CenterNet pipeline, YOLACT pipeline)} of a recipe."""
+    return {impl: make_int8_pair_pipelines(recipe, cns[impl], cn_cfg, yl_bf16, cal,
+                                           torch.device("cuda"), knobs, impl=impl)
+            for impl in ("kernel", "plain")}
+
+
+def serve_int8_pair(path, recipe, cns, cn_cfg, yl_bf16, cal, n_requests=N_REQUESTS, seed=0):
+    """Serve ``n_requests`` requests of 8 frames of a pair profile (its two
+    requests each), every launch counted from 0, and hold them to the same
+    requests on the plain versions: decodes 100% matched, CenterNet p95 <=
+    1e-3; returns (launches by kernel, by entry point, by variant)."""
+    requests = [request_frames(seed, (n_requests, CHECK_BATCH, FRAME_H, FRAME_W, 3))[i]
+                .pin_memory() for i in range(n_requests)]
+    pipes = int8_pair_pipes(recipe, cns, cn_cfg, yl_bf16, cal)
+    (cn_pipe, yl_pipe), (cn_plain, yl_plain) = pipes["kernel"], pipes["plain"]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    answers = [(cn_pipe(r), yl_pipe(r)) for r in requests]
+    torch.cuda.synchronize()
+    launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+    variants = dict(kernels.VARIANT_LAUNCHES)
+    check_chain_launches(path, cns["kernel"], n_requests, launches, entries)
+    plain_answers = [(cn_plain(r), yl_plain(r)) for r in requests]
+    _, cn_p95, mask_err = check_answers(path, answers, plain_answers, CHECK_BATCH)
+    require(all(v <= CHAIN_P95 for v in cn_p95.values()),
+            f"{path}: CenterNet decode kernel vs plain p95 {cn_p95} (bar {CHAIN_P95})")
+    print(f"serve {path}: {n_requests} requests x {CHECK_BATCH} frames, each the CenterNet and "
+          f"the YOLACT, launches {launches} (kernel C: "
+          f"{entries['tauv_depthwise_upsample_bf16']} bf16); decoded kernel vs plain (score "
+          f"threshold 0): CenterNet and YOLACT 100% matched, CenterNet p95 {cn_p95} (bar "
+          f"{CHAIN_P95}), mask max_abs_err {mask_err:.3g}")
+    return launches, entries, variants
+
+
+def calibrate_int8_pair(path, recipe, cn, cn_cfg, yl_bf16, frames):
+    """``calibrate_pair`` on the card, its convs counted, and what its
+    options made printed."""
+    cal = calibrate_pair(recipe, cn, cn_cfg, yl_bf16, frames)
+    want = PAIR_INT8_CONVS["per_layer" if recipe.per_layer else "parity"]
+    got = tuple(len(c.scales) for c in cal)
+    require(got == want, f"{path}: {got} calibrated convs (CenterNet, YOLACT), expected {want}")
+    for name, c in zip(("CenterNet", "YOLACT"), cal):
+        for what in ("gains", "corrections"):
+            table = getattr(c, what)
+            if table is None:
+                continue
+            values = np.concatenate([np.asarray(v).ravel() for v in table.values()])
+            require(np.isfinite(values).all(), f"{path}: {name} {what} not finite")
+            print(f"calibrate {path} {name}: {len(table)} {what}, range "
+                  f"[{values.min():.4g}, {values.max():.4g}]")
+    return cal
+
+
+def time_int8_pair(path, recipe, cns, cn_cfg, yl_bf16, yl_cfg, cal, card):
+    """A pair profile at batch 32 as bench.py times it (the batch over
+    the sum of its two requests), kernels and plain; the device's busy
+    time and idle share; each net's forward and its device split."""
+    device = torch.device("cuda")
+    frames = request_frames(1, (FPS_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    pipes = int8_pair_pipes(recipe, cns, cn_cfg, yl_bf16, cal)
+    (cn_k, yl_k), (cn_p, yl_p) = pipes["kernel"], pipes["plain"]
+    cn_ms, cn_plain_ms = abba(lambda: cn_k(frames), lambda: cn_p(frames), CHAIN_ITERS)
+    yl_ms, yl_plain_ms = abba(lambda: yl_k(frames), lambda: yl_p(frames), CHAIN_ITERS)
+    busy_ms, n_kernels = device_busy(lambda: (cn_k(frames), yl_k(frames)))
+    wall = cn_ms + yl_ms
+    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / wall:.1%}"
+    print(f"time pipeline {path} batch {FPS_BATCH} (bench.py's two requests, each upload + bf16 "
+          f"preprocess + int8 forward + decode): CenterNet {cn_ms:.3f} ms, YOLACT {yl_ms:.3f} "
+          f"ms, kernels {FPS_BATCH * 1000 / wall:.2f} frames/s, plain CenterNet "
+          f"{cn_plain_ms:.3f} ms, YOLACT {yl_plain_ms:.3f} ms = "
+          f"{FPS_BATCH * 1000 / (cn_plain_ms + yl_plain_ms):.2f} frames/s; the kernels' pair: "
+          f"{n_kernels} device kernels and copies, busy {busy_ms} ms, the device idle {idle} "
+          f"({card})")
+    cn_fwd, yl_fwd = cn_k.forward, yl_k.forward
+    with torch.inference_mode():
+        on_card = frames.to(device)
+        images = {
+            "CenterNet": (cn_fwd, preprocess(on_card, (cn_cfg.in_h, cn_cfg.in_w), IMAGENET_MEAN,
+                                             IMAGENET_STDDEV, recipe.input_dtype)),
+            "YOLACT": (yl_fwd, preprocess(on_card, (yl_cfg.in_h, yl_cfg.in_w), yl_cfg.img_mean,
+                                          yl_cfg.img_stddev, recipe.input_dtype))}
+        for name, (fwd, img) in images.items():
+            fwd(img)
+            fwd_ms = time_ms(lambda: fwd(img), CHAIN_ITERS)
+            split, _ = chain_split(fwd, img)
+            if split is None:
+                print(f"time split {path} {name} forward: {fwd_ms:.3f} ms; split not measured "
+                      f"(the profiler recorded no device activity)")
+                continue
+            print(f"time split {path} {name} forward batch {FPS_BATCH}: {fwd_ms:.3f} ms back "
+                  f"to back; device ms from torch.profiler, 3 forwards: {split}; im2col "
+                  f"{split['im2col'] / split['busy']:.1%} of device time, _int_mm "
+                  f"{split['int_mm'] / split['busy']:.1%}; the device idle "
+                  f"{1 - split['busy'] / fwd_ms:.1%} ({card})")
+
+
+def int8_pair_phase(nets, cn_cfg, yl, yl_cfg, card):
+    """Calibrate, serve and time the pair's int8 profiles (see the module
+    docstring); returns ({path: the served run's launches by kernel, by
+    entry point, by variant}, the bf16 CenterNets, the bf16 YOLACT)."""
+    cns, yl_bf16 = int8_pair_nets(nets, yl, yl_cfg)
+    frames = request_frames(0, (SEQ_FRAMES, FRAME_H, FRAME_W, 3)).cuda()
+    served = {}
+    for path, recipe in PAIR_INT8.items():
+        t0 = time.perf_counter()
+        cal = calibrate_int8_pair(path, recipe, cns["kernel"], cn_cfg, yl_bf16, frames)
+        t1 = time.perf_counter()
+        served[path] = serve_int8_pair(path, recipe, cns, cn_cfg, yl_bf16, cal)
+        t2 = time.perf_counter()
+        if path in PAIR_INT8_TIMED:
+            time_int8_pair(path, recipe, cns, cn_cfg, yl_bf16, yl_cfg, cal, card)
+        print(f"int8_pair {path}: calibrate {t1 - t0:.1f} s, serve {t2 - t1:.1f} s, time "
+              f"{time.perf_counter() - t2:.1f} s")
+    return served, cns, yl_bf16
+
+
+# ---- phase 13: qat ------------------------------------------------------
+
+QAT_BATCH = 8
+QAT_STEPS = 10
+QAT_STRIP = ("head_",)      # quantize_accuracy_check.py's --qat-strip default
+QAT_LR = 2e-5               # its --qat-lr default, sized for trained weights
+# On random weights the recipe's lr overshoots: Adam's first update moves
+# every weight by ~lr, which moves the student's heads far more than its
+# quantization noise (the distillation loss rose ~100x after one step on
+# the CPU at 64x128, JAX's qat_distill alike).  The gate's run takes a
+# step that stays below the noise.
+QAT_GATE_LR = 1e-6
+
+
+def qat_phase(cns, cn_cfg, yl_bf16, card):
+    """``qat_distill`` on the bf16 plain-IDA CenterNet at 360x640 (see the
+    module docstring); returns the phase's launches (by kernel, by entry
+    point, by variant)."""
+    t0 = time.perf_counter()
+    teacher = cns["kernel"]
+    img, _ = generate_square_batch(np.random.default_rng(2027), QAT_BATCH, SquareDatasetConfig(
+        in_h=cn_cfg.in_h, in_w=cn_cfg.in_w, max_objects=TRAIN_OBJECTS))
+    frames = torch.from_numpy((np.clip(img, 0, 1) * 255).astype(np.uint8)).cuda()
+    with torch.inference_mode():
+        x = preprocess(frames, (cn_cfg.in_h, cn_cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                       PARITY_INT8.input_dtype)
+    x = x.clone()
+    scales = strip_scales(calibrate(teacher, [x], per_channel=True,
+                                    paths_of=centerpoint_calibration_paths), QAT_STRIP)
+
+    def loss_of(model):
+        with torch.no_grad():
+            return qat.distillation_loss(
+                qat.fake_quant_call(model, scales, paths_of=centerpoint_calibration_paths)(x),
+                teacher(x)).item()
+
+    def distill(lr, logs):
+        return qat.qat_distill(teacher, scales, itertools.repeat(x), QAT_STEPS, lr=lr,
+                               paths_of=centerpoint_calibration_paths, log_every=1,
+                               log_fn=logs.append)
+
+    first = loss_of(teacher)
+    qat.qat_distill(teacher, scales, iter([x]), 1, lr=QAT_LR,
+                    paths_of=centerpoint_calibration_paths, log_every=0)   # warm-up
+    recipe_logs, gate_logs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    distill(QAT_LR, recipe_logs)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1000 / QAT_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    student = distill(QAT_GATE_LR, gate_logs)
+    torch.cuda.synchronize()
+    trained = (dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES))
+    launches = trained[1]
+    last = loss_of(student)
+    c_calls = len(teacher.depthwise_upsamples())
+    require(launches["tauv_depthwise_upsample_bf16"] == 2 * 2 * c_calls * QAT_STEPS,
+            f"qat: kernel C launched {launches['tauv_depthwise_upsample_bf16']} times in "
+            f"{2 * QAT_STEPS} steps, expected {4 * c_calls * QAT_STEPS} (student and teacher)")
+    require(math.isfinite(first) and math.isfinite(last) and last < first,
+            f"qat: distillation loss {first} -> {last} on the fixed batch at lr {QAT_GATE_LR}")
+    quantized = {n: m for n, m in student.named_modules()
+                 if isinstance(m, torch.nn.Conv2d) and m.in_channels >= quantize.MIN_IN_CHANNELS
+                 and _first_path(centerpoint_calibration_paths(n)) in scales}
+    # The two projections that JAX computes and discards have scales, and
+    # the port's model holds them but never runs them: no gradient.
+    dead = [n for n, m in quantized.items()
+            if not (n + ".").startswith(DISCARDED) and (
+                m.weight.grad is None or not torch.isfinite(m.weight.grad).all()
+                or not m.weight.grad.any())]
+    unrun = [n for n in quantized if (n + ".").startswith(DISCARDED)]
+    require(len(quantized) == len(scales) and len(unrun) == 2 and not dead
+            and all(quantized[n].weight.grad is None for n in unrun),
+            f"qat: {len(quantized)} fake-quantized convs for {len(scales)} scales, never run "
+            f"{unrun}; gradients missing, zero or not finite: {dead}")
+    moved = sum(int(not torch.equal(p, q)) for p, q in zip(student.parameters(),
+                                                          teacher.parameters()))
+    print(f"qat: qat_distill (Adam clipped at 1.0) on one fixed batch of {QAT_BATCH} synthetic "
+          f"squares at {cn_cfg.in_h}x{cn_cfg.in_w}, {len(scales)} fake-quantized convs "
+          f"(per-channel scales, {QAT_STRIP} stripped); {QAT_STEPS} steps at the recipe's lr "
+          f"{QAT_LR} (not gated), losses {[line.split()[-1] for line in recipe_logs]}; "
+          f"{QAT_STEPS} steps at lr {QAT_GATE_LR}: distillation loss {first:.6g} -> {last:.6g} "
+          f"({last / first:.3f} of the first), losses {[line.split()[-1] for line in gate_logs]}; "
+          f"kernel C {launches['tauv_depthwise_upsample_bf16']} bf16 launches ({c_calls} a "
+          f"forward, student and teacher); {len(quantized) - len(unrun)} int8-conv weight "
+          f"gradients finite and non-zero (the discarded projections {unrun} never run); "
+          f"{moved} parameter tensors moved")
+    print(f"time qat step bf16 batch {QAT_BATCH} at {cn_cfg.in_h}x{cn_cfg.in_w}: {step_ms:.3f} ms "
+          f"a step (teacher forward, fake-quantized forward and backward, Adam; the loss read each "
+          f"step) = {QAT_BATCH * 1000 / step_ms:.2f} images/s; peak memory allocated {peak:.2f} "
+          f"GiB ({card})")
+
+    # The QAT weights through a fresh parity_int8 pair.
+    cal_frames = request_frames(0, (CALIBRATION_FRAMES, FRAME_H, FRAME_W, 3)).cuda()
+    qat_cns = {}
+    for impl in ("kernel", "plain"):
+        oc, _ = centernet_config()
+        cn = CenterpointDLA34(oc, up_impl=impl, device=torch.device("cuda"),
+                              **PARITY_INT8.centernet_kwargs()).eval()
+        cn.load_state_dict(student.state_dict())
+        qat_cns[impl] = cn
+    cal = calibrate_int8_pair("qat", PARITY_INT8, qat_cns["kernel"], cn_cfg, yl_bf16, cal_frames)
+    by_kernel, by_entry, by_variant = serve_int8_pair("qat parity_int8", PARITY_INT8, qat_cns,
+                                                      cn_cfg, yl_bf16, cal, n_requests=2, seed=5)
+    print(f"qat phase {time.perf_counter() - t0:.1f} s")
+    # The phase's launches: the distillation steps', then the served pair's.
+    return ({k: n + trained[0][k] for k, n in by_kernel.items()},
+            {k: n + trained[1][k] for k, n in by_entry.items()}, by_variant)
+
+
+def _first_path(paths):
+    return paths if paths is None or isinstance(paths, str) else paths[0]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -4701,30 +5040,43 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     t0 = time.perf_counter()
-    card = device_phase()
-    build_phase()
-    nets, cn_cfg, yl, yl_cfg, chains = build_models(torch.device("cuda"))
-    kp_net = build_keypoint_nets(torch.device("cuda"))
-    kp_maps = keypoint_heatmaps(kp_net[1], kp_net[3],
-                                torch.Generator(device="cuda").manual_seed(3))
-    yl_img = preprocess(request_frames(0, (N_REQUESTS, CHECK_BATCH, FRAME_H, FRAME_W, 3))[0]
-                        .cuda(), (yl_cfg.in_h, yl_cfg.in_w), yl_cfg.img_mean, yl_cfg.img_stddev)
-    cn_chains, chain_yl_scales, kp_scales = build_chain_nets(nets, cn_cfg, yl, yl_cfg, kp_net,
-                                                             torch.device("cuda"))
-    errs, record, int8_shapes = check_phase(nets, cn_cfg, yl_cfg, chains, yl_img, kp_net,
-                                            kp_maps)
-    int8_shapes.update(check_chain_kernels(cn_chains, cn_cfg, yl, yl_cfg, chain_yl_scales,
-                                           kp_net, kp_scales, errs))
-    served = {path: serve_phase(path, *nets[path], cn_cfg, yl, yl_cfg, chains,
-                                nets[BF16_NETS.get(path, (None, "plain_ida"))[1]][0])
-              for path in PATHS}
-    served["keypoints"] = serve_keypoints(kp_net)
-    for path in CHAIN_PAIRS:
-        served[path] = serve_chain_pair(path, cn_chains, nets, cn_cfg, yl, yl_cfg,
-                                        chain_yl_scales)
-    served[KP_INT8] = serve_keypoints_int8(kp_net, kp_scales)
-    errs["mask_assembly"] = max(errs["mask_assembly"], node_phase(kp_net, yl, yl_cfg))
-    report_flax_init(cn_cfg)
+    phase_s = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        start = time.perf_counter()
+        yield
+        phase_s[name] = round(time.perf_counter() - start, 1)
+        print(f"phase {name}: {phase_s[name]} s")
+
+    with phase("device, build, models"):
+        card = device_phase()
+        build_phase()
+        nets, cn_cfg, yl, yl_cfg, chains = build_models(torch.device("cuda"))
+        kp_net = build_keypoint_nets(torch.device("cuda"))
+        kp_maps = keypoint_heatmaps(kp_net[1], kp_net[3],
+                                    torch.Generator(device="cuda").manual_seed(3))
+        yl_img = preprocess(request_frames(0, (N_REQUESTS, CHECK_BATCH, FRAME_H, FRAME_W, 3))[0]
+                            .cuda(), (yl_cfg.in_h, yl_cfg.in_w), yl_cfg.img_mean,
+                            yl_cfg.img_stddev)
+        cn_chains, chain_yl_scales, kp_scales = build_chain_nets(nets, cn_cfg, yl, yl_cfg,
+                                                                 kp_net, torch.device("cuda"))
+    with phase("check"):
+        errs, record, int8_shapes = check_phase(nets, cn_cfg, yl_cfg, chains, yl_img, kp_net,
+                                                kp_maps)
+        int8_shapes.update(check_chain_kernels(cn_chains, cn_cfg, yl, yl_cfg, chain_yl_scales,
+                                               kp_net, kp_scales, errs))
+    with phase("serve"):
+        served = {path: serve_phase(path, *nets[path], cn_cfg, yl, yl_cfg, chains,
+                                    nets[BF16_NETS.get(path, (None, "plain_ida"))[1]][0])
+                  for path in PATHS}
+        served["keypoints"] = serve_keypoints(kp_net)
+        for path in CHAIN_PAIRS:
+            served[path] = serve_chain_pair(path, cn_chains, nets, cn_cfg, yl, yl_cfg,
+                                            chain_yl_scales)
+        served[KP_INT8] = serve_keypoints_int8(kp_net, kp_scales)
+        errs["mask_assembly"] = max(errs["mask_assembly"], node_phase(kp_net, yl, yl_cfg))
+        report_flax_init(cn_cfg)
     for name in ("peak_decode", "mask_assembly", "depthwise_upsample", "deform_conv",
                  "transpose_conv"):
         require(any(served[path][0][name] for path in served), f"{name} never launched")
@@ -4732,19 +5084,32 @@ def main(argv=None) -> int:
                         ("dcn_north_star", "tauv_deform_conv_bf16"),
                         ("dcn_chain_int8", "tauv_deform_conv_bf16")):
         require(served[path][1][entry] == N_REQUESTS * N_DCN, f"{path}: {entry} launches")
-    times = time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card,
-                       args.profile, kp_net, kp_maps)
-    time_chain_paths(cn_chains, nets, cn_cfg, yl, yl_cfg, chain_yl_scales, kp_net, kp_scales,
-                     card, args.profile)
-    served["train"] = train_phase(errs, card)
-    served["train_cli"] = train_cli_phase(card)
-    served["train_yolact"] = train_yolact_phase(card)
-    served["yolo_pose"], errs["mask_assembly_belief"], times["mask_assembly_belief"] = (
-        yolo_pose_phase(card))
-    int8_served, b_err = yolo_pose_int8_phase(card)
+    with phase("time"):
+        times = time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card,
+                           args.profile, kp_net, kp_maps)
+    with phase("time_chains"):
+        time_chain_paths(cn_chains, nets, cn_cfg, yl, yl_cfg, chain_yl_scales, kp_net,
+                         kp_scales, card, args.profile)
+    with phase("train"):
+        served["train"] = train_phase(errs, card)
+    with phase("train_cli"):
+        served["train_cli"] = train_cli_phase(card)
+    with phase("train_yolact"):
+        served["train_yolact"] = train_yolact_phase(card)
+    with phase("yolo_pose"):
+        served["yolo_pose"], errs["mask_assembly_belief"], times["mask_assembly_belief"] = (
+            yolo_pose_phase(card))
+    with phase("yolo_pose_int8"):
+        int8_served, b_err = yolo_pose_int8_phase(card)
     served.update(int8_served)
     errs["mask_assembly_belief"] = max(errs["mask_assembly_belief"], b_err)
-    served["train_yolo_pose"] = train_yolo_pose_phase(card)
+    with phase("train_yolo_pose"):
+        served["train_yolo_pose"] = train_yolo_pose_phase(card)
+    with phase("int8_pair"):
+        pair_served, pair_cns, yl_bf16 = int8_pair_phase(nets, cn_cfg, yl, yl_cfg, card)
+    served.update(pair_served)
+    with phase("qat"):
+        served["qat"] = qat_phase(pair_cns, cn_cfg, yl_bf16, card)
 
     def launches(path, row):
         kernel, entry = ROWS[row]
@@ -4766,6 +5131,7 @@ def main(argv=None) -> int:
          "max_abs_err": errs[row], **times[row]}
         for row in ROWS
     ]}
+    print(f"phases (s): {json.dumps(phase_s)}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

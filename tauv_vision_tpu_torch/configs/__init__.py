@@ -14,7 +14,10 @@ protonet upsamples of ``bench.py --int8-transpose pallas`` (kernel D).
 configuration that ``bench.py --keypoints`` serves (keypoint heatmaps,
 affinity and depth heads, the matcher and PnP), as a bf16 net or as an
 int8 chain.  ``CHAIN_INT8`` and ``DCN_CHAIN_INT8`` are the int8-chain
-pairs of ``bench.py --chain-int8`` and ``--deform``.  ``BENCH_YOLO_POSE``
+pairs of ``bench.py --chain-int8`` and ``--deform``; ``PARITY_INT8`` (with
+its ``--mse``, ``--bias-correct`` and ``--seq-correct`` options) and
+``PER_LAYER_INT8`` are the pair's two other int8 profiles,
+``--parity-int8`` and ``--per-layer-int8``.  ``BENCH_YOLO_POSE``
 is the YOLO-Pose net, object points and camera of ``bench.py
 --yolo-pose``, served in bf16, with the recipe of its int8 rungs (the
 chain and ``--per-layer-int8``).
@@ -51,6 +54,7 @@ __all__ = [
     "CenternetModelConfig",
     "CenternetTrainConfig",
     "ClassConfig",
+    "CALIBRATION_FRAMES",
     "ClassConfigSet",
     "DCN_CHAIN_INT8",
     "DCN_NORTH_STAR",
@@ -59,6 +63,11 @@ __all__ = [
     "ObjectConfig",
     "NORTH_STAR",
     "ObjectConfigSet",
+    "PARITY_INT8",
+    "PER_LAYER_INT8",
+    "SEQ_FRAMES",
+    "Int8PairRecipe",
+    "Int8Scales",
     "ServedCenternetRecipe",
     "ServedRecipe",
     "ServedYoloPose",
@@ -243,6 +252,82 @@ CHAIN_INT8 = ServedRecipe(
                              join_dtype=None, int8_transposes=False),
     input_dtype=torch.bfloat16,
 )
+
+
+@dataclass(frozen=True)
+class Int8Scales:
+    """One net's ``calibrate`` scales in an int8 profile of the pair: per
+    input channel or per tensor, ``float_paths`` (by substring) stripped,
+    so that those convs run in the profile's float dtype."""
+
+    per_channel: bool
+    float_paths: Tuple[str, ...] = ()
+
+
+# ``bench.py``'s calibration frames: ``calibrate``, ``refine_scales_mse``
+# and ``calibrate_bias_correction`` read the first 2 frames
+# (``bench.py:280,310,335``), ``calibrate_sequential`` the first 4
+# (``bench.py:362``).
+CALIBRATION_FRAMES = 2
+SEQ_FRAMES = 4
+
+
+@dataclass(frozen=True)
+class Int8PairRecipe(ServedCenternetRecipe):
+    """An int8 profile of the pair that ``bench.py`` times as two requests
+    on the same frames (``bench.py:1620-1627``): the CenterNet of
+    ``centernet`` and the YOLACT built in ``input_dtype``, each calibrated
+    by ``calibrate`` on its own image in ``input_dtype`` of the first
+    ``CALIBRATION_FRAMES`` frames, with the scales of ``centernet_scales``
+    and ``yolact_scales``.  With ``per_layer`` both nets run through
+    ``quantize.quantized_call``; else as int8 chains
+    (``make_*_chain_pipeline``) whose float ops run in ``input_dtype``
+    with f32 joins (``yl_join_dtype`` is None off north-star) and the
+    protonet's upsamples bf16 (``int8_transpose`` None,
+    ``bench.py:1399-1402``), where ``mse`` refines the scales
+    (``refine_scales_mse``), ``bias_correct`` adds
+    ``calibrate_bias_correction``'s corrections, and ``seq_correct`` fits
+    ``calibrate_sequential``'s gains and corrections on the first
+    ``SEQ_FRAMES`` frames, which replace ``bias_correct``'s
+    (``bench.py:1465-1511``)."""
+
+    centernet_scales: Int8Scales
+    yolact_scales: Int8Scales
+    per_layer: bool = False
+    mse: bool = False
+    bias_correct: bool = False
+    seq_correct: bool = False
+
+
+# ``bench.py --parity-int8``'s CenterNet tail: the paths (by substring)
+# whose convs stay bf16 (``bench.py:1373``).
+PARITY_BF16_TAIL = ("head_", "level0_", "level1_", "ida_up", "dla_up")
+
+# ``bench.py --parity-int8`` (``bench.py:1331-1339,1373-1526``): both nets
+# int8 chains with per-channel scales (``calibrate(per_channel=parity)``).
+# The CenterNet is ``CHAIN_INT8``'s (the bf16 model with f32 BatchNorm
+# outputs and no f32 stage: the profile is not north-star,
+# ``bench.py:1293-1305``) with the bf16 tail stripped; the YOLACT strips
+# its parity tail, the whole shared prediction head and the protonet's
+# output conv (``bench.py:1433-1450``); each net on its own bf16 image.
+# Its options: ``replace(PARITY_INT8, mse=True, bias_correct=True)`` is
+# ``--mse --bias-correct``, ``replace(PARITY_INT8, mse=True,
+# seq_correct=True)`` ``--mse --seq-correct`` (``bench.py:1456-1511``).
+PARITY_INT8 = Int8PairRecipe(
+    centernet=CHAIN_INT8.centernet,
+    input_dtype=torch.bfloat16,
+    centernet_scales=Int8Scales(per_channel=True, float_paths=PARITY_BF16_TAIL),
+    yolact_scales=Int8Scales(per_channel=True,
+                             float_paths=("prediction_head", "protonet/output")),
+)
+
+# ``bench.py --per-layer-int8`` on the pair (``bench.py:371-382,1536-1546``):
+# the bf16 CenterNet of ``CHAIN_INT8`` and the bf16 YOLACT, each with
+# per-tensor scales of its own bf16 image and every conv of 16 input
+# channels or more computed in int8 by ``quantized_call``, heads included.
+PER_LAYER_INT8 = replace(PARITY_INT8, per_layer=True,
+                         centernet_scales=Int8Scales(per_channel=False),
+                         yolact_scales=Int8Scales(per_channel=False))
 
 # ``bench.py --deform``, which selects the chain-int8 profile
 # (``bench.py:1288-1289,1514-1519``): the same pair with the CenterNet's 16

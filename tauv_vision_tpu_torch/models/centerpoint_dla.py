@@ -343,7 +343,10 @@ class DepthwiseUpsample(nn.Module):
 
     def forward(self, x):
         fn = depthwise_upsample_train if self.impl == "kernel" else depthwise_upsample
-        return fn(x.to(self.dtype), cast_parameter(self, "weight", self.dtype), self.factor)
+        # Kernel C reads contiguous NCHW; ``quantize.quantized_call``'s int8
+        # convs emit channels-last maps.
+        return fn(x.to(self.dtype).contiguous(), cast_parameter(self, "weight", self.dtype),
+                  self.factor)
 
 
 class IDAUpStage(nn.Module):

@@ -99,7 +99,9 @@ def decode(
     """Dense prediction maps -> top-k detections, with yaw / pitch / roll
     and depth where the prediction carries those heads."""
     mc = model_config
-    index, label, score = _peaks(impl)(prediction.heatmap_nchw(), n_detections)
+    # Kernel A reads contiguous NCHW; a head of ``quantize.quantized_call``
+    # emits a channels-last map.
+    index, label, score = _peaks(impl)(prediction.heatmap_nchw().contiguous(), n_detections)
 
     size = gather_at_cells(prediction.size, index)      # [B, K, 2]
     offset = gather_at_cells(prediction.offset, index)  # [B, K, 2]

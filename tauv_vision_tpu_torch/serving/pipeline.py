@@ -82,7 +82,7 @@ def make_centernet_pipeline(model, model_config: CenternetModelConfig,
                             impl: str = "kernel", dtype=torch.float32):
     """``fn(img_uint8) -> Detections``; ``model(img)`` takes the normalised
     NCHW image (the model itself, or a chain forward of
-    ``serving/quantize_chain.py``)."""
+    ``serving/quantize_chain.py``), and is kept as ``fn.forward``."""
     device = resolve_device(device)
     out_hw = (model_config.in_h, model_config.in_w)
 
@@ -93,6 +93,7 @@ def make_centernet_pipeline(model, model_config: CenternetModelConfig,
             return decode(model(img), model_config, knobs.n_detections,
                           knobs.score_threshold, impl=impl)
 
+    pipeline.forward = model
     return pipeline
 
 
@@ -127,7 +128,7 @@ def make_yolact_pipeline(model, model_config: YolactModelConfig,
                          impl: str = "kernel", dtype=torch.float32):
     """``fn(img_uint8) -> YolactDetections``; ``model(img)`` takes the
     normalised NCHW image (the model itself, or a chain forward of
-    ``serving/quantize_chain.py``)."""
+    ``serving/quantize_chain.py``), and is kept as ``fn.forward``."""
     device = resolve_device(device)
     out_hw = (model_config.in_h, model_config.in_w)
 
@@ -139,6 +140,7 @@ def make_yolact_pipeline(model, model_config: YolactModelConfig,
                                  knobs.iou_threshold,
                                  knobs.confidence_threshold, impl=impl)
 
+    pipeline.forward = model
     return pipeline
 
 

@@ -56,10 +56,18 @@ the one fused multiply-add of the Pallas kernel
 (``ops/transpose_conv.py``).  PyTorch's CPU ``sqrt`` is not always
 correctly rounded, so the BatchNorm folds take an f64 root.
 
-Not ported here: asymmetric ranges, ``wq_override``, gains and bias
-corrections, the capture and sequential-calibration hooks, ``f32_paths``,
-and the YOLO-Pose pipeline's ``split_pnp`` (a dispatch split that fences
-a TPU runtime fault; the port runs PnP after the decode in any case).
+``ChainCtx(gains=, corrections=)`` scale and shift a calibrated conv's
+dequantized accumulator per output channel before its bias and
+BatchNorm, as the JAX chain does (``refine_scales_mse``'s scales,
+``calibrate_bias_correction``'s corrections and ``calibrate_sequential``'s
+fits feed ``configs.PARITY_INT8``); on the card they are two elementwise
+passes more, where XLA folds them into the epilogue.
+
+Not ported here: asymmetric ranges (``calibrate_range``), ``wq_override``
+(``calibrate_gptq``), ``f32_paths``, ``calibrate_sequential(mode="mean")``
+(only ``scripts/quantize_accuracy_check.py`` reaches these), and the
+YOLO-Pose pipeline's ``split_pnp`` (a dispatch split that fences a TPU
+runtime fault; the port runs PnP after the decode in any case).
 """
 
 from __future__ import annotations
@@ -213,7 +221,9 @@ class ChainCtx:
 
     def __init__(self, model: nn.Module, scales: Dict[str, object],
                  dtype=NORTH_STAR.yolact.dtype, join_dtype=NORTH_STAR.yolact.join_dtype,
-                 impl: str = "kernel", path_of: Callable[[str], str] = yolact_flax_path):
+                 impl: str = "kernel", path_of: Callable[[str], str] = yolact_flax_path,
+                 gains: Optional[Dict[str, object]] = None,
+                 corrections: Optional[Dict[str, object]] = None):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.model = model
@@ -225,6 +235,12 @@ class ChainCtx:
         self.dtype = dtype
         self.join_dtype = join_dtype
         self.impl = impl
+        self.gains = dict(gains or {})
+        self.corrections = dict(corrections or {})
+        # ``hook(path, y, quantized)``, when set, sees every conv's pre-bias
+        # output (not the transposed convs') and returns what the layer
+        # goes on with: ``calibrate_sequential``'s passes.
+        self.hook: Optional[Callable[[str, torch.Tensor, bool], torch.Tensor]] = None
         self._cache: Dict[tuple, object] = {}
 
     def _memo(self, key, make):
@@ -270,13 +286,23 @@ class ChainCtx:
         ``next_path``'s when that layer is calibrated (int8 out), else 1."""
         def make():
             qk, deq = self.int8_weights(path)
+            if path in self.gains:
+                deq = deq * self.vector("gains", path)
             bias = self.modules[path].bias
             bias = torch.zeros_like(deq) if bias is None else bias.detach().float().contiguous()
+            if path in self.corrections:
+                bias = bias + self.vector("corrections", path)
             emit_int8 = next_path is not None and next_path in self.scales
             out_scale = (self.s(next_path) if emit_int8 else torch.ones_like(deq))
             taps = kernel_taps(qk) if self.impl == "kernel" else None
             return qk, deq, bias, out_scale.expand_as(deq).contiguous(), taps
         return self._memo(("transpose", path, next_path), make)
+
+    def vector(self, kind: str, path: str) -> torch.Tensor:
+        """A path's gain or correction (``kind`` "gains" or "corrections")
+        as an f32 tensor on the device."""
+        return self._memo((kind, path), lambda: torch.tensor(
+            np.asarray(getattr(self, kind)[path]), dtype=torch.float32, device=self.device))
 
     def float_weight(self, path: str) -> torch.Tensor:
         """The conv's weight in the context's float dtype."""
@@ -324,11 +350,17 @@ class ChainCtx:
             qk, deq = self.int8_weights(path)
             acc = conv2d_int8(q, qk, tuple(strides), padding)
             y = acc.to(torch.float32) * deq
+            if path in self.gains:
+                y = y * self.vector("gains", path)
+            if path in self.corrections:
+                y = y + self.vector("corrections", path)
         else:
             if inp.dtype == torch.int8:
                 raise ValueError(f"producer emitted int8 but {path} is uncalibrated")
             y = _nhwc(F.conv2d(_nchw(inp.to(self.dtype)), self.float_weight(path),
                                stride=tuple(strides), padding=padding))
+        if self.hook is not None and not transpose:
+            y = self.hook(path, y, quantized)
 
         if bias is not None:
             # int8: an f32 add on the dequantized accumulator; float: flax
@@ -349,6 +381,78 @@ class ChainCtx:
         if quantized and bn_path is None:
             return y.to(self.dtype)
         return y
+
+
+class _Capture:
+    """Pass A of ``calibrate_sequential``: keeps the first float pre-bias
+    output of each of ``paths`` in ``captured``."""
+
+    def __init__(self, paths):
+        self.paths = set(paths)
+        self.captured: Dict[str, torch.Tensor] = {}
+
+    def __call__(self, path: str, y: torch.Tensor, quantized: bool) -> torch.Tensor:
+        if not quantized and path in self.paths and path not in self.captured:
+            self.captured[path] = y.to(torch.float32)
+        return y
+
+
+class _Fit:
+    """Pass B of ``calibrate_sequential``: at the first call of each path of
+    ``targets`` (pass A's captures), the per-channel affine a * y + b of
+    least squared error from the dequantized accumulator y to the captured
+    float map, a clipped to [0.5, 2] (1 where y is flat), every op in f32
+    as the JAX fit; at every call of the path, the fit applied."""
+
+    def __init__(self, targets: Dict[str, torch.Tensor]):
+        self.targets = targets
+        self.gains: Dict[str, np.ndarray] = {}
+        self.corrections: Dict[str, np.ndarray] = {}
+
+    def __call__(self, path: str, y: torch.Tensor, quantized: bool) -> torch.Tensor:
+        if not quantized or path not in self.targets:
+            return y
+        if path not in self.gains:
+            yf = self.targets[path]
+            mq = y.mean(dim=(0, 1, 2))
+            mf = yf.mean(dim=(0, 1, 2))
+            var = torch.square(y - mq).mean(dim=(0, 1, 2))
+            cov = ((y - mq) * (yf - mf)).mean(dim=(0, 1, 2))
+            a = torch.where(var > 1e-10, cov / torch.clamp_min(var, 1e-10),
+                            torch.ones_like(var))
+            a = torch.clamp(a, 0.5, 2.0)
+            self.gains[path] = a.cpu().numpy()
+            self.corrections[path] = (mf - a * mq).cpu().numpy()
+        y = y * torch.as_tensor(self.gains[path], device=y.device)
+        return y + torch.as_tensor(self.corrections[path], device=y.device)
+
+
+def calibrate_sequential(build_forward: Callable[[ChainCtx], Callable], model: nn.Module,
+                         scales: Dict[str, object], batch, *,
+                         dtype=torch.bfloat16, path_of: Callable[[str], str] = yolact_flax_path,
+                         impl: str = "kernel") -> Tuple[Dict[str, np.ndarray],
+                                                        Dict[str, np.ndarray]]:
+    """(gains, corrections) of the JAX ``calibrate_sequential``: two passes
+    of one chain forward over one batch.  Pass A runs the chain float
+    (no scales) and keeps each calibrated path's pre-bias conv output
+    (``_Capture``); pass B runs it int8 and fits, per path and output
+    channel, the affine ``a * y + b`` of least squared error from the
+    dequantized accumulator as it arrives (every earlier fit applied) to
+    that output, then applies it (``_Fit``).  ``build_forward(ctx)``
+    returns ``fn(batch)``, the chain forward on ``ctx`` with its
+    preprocessing (``dla34_chain_forward`` or ``yolact_chain_forward``).
+    Each pass has a context of its own, with f32 joins, as the JAX passes.
+    The CenterNet chain runs no projection of a depth-2 tree's own input,
+    so the two paths the JAX chain fits there and discards
+    (``model/base/level3/project_conv``, ``level4``) get no fit."""
+    ctx_a = ChainCtx(model, {}, dtype=dtype, join_dtype=None, impl=impl, path_of=path_of)
+    ctx_a.hook = _Capture(scales)
+    build_forward(ctx_a)(batch)
+
+    ctx_b = ChainCtx(model, scales, dtype=dtype, join_dtype=None, impl=impl, path_of=path_of)
+    ctx_b.hook = fit = _Fit(ctx_a.hook.captured)
+    build_forward(ctx_b)(batch)
+    return fit.gains, fit.corrections
 
 
 # ------------------------------------------------------- ResNet-18 chain
@@ -496,12 +600,14 @@ def make_yolact_chain_pipeline(model: Yolact, scales: Dict[str, object],
                                device=DEFAULT_DEVICE, knobs: DecodeKnobs = SERVING_DECODE,
                                *, dtype=NORTH_STAR.yolact.dtype,
                                join_dtype=NORTH_STAR.yolact.join_dtype,
-                               impl: str = "kernel"):
+                               impl: str = "kernel", gains=None, corrections=None):
     """uint8 frames -> ``YolactDetections`` through the chain-int8
     forward (``make_yolact_pipeline`` with the chain in place of the
     model).  The defaults serve the recipe of ``ChainCtx``; ``impl``
-    picks kernel D and the decode kernels, or their plain versions."""
-    ctx = ChainCtx(model, scales, dtype=dtype, join_dtype=join_dtype, impl=impl)
+    picks kernel D and the decode kernels, or their plain versions;
+    ``gains`` and ``corrections`` are ``ChainCtx``'s."""
+    ctx = ChainCtx(model, scales, dtype=dtype, join_dtype=join_dtype, impl=impl, gains=gains,
+                   corrections=corrections)
     return make_yolact_pipeline(yolact_chain_forward(ctx), model.config, device, knobs,
                                 impl=impl, dtype=dtype)
 
@@ -679,16 +785,18 @@ def dla34_chain_forward(ctx: ChainCtx) -> Callable[[torch.Tensor], Prediction]:
 def make_centernet_chain_pipeline(model: CenterpointDLA34, model_config: CenternetModelConfig,
                                   scales: Dict[str, object], device=DEFAULT_DEVICE,
                                   knobs: DecodeKnobs = SERVING_DECODE, *,
-                                  dtype=CHAIN_INT8.input_dtype, impl: str = "kernel"):
+                                  dtype=CHAIN_INT8.input_dtype, impl: str = "kernel",
+                                  gains=None, corrections=None):
     """uint8 frames -> ``Detections`` through the chain-int8 DLA-34 forward
     (``make_centernet_pipeline`` with the chain in place of the model, on
     the image in ``dtype``, which is also the chain's float dtype), f32
     joins.  The defaults serve ``bench.py --chain-int8``
     (``configs.CHAIN_INT8``); the model's IDA (plain or DCN) is the
     chain's.  ``impl`` picks kernels C and E and the decode's kernel A, or
-    their plain versions."""
+    their plain versions; ``gains`` and ``corrections`` are
+    ``ChainCtx``'s (``configs.PARITY_INT8``)."""
     ctx = ChainCtx(model, scales, dtype=dtype, join_dtype=None, impl=impl,
-                   path_of=centerpoint_flax_path)
+                   path_of=centerpoint_flax_path, gains=gains, corrections=corrections)
     return make_centernet_pipeline(dla34_chain_forward(ctx), model_config, device, knobs,
                                    impl=impl, dtype=dtype)
 

@@ -249,7 +249,8 @@ def test_torch_port_imports_no_jax():
     assert len(sources) > 10
     for module in ("models/layers.py", "models/centerpoint_dla.py", "configs/__init__.py",
                    "scripts/op_probe.py", "scripts/int8_dot_probe.py", "ops/image.py",
-                   "ops/pnp.py", "serving/nodes.py", "serving/centernet_decode.py"):
+                   "ops/pnp.py", "serving/nodes.py", "serving/centernet_decode.py",
+                   "serving/qat.py", "serving/int8_pair.py"):
         assert PORT / module in sources, module
     for path in sources:
         for name in _imports(path):

@@ -214,16 +214,27 @@ class ChainRecorder:
     run again, as the YOLACT head's on each FPN level, as "path#1", ...),
     and start both from JAX's stem output: while active, the port's
     ``stem`` layer returns what JAX's returned (the one float op the port
-    sums in another order).  A port run must follow a JAX run of the same
-    input; ``clear()`` between pairs."""
+    sums in another order).  With ``from_jax="float"``, every layer the
+    port's context runs in float (no scale) returns JAX's output of the
+    same key, and a pass-A capture (``calibrate_sequential``) is JAX's;
+    the port's own float output is kept in ``float_errs`` as its largest
+    difference from JAX's over JAX's largest magnitude.  With
+    ``from_jax="all"`` every layer returns JAX's output, and the codes in
+    which the port's own int8 outputs differ are counted in
+    ``code_diffs``.  A port run must follow a JAX run of the same input;
+    ``clear()`` between pairs."""
 
-    def __init__(self, jax_chain, port_chain, stem: str):
+    def __init__(self, jax_chain, port_chain, stem: str, from_jax=None):
         self.jax_chain, self.port_chain, self.stem = jax_chain, port_chain, stem
+        self.from_jax = from_jax
         self.clear()
 
     def clear(self):
         self.maps = {"jax": {}, "port": {}}
         self.stems = {}
+        self.captures = {}
+        self.float_errs = {}
+        self.code_diffs = {}
 
     @staticmethod
     def _numpy(y):
@@ -231,17 +242,35 @@ class ChainRecorder:
             return y.numpy().copy() if y.dtype == torch.int8 else y.float().numpy()
         return np.asarray(y) if y.dtype == jnp.int8 else np.asarray(y.astype(jnp.float32))
 
+    def _substitute(self, ctx, path, key, y):
+        want = self.maps["jax"][key]
+        got = self._numpy(y)
+        if got.dtype == np.int8:
+            self.code_diffs[key] = int((got != want).sum())
+        else:
+            self.float_errs[key] = float(np.abs(got - want).max()
+                                         / max(np.abs(want).max(), 1e-30))
+        captured = getattr(ctx.hook, "captured", None)
+        if captured is not None and key in self.captures:
+            captured[path] = torch.from_numpy(self.captures[key].copy())
+        return torch.from_numpy(want.copy()).to(y.dtype)
+
     def _wrap(self, run_layer, side):
         def run(ctx, inp, path, **kwargs):
             y = run_layer(ctx, inp, path, **kwargs)
-            if path == self.stem:
-                self.stems[side] = self._numpy(y)
-                if side == "port":
-                    y = torch.from_numpy(self.stems["jax"].copy()).to(y.dtype)
             maps, key, n = self.maps[side], path, 0
             while key in maps:
                 n += 1
                 key = f"{path}#{n}"
+            if side == "jax" and ctx.capture_into is not None and path in ctx.capture_into:
+                self.captures.setdefault(key, np.asarray(ctx.capture_into[path], np.float32))
+            if path == self.stem:
+                self.stems[side] = self._numpy(y)
+                if side == "port":
+                    y = torch.from_numpy(self.stems["jax"].copy()).to(y.dtype)
+            elif side == "port" and (self.from_jax == "all" or (
+                    self.from_jax == "float" and path not in ctx.scales)):
+                y = self._substitute(ctx, path, key, y)
             maps[key] = self._numpy(y)
             return y
         return run
