@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Sixteen served paths: five pair a CenterNet with a YOLACT through
-``make_combined_pipeline``, six serve the CenterNet and the YOLACT in
-int8 as two requests, as ``bench.py`` times them, two serve the
+Twenty-four served paths: seven pair a CenterNet with a YOLACT through
+``make_combined_pipeline``, eleven serve the CenterNet and the YOLACT as
+two requests, as ``bench.py`` times them (six of them in int8, four in
+bf16, and one through the serving executor from disk), three serve the
 CenterNet node's full configuration alone, and three serve YOLO-Pose:
 
 - ``plain_ida``: the CenterpointDLA34 with plain-conv IDA (the IDA that
@@ -71,7 +72,26 @@ CenterNet node's full configuration alone, and three serve YOLO-Pose:
 - ``per_layer_int8``: ``bench.py --per-layer-int8`` on the pair
   (``configs.PER_LAYER_INT8``): both bf16 nets with every conv of 16
   input channels or more in int8 through ``quantized_call``, per-tensor
-  scales, kernel C inside the CenterNet.
+  scales, kernel C inside the CenterNet;
+- ``host_io``: ``bench.py --host-io`` (``configs.HOST_IO``):
+  ``chain_int8``'s two requests on each batch through
+  ``serving/executor.ServingExecutor`` (upload, dispatch and download on
+  three threads and three CUDA streams, pinned buffers), frames read from
+  a memory-mapped raw ring or from PNG files, the YOLACT's masks
+  bit-packed on the card, every output back as numpy;
+- ``bf16_pair``: ``bench.py --bf16`` (``configs.BF16_PAIR``): the bf16
+  CenterNet with f32 BatchNorm outputs beside the bf16 YOLACT, no int8,
+  two requests; its rungs ``bf16_pair_fused`` (``--fused``, one
+  ``make_combined_pipeline``), ``bf16_pair_bn_bf16`` (``--bn-bf16``),
+  ``bf16_pair_f32_early`` (``--f32-from early``, the f32 image) and
+  ``bf16_pair_f32_level3`` (``--f32-from level3,level4,level5,dla_up,
+  ida_up,heads``: kernel C in f32), built by ``configs.bf16_pair``; and
+  ``north_star_exact`` (``--exact-flow``, ``configs.NORTH_STAR_EXACT``):
+  ``north_star`` with f32 BatchNorm outputs, no f32 stem and f32 joins in
+  the YOLACT chain;
+- ``keypoints_per_layer_int8``: ``bench.py --keypoints --per-layer-int8``
+  (``configs.KEYPOINTS_PER_LAYER_INT8``): the ``keypoints`` net with every
+  conv of 16 input channels or more int8 through ``quantized_call``.
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -263,7 +283,33 @@ Phases, each fatal on failure (exit code != 0, no result line):
    every fake-quantized conv's weight gradient finite and non-zero, 8
    bf16 C launches a forward of the student and of the teacher; then the
    distilled weights served through a fresh ``parity_int8`` pair
-   (calibrated anew, 2 requests, kernels against plain as in phase 12).
+   (calibrated anew, 2 requests, kernels against plain as in phase 12);
+14. host_io: ``chain_int8``'s chains and scales through the executor on 8
+   batches of 32 seeded 640x480 frames written to a raw ring and to PNGs:
+   every output, packed masks included, equal bit for bit to the
+   sequential call of the same pipeline, in order; the bitmaps unpack to
+   ``mask > 0.5`` of that call's masks; A 1, B 1 and C 8 bf16 launches a
+   batch; a generator closed after 2 batches leaves no executor thread
+   after 2 s; a source failing at batch 3 yields 3 outputs, then raises.
+   Then frames/s from the raw ring (a warm pass, then 4 passes) and from
+   the PNGs (1 pass), the same raw batches without the executor, PIL's
+   decode alone on one thread, the host's cores, the bytes up and down a
+   batch, and one raw pass traced: the device time in which a
+   host-to-device copy ran beside a kernel, and the idle share;
+15. bf16_pair: each rung above and ``north_star_exact`` on ``int8_pair``'s
+   bf16 nets (new CenterNets on the same weights where the rung's
+   precision differs): one request of 8 frames, A 1, B 1 and C 8 launches
+   counted from 0, held to its plain versions (the bf16 CenterNet's bars,
+   the YOLACT 100% matched); fused equal bit for bit to unfused;
+   ``decode_yolact(mask_hw=(360, 640), crop_masks=False)`` through B's
+   "no crop" entry against its plain version within 1e-5; each rung's
+   requests at batch 32, 3 repetitions;
+16. keypoints_per_layer_int8: calibrated on the card (per tensor, 2
+   frames), 2 requests of 16 frames, A at K = 10 and K = 50 and C 8 bf16
+   launches a request, held to its plain versions at threshold 0 on the
+   requests and a frame (the bf16 CenterNet's bars), ``decode_keypoints``
+   on one forward's heads kernel A against plain, equal; its request at
+   batch 16 beside the bf16 ``keypoints`` request.
 
 Each phase prints its seconds, and the script its total.
 
@@ -284,10 +330,12 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -297,24 +345,30 @@ import torch.nn.functional as F
 from tauv_vision_tpu_torch import kernels
 from tauv_vision_tpu_torch.configs import (
     BENCH_YOLO_POSE,
+    BF16_PAIR,
     CALIBRATION_FRAMES,
     CHAIN_INT8,
     DCN_CHAIN_INT8,
     DCN_NORTH_STAR,
+    HOST_IO,
     INT8_CHAIN_YOLACT,
     KEYPOINTS,
+    KEYPOINTS_PER_LAYER_INT8,
     NORTH_STAR,
+    NORTH_STAR_EXACT,
     PARITY_INT8,
     PER_LAYER_INT8,
     SEQ_FRAMES,
     ClassConfig,
     ClassConfigSet,
+    bf16_pair,
     centernet_config,
     keypoints_config,
     yolact_config,
 )
 from tauv_vision_tpu_torch.configs import samples_torpedo
 from tauv_vision_tpu_torch.data.dataset_dir import Split
+from tauv_vision_tpu_torch.data.image_io import read_image
 from tauv_vision_tpu_torch.data.falling_things import (
     FallingThingsDataset,
     FallingThingsEnvironment,
@@ -384,13 +438,18 @@ from tauv_vision_tpu_torch.serving.pipeline import (
     make_centernet_keypoint_pipeline,
     make_centernet_pipeline,
     make_combined_pipeline,
+    make_float_pair_pipeline,
     make_yolact_pipeline,
     make_yolo_pose_pipeline,
 )
-from tauv_vision_tpu_torch.serving import qat, quantize
+from tauv_vision_tpu_torch.serving import executor, host_io, qat, quantize
+from tauv_vision_tpu_torch.serving.executor import ServingExecutor
+from tauv_vision_tpu_torch.serving.host_io import host_io_pipeline
 from tauv_vision_tpu_torch.serving.int8_pair import (
     calibrate_pair,
+    calibrate_per_layer,
     make_int8_pair_pipelines,
+    make_keypoints_per_layer_pipeline,
 )
 from tauv_vision_tpu_torch.serving.quantize import calibrate, quantized_call, strip_scales
 from tauv_vision_tpu_torch.serving.quantize_chain import (
@@ -554,9 +613,18 @@ ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8, "train", "tr
                                                              "train_yolo_pose", "parity_int8",
                                                              "parity_int8_corrected",
                                                              "parity_int8_seq", "per_layer_int8",
-                                                             "qat")
+                                                             "qat", "host_io", "bf16_pair",
+                                                             "bf16_pair_fused", "bf16_pair_bn_bf16",
+                                                             "bf16_pair_f32_early",
+                                                             "bf16_pair_f32_level3",
+                                                             "north_star_exact",
+                                                             "keypoints_per_layer_int8")
 PAIR_ITERS = 3        # timed repetitions of a pair path's request at batch 32
-CHAIN_ITERS = 3       # of each of a chain pair's two requests
+CHAIN_ITERS = 2       # of each of a chain pair's two requests
+# Kernel E's 16 calls of a forward at the path's window, and at the other
+# (the plain version takes ~0.2 s a forward).
+DCN_ITERS = 5
+DCN_OTHER_ITERS = 3
 # The paths beside an int8-chain YOLACT, and its recipe on each.
 CHAIN_RECIPES = {"int8_chain": INT8_CHAIN_YOLACT, "north_star": NORTH_STAR.yolact,
                  "dcn_north_star": DCN_NORTH_STAR.yolact}
@@ -1435,7 +1503,7 @@ def check_answers(path, answers, plain_answers, batch):
     on the plain versions; returns (CenterNet slots swapped at ties, worst
     CenterNet p95s, worst mask difference)."""
     b, k, kk = batch, SERVING_DECODE.n_detections, SERVING_DECODE.top_k
-    bf16 = path in BF16_PATHS
+    bf16 = path in BF16_PATHS or path in BF16_RUNGS
     for cn_d, yl_d in answers:
         require(all(t.shape == (b, k) for t in
                     (cn_d.valid, cn_d.score, cn_d.label, cn_d.y, cn_d.x, cn_d.h, cn_d.w)),
@@ -2234,15 +2302,16 @@ def time_phase(nets, cn_cfg, yl, yl_cfg, chains, record, int8_shapes, card, prof
         window = nets[path][1].deform_convs()[0].max_offset
         timed(row, lambda: [deform_conv2d_cuda(*c, taps=t, max_offset=window)
                             for c, t in zip(dcns, taps)],
-              lambda: [deform_conv2d(*c, max_offset=window) for c in dcns], 10)
+              lambda: [deform_conv2d(*c, max_offset=window) for c in dcns], DCN_ITERS)
         bounds[row] = dcn_bound(dcns)
         dcn_rows[row] = (dcns, taps, window)
         other = None if window is not None else DCN_WINDOW
         o_ms, o_plain = abba(lambda: [deform_conv2d_cuda(*c, taps=t, max_offset=other)
                                       for c, t in zip(dcns, taps)],
-                             lambda: [deform_conv2d(*c, max_offset=other) for c in dcns], 5)
+                             lambda: [deform_conv2d(*c, max_offset=other) for c in dcns],
+                             DCN_OTHER_ITERS)
         o_dev = queued_ms(lambda: [deform_conv2d_cuda(*c, taps=t, max_offset=other)
-                                   for c, t in zip(dcns, taps)], 5)
+                                   for c, t in zip(dcns, taps)], DCN_OTHER_ITERS)
         print(f"time {row} at window {other} (the row's own: {window}), all {N_DCN} calls of "
               f"one batch-{b} {path} forward: kernel {o_ms:.4f} ms ({o_dev:.4f} ms on the "
               f"device), plain {o_plain:.4f} ms, bound {bounds[row][0]:.4f} ms "
@@ -2673,7 +2742,7 @@ TRAIN_BATCH = 32          # samples_torpedo's batch, at its 360x640
 TRAIN_F32_BATCH = 8
 TRAIN_OBJECTS = 16        # squares a frame at most: 64 keypoint slots, max_keypoints' default
 OVERFIT_STEPS = 6
-TRAIN_TIMED_STEPS = 2
+TRAIN_TIMED_STEPS = 1
 # A train step is sensitive to its last bits (training BatchNorm on the
 # deepest levels, ReLU kinks, the DCN): the kernel path is held to the
 # plain path within the larger of a bar and YARDSTICK times the plain
@@ -4047,7 +4116,7 @@ def time_yolo_pose(net, proto, coeff, card):
 
 # ---- phase 10 -----------------------------------------------------------
 
-YP_INT8_ITERS = 3         # timed requests of each kind
+YP_INT8_ITERS = 2         # timed requests of each kind
 YP_RUNGS = (YP_INT8, YP_PER_LAYER)
 # The Pointnet's 7x7 convs at the bench's call (30x60 maps, 64 out): the
 # stage-0 convs read 64 channels, stage 1's first (belief, affinity, FPN
@@ -5029,6 +5098,464 @@ def qat_phase(cns, cn_cfg, yl_bf16, card):
             {k: n + trained[1][k] for k, n in by_entry.items()}, by_variant)
 
 
+# ---- phase 14: host_io --------------------------------------------------
+
+HOST_IO_ERROR_AT = 3        # the failing source's batch
+THREADS_GONE_S = 2.0
+CODEC_FILES = 128           # bench.py's PIL-only rate reads 128 files
+
+
+def executor_threads():
+    return [t for t in threading.enumerate() if t.name.startswith(executor.THREAD_PREFIX)]
+
+
+def merged(intervals):
+    """The union of [start, end) intervals as a sorted disjoint list."""
+    out = []
+    for start, end in sorted(intervals):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return out
+
+
+def covered(intervals) -> float:
+    return sum(end - start for start, end in intervals)
+
+
+def overlap(a, b) -> float:
+    """Length of the intersection of two merged interval lists."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def device_activity(fn):
+    """(fn's wall ms, {"kernel", "HtoD", "DtoH", "all": merged device
+    intervals in us}) from a ``torch.profiler`` trace of the card's
+    activity; the intervals are None where it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        trace = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text()).get("traceEvents", [])
+    spans = {"kernel": [], "HtoD": [], "DtoH": [], "all": []}
+    for e in events:
+        cat, dur = e.get("cat", ""), e.get("dur")
+        if dur is None or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        span = (float(e["ts"]), float(e["ts"]) + float(dur))
+        spans["all"].append(span)
+        if cat == "kernel":
+            spans["kernel"].append(span)
+        for way in ("HtoD", "DtoH"):
+            if cat == "gpu_memcpy" and way in e.get("name", ""):
+                spans[way].append(span)
+    if not spans["kernel"]:
+        return wall_ms, None
+    return wall_ms, {k: merged(v) for k, v in spans.items()}
+
+
+def write_host_io_frames(root):
+    """``HOST_IO``'s frames (seeded) as a raw ring and PNGs under ``root``;
+    returns (the ring, the PNG directory, seconds)."""
+    n, (h, w) = HOST_IO.n_batches * HOST_IO.batch, HOST_IO.frame_hw
+    frames = np.random.default_rng(14).integers(0, 256, (n, h, w, 3), np.uint8)
+    t0 = time.perf_counter()
+    raw_path, png_dir = host_io.write_frames(root, frames)
+    return raw_path, png_dir, time.perf_counter() - t0
+
+
+def host_io_phase(chains, cn_cfg, yl, yl_scales, card):
+    """``bench.py --host-io`` (``configs.HOST_IO``) on ``chain_int8``'s
+    chains and scales (see the module docstring); returns the served run's
+    launches (by kernel, by entry point, by variant)."""
+    t0 = time.perf_counter()
+    batch, n_batches = HOST_IO.batch, HOST_IO.n_batches
+    assert HOST_IO.pair == CHAIN_PAIRS["chain_int8"][0]
+    cn_pipe, yl_pipe = chain_pair_pipelines("chain_int8", chains, cn_cfg, yl, yl_scales)["kernel"]
+    unpacked = []
+
+    def yl_kept(frames):
+        out = yl_pipe(frames)
+        unpacked[:] = [out.mask]
+        return out
+
+    pipeline = host_io_pipeline(cn_pipe, yl_pipe)
+    ex = ServingExecutor(pipeline, prefetch=HOST_IO.prefetch, device="cuda")
+
+    def to_numpy(out):
+        return executor.tree_map(lambda t: t.cpu().numpy(), out)
+
+    with tempfile.TemporaryDirectory(prefix="tauv_hostio_") as tmp:
+        raw_path, png_dir, write_s = write_host_io_frames(tmp)
+
+        def raw(reps=1):
+            return host_io.raw_source(raw_path, batch, reps)
+
+        # Warm, then the served pass with every launch counted from 0.
+        for _ in ex.run(raw()):
+            pass
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        served = list(ex.run(raw()))
+        torch.cuda.synchronize()
+        launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+        variants = dict(kernels.VARIANT_LAUNCHES)
+        check_chain_launches("host_io", chains["chain_int8"]["model"], n_batches, launches, entries)
+        t1 = lap("host_io write and served pass", t0)
+
+        # The same pipeline called in order on one thread, the unpacked
+        # masks kept.
+        sequential = host_io_pipeline(cn_pipe, yl_kept)
+        require(len(served) == n_batches, f"host_io: {len(served)} outputs of {n_batches}")
+        for i, (out, batch_frames) in enumerate(zip(served, raw())):
+            want = to_numpy(sequential(torch.from_numpy(batch_frames.copy())))
+            for got_d, want_d in zip(out, want):
+                for name, value in vars(want_d).items():
+                    got_v = getattr(got_d, name)
+                    require((value is None and got_v is None) or (
+                        got_v.dtype == value.dtype and np.array_equal(got_v, value)),
+                        f"host_io: batch {i} {type(want_d).__name__}.{name} differs from the "
+                        f"sequential call")
+            mask = unpacked[-1].cpu().numpy()
+            bits = np.unpackbits(out[1].mask, axis=-1)[..., :mask.shape[-1]]
+            require(out[1].mask.dtype == np.uint8 and np.array_equal(
+                bits, (mask > HOST_IO.mask_threshold).astype(np.uint8)),
+                f"host_io: batch {i}: packed masks do not unpack to mask > 0.5")
+        mask_bytes = served[0][1].mask.nbytes
+        print(f"serve host_io: {n_batches} batches x {batch} frames through ServingExecutor "
+              f"(prefetch {HOST_IO.prefetch}) from the raw ring, in order, every output equal "
+              f"bit for bit to the sequential call of the same pipeline, packed masks "
+              f"{list(served[0][1].mask.shape)} uint8 ({mask_bytes} B, unpacked f32 "
+              f"{mask.nbytes} B) unpacking to mask > {HOST_IO.mask_threshold}; launches "
+              f"{launches} (kernel C: {entries['tauv_depthwise_upsample_bf16']} bf16)")
+
+        # Closed early, and a source that fails.
+        gen = ex.run(raw())
+        next(gen)
+        next(gen)
+        gen.close()
+        start = time.perf_counter()
+        while executor_threads() and time.perf_counter() - start < THREADS_GONE_S:
+            time.sleep(0.01)
+        gone_s = time.perf_counter() - start
+        require(not executor_threads(), f"host_io: executor threads alive {THREADS_GONE_S} s "
+                                        f"after close: {executor_threads()}")
+
+        def failing():
+            for i, batch_frames in enumerate(raw()):
+                if i == HOST_IO_ERROR_AT:
+                    raise RuntimeError("host_io source failure")
+                yield batch_frames
+
+        got = []
+        try:
+            for out in ex.run(failing()):
+                got.append(out)
+            fail("host_io: the failing source's error was not raised")
+        except RuntimeError as e:
+            require(str(e) == "host_io source failure", f"host_io: raised {e!r}")
+        require(len(got) == HOST_IO_ERROR_AT,
+                f"host_io: {len(got)} outputs before the error, expected {HOST_IO_ERROR_AT}")
+        print(f"serve host_io: closed after 2 batches, its threads gone in {gone_s:.2f} s; a "
+              f"source failing at batch {HOST_IO_ERROR_AT} yielded {len(got)} outputs, then "
+              f"raised")
+        t2 = lap("host_io checks", t1)
+
+        # Frames/s: the raw ring (warm above), the PNGs, and the raw batches
+        # without the executor.
+        def rate(source):
+            t = time.perf_counter()
+            n = sum(batch for _ in ex.run(source))
+            return n / (time.perf_counter() - t)
+
+        raw_fps = rate(raw(HOST_IO.raw_reps))
+        png_fps = rate(host_io.png_source(png_dir, batch, HOST_IO.png_reps))
+        t = time.perf_counter()
+        for batch_frames in raw():
+            to_numpy(pipeline(torch.from_numpy(batch_frames.copy())))
+        seq_fps = n_batches * batch / (time.perf_counter() - t)
+        names = sorted(png_dir.iterdir())[:CODEC_FILES]
+        t = time.perf_counter()
+        for p in names:
+            read_image(p)
+        codec_fps = len(names) / (time.perf_counter() - t)
+        up_bytes = batch * HOST_IO.frame_hw[0] * HOST_IO.frame_hw[1] * 3
+        down_bytes = sum(v.nbytes for d in served[0] for v in vars(d).values()
+                         if isinstance(v, np.ndarray))
+        t3 = lap("host_io rates", t2)
+
+        # One raw pass traced: the device time in which a host-to-device
+        # copy ran beside a kernel, and the device's idle share.
+        wall_ms, spans = device_activity(lambda: [None for _ in ex.run(raw())])
+        if spans is None:
+            trace = "copy/kernel overlap and idle share not measured (no device activity traced)"
+        else:
+            busy = covered(spans["all"]) / 1e3
+            trace = (f"one raw pass traced: {wall_ms:.1f} ms, device busy {busy:.1f} ms (idle "
+                     f"{1 - busy / wall_ms:.1%}), kernels {covered(spans['kernel']) / 1e3:.1f} "
+                     f"ms, host-to-device copies {covered(spans['HtoD']) / 1e3:.1f} ms of which "
+                     f"{overlap(spans['HtoD'], spans['kernel']) / 1e3:.2f} ms beside a kernel, "
+                     f"device-to-host {covered(spans['DtoH']) / 1e3:.1f} ms of which "
+                     f"{overlap(spans['DtoH'], spans['kernel']) / 1e3:.2f} ms beside a kernel")
+        lap("host_io trace", t3)
+    print(f"time host_io batch {batch} (bench.py --host-io, chain_int8 with packed masks, "
+          f"outputs to numpy): raw ring {raw_fps:.2f} frames/s ({HOST_IO.raw_reps} passes of "
+          f"{n_batches} batches after a warm one), PNG {png_fps:.2f} frames/s ({HOST_IO.png_reps} "
+          f"pass, decoded by PIL on the upload thread), the same raw batches without the "
+          f"executor (upload, both requests, download on one thread) {seq_fps:.2f} frames/s; PIL "
+          f"decode alone {codec_fps:.2f} frames/s on one thread; {os.cpu_count()} host cores; "
+          f"{up_bytes} B up and {down_bytes} B down a batch; {trace}; frames written in "
+          f"{write_s:.1f} s ({card})")
+    return launches, entries, variants
+
+
+# ---- phase 15: bf16_pair -------------------------------------------------
+
+BF16_ITERS = 3      # timed repetitions of each rung's requests at batch 32
+# The float pair's rungs: {path: (recipe, the YOLACT chain's recipe or
+# None for the bf16 YOLACT)}.
+BF16_RUNGS = {
+    "bf16_pair": (BF16_PAIR, None),
+    "bf16_pair_fused": (bf16_pair(fused=True), None),
+    "bf16_pair_bn_bf16": (bf16_pair(bn_bf16=True), None),
+    "bf16_pair_f32_early": (bf16_pair(f32_stages=("early",)), None),
+    "bf16_pair_f32_level3": (bf16_pair(f32_stages=("level3", "level4", "level5", "dla_up",
+                                                   "ida_up", "heads")), None),
+    "north_star_exact": (NORTH_STAR_EXACT, NORTH_STAR_EXACT.yolact),
+}
+MASK_HW = (360, 640)   # decode_yolact(mask_hw=): the prototypes' 180x320 at the input's size
+
+
+def bf16_rung_pipes(path, cns, cn_cfg, yl_bf16, yl, yl_scales):
+    """{impl: the rung's pipeline}: the float pair (``make_float_pair_pipeline``),
+    or ``NORTH_STAR_EXACT``'s combined pipeline with its int8-chain YOLACT."""
+    recipe, chain = BF16_RUNGS[path]
+    device = torch.device("cuda")
+    pipes = {}
+    for impl in ("kernel", "plain"):
+        if chain is None:
+            pipes[impl] = make_float_pair_pipeline(recipe, cns[impl], cn_cfg, yl_bf16, device,
+                                                   impl=impl)
+        else:
+            ctx = ChainCtx(yl, yl_scales, dtype=chain.dtype, join_dtype=chain.join_dtype,
+                           impl=impl)
+            pipes[impl] = make_combined_pipeline(cns[impl], cn_cfg, yolact_chain_forward(ctx),
+                                                 yl.config, device, impl=impl,
+                                                 dtype=recipe.input_dtype)
+    return pipes
+
+
+def bf16_rung_nets(path, pair_cns, f32_state):
+    """{impl: the rung's CenterNet}: ``int8_pair``'s bf16 CenterNets where
+    the rung's CenterNet is theirs, else new ones on the same weights."""
+    recipe = BF16_RUNGS[path][0]
+    if recipe.centernet == BF16_PAIR.centernet:
+        return pair_cns
+    oc, _ = centernet_config()
+    cns = {}
+    for impl in ("kernel", "plain"):
+        cn = CenterpointDLA34(oc, up_impl=impl, device=torch.device("cuda"),
+                              **recipe.centernet_kwargs()).eval()
+        cn.load_state_dict(f32_state)
+        cns[impl] = cn
+    return cns
+
+
+def bf16_pair_phase(nets, pair_cns, cn_cfg, yl, yl_bf16, chains, card):
+    """The float pair of ``bench.py --bf16`` with its ladder and
+    ``NORTH_STAR_EXACT`` (see the module docstring); returns {path: the
+    checked request's launches (by kernel, by entry point, by variant)}."""
+    t0 = time.perf_counter()
+    require(BF16_PAIR.centernet == PARITY_INT8.centernet
+            and yl_bf16.dtype == BF16_PAIR.yolact_dtype, "bf16_pair: int8_pair's nets differ")
+    f32_state = nets["plain_ida"][0].state_dict()
+    ns_scales = chains["north_star"]["kernel"][0].scales
+    request = request_frames(15, (CHECK_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    frames = request_frames(16, (FPS_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    served, answers, timed = {}, {}, {}
+    for path, (recipe, chain) in BF16_RUNGS.items():
+        cns = bf16_rung_nets(path, pair_cns, f32_state)
+        pipes = bf16_rung_pipes(path, cns, cn_cfg, yl_bf16, yl, ns_scales)
+        pipes["kernel"](request)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = pipes["kernel"](request)
+        torch.cuda.synchronize()
+        launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+        served[path] = launches, entries, dict(kernels.VARIANT_LAUNCHES)
+        answers[path] = got
+        want = {**{name: 0 for name in KERNELS}, "peak_decode": 1, "mask_assembly": 1,
+                "depthwise_upsample": 8}
+        require(launches == want and len(cns["kernel"].depthwise_upsamples()) == 8,
+                f"{path}: launch counts {launches}, expected {want}")
+        f32_up = "ida_up" in recipe.centernet.f32_stages
+        _, cn_p95, mask_err = check_answers(path, [got], [pipes["plain"](request)], CHECK_BATCH)
+        print(f"serve {path}: 1 request x {CHECK_BATCH} frames, launches {launches} (kernel C "
+              f"bf16 {entries['tauv_depthwise_upsample_bf16']}, f32 "
+              f"{entries['tauv_depthwise_upsample_f32']}{', ida_up and dla_up in f32' if f32_up else ''}); "
+              f"decoded kernel vs plain: CenterNet p95 {cn_p95}, YOLACT 100% matched, mask "
+              f"max_abs_err {mask_err:.3g}; CenterNet image {recipe.input_dtype}")
+        # Timed at batch 32: the two requests as bench.py sums them, or
+        # the one fused request.
+        requests = getattr(pipes["kernel"], "requests", (pipes["kernel"],))
+        for fn in requests:
+            fn(frames)
+        torch.cuda.synchronize()
+        timed[path] = [time_ms(lambda fn=fn: fn(frames), BF16_ITERS) for fn in requests]
+        if cns is not pair_cns:
+            del cns, pipes
+            torch.cuda.empty_cache()
+    t1 = lap("bf16_pair rungs", t0)
+
+    for got_d, want_d in zip(answers["bf16_pair_fused"], answers["bf16_pair"]):
+        for name, value in vars(want_d).items():
+            other = getattr(got_d, name)
+            require((value is None and other is None) or torch.equal(other, value),
+                    f"bf16_pair: fused {type(want_d).__name__}.{name} differs from unfused")
+    print("serve bf16_pair: fused decode equal bit for bit to the unfused pair's (batch "
+          f"{CHECK_BATCH}, kernels)")
+
+    # decode_yolact(mask_hw=, crop_masks=False) on the bf16 YOLACT's
+    # prediction, kernel B's "no crop" entry against its plain version.
+    with torch.inference_mode():
+        img = preprocess(request.cuda(), (yl.config.in_h, yl.config.in_w), yl.config.img_mean,
+                         yl.config.img_stddev, BF16_PAIR.yolact_dtype)
+        pred = yl_bf16(img)
+        knobs = SERVING_DECODE
+        args = (pred, yl.config, knobs.top_k, knobs.iou_threshold, knobs.confidence_threshold)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = decode_yolact(*args, mask_hw=MASK_HW, crop_masks=False, impl="kernel")
+        torch.cuda.synchronize()
+        no_crop = dict(kernels.VARIANT_LAUNCHES)
+        ref = decode_yolact(*args, mask_hw=MASK_HW, crop_masks=False, impl="plain")
+    err = (got.mask - ref.mask).abs().max().item()
+    require(no_crop == {("mask_assembly", "no crop"): 1}, f"decode_yolact no crop: {no_crop}")
+    require(got.mask.shape == (CHECK_BATCH, knobs.top_k) + MASK_HW and torch.equal(
+        got.valid, ref.valid) and err <= MASK_ATOL,
+        f"decode_yolact(mask_hw={MASK_HW}, crop_masks=False): mask err {err}")
+    print(f"serve bf16_pair: decode_yolact(mask_hw={MASK_HW}, crop_masks=False) kernel B's "
+          f"'no crop' entry ({no_crop}) against its plain version: masks "
+          f"{list(got.mask.shape)} max_abs_err {err:.3g} (atol {MASK_ATOL}), keep masks equal")
+    print(f"time bf16_pair batch {FPS_BATCH} ({BF16_ITERS} repetitions; unfused: the "
+          f"CenterNet's and the YOLACT's requests as bench.py sums them): " + ", ".join(
+              f"{path} {' + '.join(f'{ms:.3f}' for ms in ms_list)} ms = "
+              f"{FPS_BATCH * 1000 / sum(ms_list):.2f} frames/s"
+              for path, ms_list in timed.items()) + f" ({card})")
+    lap("bf16_pair checks", t1)
+    return served
+
+
+# ---- phase 16: keypoints_per_layer_int8 ---------------------------------
+
+KP_PER_LAYER = "keypoints_per_layer_int8"
+
+
+def keypoints_per_layer_phase(kp_net, kp_scales, card):
+    """``bench.py --keypoints --per-layer-int8``
+    (``configs.KEYPOINTS_PER_LAYER_INT8``; see the module docstring);
+    returns the served run's launches (by kernel, by entry point, by
+    variant)."""
+    device = torch.device("cuda")
+    kp, kp_plain, oc, cfg, projection = kp_net
+    n_slots = max(len(c.keypoints) for c in oc.configs)
+    cal = request_frames(0, (N_CALIBRATION, FRAME_H, FRAME_W, 3)).to(device)
+    scales = calibrate_per_layer(KEYPOINTS_PER_LAYER_INT8, kp, cfg, cal)
+    require(scales.keys() == kp_scales.keys(),
+            f"{KP_PER_LAYER}: {len(scales)} calibrated convs, the keypoint chain's "
+            f"{len(kp_scales)}")
+    scale_rel = max(abs(scales[k] / kp_scales[k] - 1) for k in scales)
+
+    def pipes(knobs):
+        return tuple(make_keypoints_per_layer_pipeline(net, cfg, scales, projection, device,
+                                                       knobs, impl=impl)
+                     for net, impl in ((kp, "kernel"), (kp_plain, "plain")))
+
+    pipe, _ = pipes(SERVING_DECODE)
+    requests = [request_frames(4, (KP_REQUESTS, KP_BATCH, FRAME_H, FRAME_W, 3))[i].pin_memory()
+                for i in range(KP_REQUESTS)]
+    pipe(requests[0])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    answers = [pipe(r) for r in requests]
+    torch.cuda.synchronize()
+    launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+    variants = dict(kernels.VARIANT_LAUNCHES)
+    per_request = keypoint_launches(kp)
+    require(launches == {name: KP_REQUESTS * n for name, n in per_request.items()},
+            f"{KP_PER_LAYER}: launch counts {launches}")
+    require(entries["tauv_depthwise_upsample_bf16"] == KP_REQUESTS * 8,
+            f"{KP_PER_LAYER}: kernel C's bf16 launches")
+    require(variants == {("peak_decode", "K=10"): KP_REQUESTS,
+                         ("peak_decode", "K=50"): KP_REQUESTS}, f"{KP_PER_LAYER}: kernel A by K")
+    for out in answers:
+        check_keypoint_outputs(out, KP_BATCH, n_slots)
+
+    pipe0, plain0 = pipes(ALL_SLOTS)
+    swaps, claimed, posed = 0, [0, 0], [0, 0]
+    for r in requests + [request_frames(5, (1, FRAME_H, FRAME_W, 3)).pin_memory()]:
+        got, ref = pipe0(r), plain0(r)
+        swaps += check_bf16_centernet(KP_PER_LAYER, detection_deltas(
+            ref.detections, got.detections, score_threshold=0.0), ref.detections)
+        for i, out in enumerate((got, ref)):
+            claimed[i] += int(out.keypoint_valid.sum())
+            posed[i] += int(out.pose_valid.sum())
+
+    # decode_keypoints on one per-layer forward's heads, kernel A against
+    # the plain peak decode.
+    with torch.inference_mode():
+        img = preprocess(requests[0].to(device), (cfg.in_h, cfg.in_w), IMAGENET_MEAN,
+                         IMAGENET_STDDEV, KEYPOINTS_PER_LAYER_INT8.input_dtype)
+        pred = quantized_call(kp, scales, paths_of=centerpoint_calibration_paths)(img)
+        proj = torch.tensor(projection, dtype=torch.float32, device=device)
+        args = (pred, cfg, oc, proj, ALL_SLOTS.n_detections, ALL_SLOTS.keypoint_n_detections,
+                0.0, 0.0)
+        dk, dp = decode_keypoints(*args, impl="kernel"), decode_keypoints(*args, impl="plain")
+    for name in ("valid", "label", "y", "x"):
+        require(torch.equal(getattr(dk.detections, name), getattr(dp.detections, name)),
+                f"{KP_PER_LAYER} same heads: detections.{name} differs")
+    for name in ("keypoint_valid", "keypoint_y", "keypoint_x", "pose_valid"):
+        require(torch.equal(getattr(dk, name), getattr(dp, name)),
+                f"{KP_PER_LAYER} same heads: {name} differs")
+    print(f"serve {KP_PER_LAYER}: {len(scales)} convs int8 through quantized_call (per-tensor "
+          f"scales calibrated on the card, within {scale_rel:.3g} relative of the keypoint "
+          f"chain's of phase 1), {KP_REQUESTS} requests x "
+          f"{KP_BATCH} frames, launches {launches} (kernel A by K: {variants}, kernel C "
+          f"{entries['tauv_depthwise_upsample_bf16']} bf16); decoded kernel vs plain at threshold "
+          f"0 over {KP_REQUESTS} x {KP_BATCH} + 1 frames: CenterNet {swaps} top-K slots swapped, "
+          f"keypoints claimed {claimed[0]} (plain {claimed[1]}), PnP solves valid {posed[0]} "
+          f"(plain {posed[1]}); decode_keypoints on one forward's heads kernel A vs plain equal")
+
+    frames = request_frames(7, (KP_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    plain = pipes(SERVING_DECODE)[1]
+    bf16_pipe, _ = keypoint_pipelines(kp_net, device, SERVING_DECODE)
+    k_ms, p_ms = abba(lambda: pipe(frames), lambda: plain(frames), 3, warmup=1)
+    b_ms = time_ms(lambda: bf16_pipe(frames), 3)
+    busy_ms, n_kernels = device_busy(lambda: pipe(frames), reps=1)
+    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / k_ms:.1%}"
+    print(f"time pipeline {KP_PER_LAYER} batch {KP_BATCH} (upload + bf16 preprocess + the bf16 "
+          f"net with its convs int8 + decode + matcher + PnP): kernels {k_ms:.3f} ms = "
+          f"{KP_BATCH * 1000 / k_ms:.2f} frames/s, plain {p_ms:.3f} ms = "
+          f"{KP_BATCH * 1000 / p_ms:.2f} frames/s, the bf16 keypoints request in the same phase "
+          f"{b_ms:.3f} ms = {KP_BATCH * 1000 / b_ms:.2f} frames/s; the request: {n_kernels} "
+          f"device kernels and copies, busy {busy_ms} ms, the device idle {idle} ({card})")
+    return launches, entries, variants
+
+
 def _first_path(paths):
     return paths if paths is None or isinstance(paths, str) else paths[0]
 
@@ -5110,6 +5637,12 @@ def main(argv=None) -> int:
     served.update(pair_served)
     with phase("qat"):
         served["qat"] = qat_phase(pair_cns, cn_cfg, yl_bf16, card)
+    with phase("host_io"):
+        served["host_io"] = host_io_phase(cn_chains, cn_cfg, yl, chain_yl_scales, card)
+    with phase("bf16_pair"):
+        served.update(bf16_pair_phase(nets, pair_cns, cn_cfg, yl, yl_bf16, chains, card))
+    with phase("keypoints_per_layer_int8"):
+        served[KP_PER_LAYER] = keypoints_per_layer_phase(kp_net, kp_scales, card)
 
     def launches(path, row):
         kernel, entry = ROWS[row]

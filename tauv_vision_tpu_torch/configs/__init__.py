@@ -20,7 +20,12 @@ its ``--mse``, ``--bias-correct`` and ``--seq-correct`` options) and
 ``--parity-int8`` and ``--per-layer-int8``.  ``BENCH_YOLO_POSE``
 is the YOLO-Pose net, object points and camera of ``bench.py
 --yolo-pose``, served in bf16, with the recipe of its int8 rungs (the
-chain and ``--per-layer-int8``).
+chain and ``--per-layer-int8``).  ``HOST_IO`` is ``bench.py --host-io``
+(``CHAIN_INT8`` through the serving executor, from disk, with packed
+masks); ``BF16_PAIR`` is the float pair of ``bench.py --bf16``, and
+``bf16_pair`` builds its ladder (``--bn-bf16``, ``--f32-from``,
+``--fused``); ``NORTH_STAR_EXACT`` is ``--exact-flow``; and
+``KEYPOINTS_PER_LAYER_INT8`` is ``bench.py --keypoints --per-layer-int8``.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from tauv_vision_tpu_torch.configs.yolo_pose import YoloPoseModelConfig
 __all__ = [
     "AngleConfig",
     "BENCH_YOLO_POSE",
+    "BF16_PAIR",
     "CHAIN_INT8",
     "CenternetModelConfig",
     "CenternetTrainConfig",
@@ -58,22 +64,29 @@ __all__ = [
     "ClassConfigSet",
     "DCN_CHAIN_INT8",
     "DCN_NORTH_STAR",
+    "FloatPairRecipe",
+    "HOST_IO",
+    "HostIoRecipe",
     "INT8_CHAIN_YOLACT",
     "KEYPOINTS",
+    "KEYPOINTS_PER_LAYER_INT8",
     "ObjectConfig",
     "NORTH_STAR",
+    "NORTH_STAR_EXACT",
     "ObjectConfigSet",
     "PARITY_INT8",
     "PER_LAYER_INT8",
     "SEQ_FRAMES",
     "Int8PairRecipe",
     "Int8Scales",
+    "PerLayerInt8Recipe",
     "ServedCenternetRecipe",
     "ServedRecipe",
     "ServedYoloPose",
     "YolactModelConfig",
     "YolactTrainConfig",
     "YoloPoseModelConfig",
+    "bf16_pair",
     "centernet_config",
     "get_head_channels",
     "keypoints_config",
@@ -393,3 +406,122 @@ BENCH_YOLO_POSE = ServedYoloPose(
     chain=YolactChainRecipe(per_channel=False, float_paths=(), dtype=torch.bfloat16,
                             join_dtype=None, int8_transposes=False),
 )
+
+
+# ``bench.py --north-star --exact-flow`` (``bench.py:1270,1293,1305,
+# 1412-1417``): ``NORTH_STAR`` with the flax-exact flow, the CenterNet's
+# BatchNorm outputs f32 and no f32 stem, the YOLACT chain's joins f32
+# (``join_dtype`` None), both behind one ``make_combined_pipeline``.  The
+# image is bf16, the JAX function's default: with no f32 stem the
+# CenterNet's first conv rounds its input to bf16 in any case, and so does
+# the YOLACT chain's float stem.
+NORTH_STAR_EXACT = replace(
+    NORTH_STAR, centernet=replace(NORTH_STAR.centernet, bn_out=torch.float32, f32_stages=()),
+    yolact=replace(NORTH_STAR.yolact, join_dtype=None), input_dtype=torch.bfloat16)
+
+
+@dataclass(frozen=True)
+class FloatPairRecipe(ServedCenternetRecipe):
+    """A float profile of the pair: the CenterNet of ``centernet`` fed its
+    normalised image in ``input_dtype``, beside the float YOLACT
+    ``Yolact(dtype=yolact_dtype)`` fed its own image in ``yolact_dtype``;
+    served as two requests on the same frames (``bench.py:1620-1627``), or
+    with ``fused`` through one ``make_combined_pipeline`` that shares the
+    resize (``bench.py:1564-1612``; its one image is in ``input_dtype``,
+    which the bf16 YOLACT's stem rounds to bf16 as its own image is)."""
+
+    yolact_dtype: torch.dtype
+    fused: bool = False
+
+
+# ``bench.py --bf16`` (``bench.py:1276-1320,1548-1550``), the float pair
+# that the reference-parity suite covers: the bf16 CenterNet with f32
+# BatchNorm outputs and no f32 stage (the profile is not north-star,
+# ``bench.py:1293,1305``), plain IDA, beside the bf16 YOLACT
+# (``bench.py:131``), no int8 in either net; each net on its own bf16
+# image, the JAX ``make_*_pipeline`` functions' default ``dtype``; two
+# requests, unfused (``bench.py:1620-1624``).
+BF16_PAIR = FloatPairRecipe(
+    centernet=CenternetRecipe(dtype=torch.bfloat16, bn_out=torch.float32, f32_stages=(),
+                              deform=False),
+    input_dtype=torch.bfloat16,
+    yolact_dtype=torch.bfloat16,
+)
+
+# The stages whose f32 convs read the image itself: a rung that names one
+# is fed the f32 image, the choice ``NORTH_STAR`` made for its f32 stem
+# (where the JAX pipeline rounds the image to bf16 first: ROADMAP, "Known
+# defects on the reference side", item 1).
+F32_IMAGE_STAGES = ("stem", "early")
+
+
+def bf16_pair(bn_bf16: bool = False, f32_stages: Tuple[str, ...] = (),
+              fused: bool = False) -> FloatPairRecipe:
+    """``BF16_PAIR`` with ``bench.py``'s ladder knobs: ``--bn-bf16`` (bf16
+    BatchNorm outputs), ``--f32-from S1,...`` (the CenterNet stages that
+    compute in f32, ``bench.py:1306-1317``; an unknown name raises, as
+    there) and ``--fused``.  A rung with ``stem`` or ``early`` in
+    ``f32_stages`` feeds the CenterNet the f32 image
+    (``F32_IMAGE_STAGES``); every other rung the bf16 image, as JAX
+    does."""
+    from tauv_vision_tpu_torch.models.centerpoint_dla import check_f32_stages
+
+    stages = check_f32_stages(f32_stages)
+    f32_image = any(s in F32_IMAGE_STAGES for s in stages)
+    return replace(
+        BF16_PAIR,
+        centernet=replace(BF16_PAIR.centernet,
+                          bn_out=torch.bfloat16 if bn_bf16 else torch.float32,
+                          f32_stages=stages),
+        input_dtype=torch.float32 if f32_image else torch.bfloat16, fused=fused)
+
+
+@dataclass(frozen=True)
+class HostIoRecipe:
+    """``bench.py --host-io`` (``bench.py:535-682``): the int8-chain pair
+    ``pair`` served through ``serving/executor.ServingExecutor`` with
+    ``prefetch`` batches ahead, on ``n_batches`` batches of ``batch`` uint8
+    frames of ``frame_hw`` read from disk (a memory-mapped raw ring, timed
+    over ``raw_reps`` passes after a warm one, and PNG files over
+    ``png_reps``), the YOLACT's masks packed into bitmaps of
+    ``mask > mask_threshold`` on the device, every output brought back as
+    numpy."""
+
+    pair: ServedRecipe
+    batch: int
+    n_batches: int
+    prefetch: int
+    raw_reps: int
+    png_reps: int
+    mask_threshold: float
+    frame_hw: Tuple[int, int]
+
+
+# ``bench.py --host-io``: ``CHAIN_INT8`` (per-tensor scales of 2 frames,
+# ``bench.py:585-600``) with packed masks (``bench.py:606-620``), 8 batches
+# (``:589``), prefetch 2 (``:624``), 4 raw passes and 1 PNG pass
+# (``:658-661``) of 640x480 frames.  ``bench.py`` defaults to batch 128
+# (``bench.py:1196-1201``); the port serves and times it at 32, as every
+# pair path is timed: a cut of the batch, not of width.
+HOST_IO = HostIoRecipe(pair=CHAIN_INT8, batch=32, n_batches=8, prefetch=2, raw_reps=4,
+                       png_reps=1, mask_threshold=0.5, frame_hw=(480, 640))
+
+
+@dataclass(frozen=True)
+class PerLayerInt8Recipe(ServedCenternetRecipe):
+    """A CenterNet whose convs ``quantized_call`` computes in int8, with
+    ``calibrate``'s scales of ``scales`` on the first
+    ``CALIBRATION_FRAMES`` frames of its image in ``input_dtype``."""
+
+    scales: Int8Scales
+
+
+# ``bench.py --keypoints --per-layer-int8`` (``bench.py:371-382,
+# 1138-1143``): ``KEYPOINTS``' bf16 net (f32 BatchNorm outputs, no f32
+# stage, plain IDA) through ``quantized_call`` with per-tensor scales of 2
+# frames keyed by ``weights.centerpoint_calibration_paths``, every conv of
+# 16 input channels or more int8, heads included; fed the bf16 image of the
+# JAX keypoint pipeline's default ``dtype``.
+KEYPOINTS_PER_LAYER_INT8 = PerLayerInt8Recipe(centernet=KEYPOINTS.centernet,
+                                              input_dtype=KEYPOINTS.input_dtype,
+                                              scales=Int8Scales(per_channel=False))

@@ -2,7 +2,9 @@
 
 Counterpart of ``tauv_vision_tpu/ops/masks.py`` (plain version) and of
 ``tauv_vision_tpu/ops/pallas/mask_assembly.py`` (``assemble_mask_cuda``,
-the wrapper of ``csrc/mask_assembly.cu``).
+the wrapper of ``csrc/mask_assembly.cu``).  ``pack_masks`` binarises
+masks into bitmaps as ``bench.py --host-io`` publishes them
+(``jnp.packbits(mask > 0.5, axis=-1)``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from tauv_vision_tpu_torch import kernels
 from tauv_vision_tpu_torch.ops.boxes import box_to_mask
 
 MAX_PROTOTYPES = 32
+# A byte's bits, most significant first: numpy's ``packbits`` order.
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
 def assemble_mask_batch(
@@ -81,3 +85,16 @@ def assemble_mask_cuda(
         variant="no crop" if box is None else "crop",
     )
     return out
+
+
+def pack_masks(mask: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+    """``mask > threshold`` bit-packed along the last axis into uint8, as
+    ``jnp.packbits`` / ``np.packbits`` do: the first element in the most
+    significant bit, and the last byte zero-padded when the width is not a
+    multiple of 8.  [..., W] -> [..., ceil(W / 8)], on ``mask``'s device."""
+    bits = (mask > threshold).to(torch.uint8)
+    pad = -bits.shape[-1] % 8
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=mask.device)
+    return (bits.unflatten(-1, (-1, 8)) * weights).sum(-1, dtype=torch.uint8)

@@ -171,7 +171,8 @@ def keypoint_peaks(
     """Top-k keypoint peaks over all keypoint channels, and the affinity
     vector of each peak's own channel at its cell."""
     mc = model_config
-    index, label, score = _peaks(impl)(prediction.keypoint_heatmap_nchw(),
+    # Contiguous NCHW for kernel A, as in ``decode``.
+    index, label, score = _peaks(impl)(prediction.keypoint_heatmap_nchw().contiguous(),
                                        keypoint_n_detections)
     return KeypointPeaks(
         valid=score >= keypoint_score_threshold,

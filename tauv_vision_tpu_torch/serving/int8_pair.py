@@ -10,6 +10,10 @@ recipe's float paths stripped, then the options in ``bench.py``'s order
 them).  ``make_int8_pair_pipelines`` serves the two requests that
 ``bench.py`` times on the same frames: the CenterNet and the YOLACT as
 int8 chains (``serving/quantize_chain.py``) or through ``quantized_call``.
+
+``calibrate_per_layer`` and ``make_keypoints_per_layer_pipeline`` serve
+``bench.py --keypoints --per-layer-int8`` (``configs.KEYPOINTS_PER_LAYER_INT8``):
+the keypoint net through ``quantized_call`` (``bench.py:371-382,1138-1143``).
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ from tauv_vision_tpu_torch.configs import (
     CALIBRATION_FRAMES,
     SEQ_FRAMES,
     CenternetModelConfig,
+    KEYPOINTS_PER_LAYER_INT8,
     Int8PairRecipe,
     Int8Scales,
+    PerLayerInt8Recipe,
 )
 from tauv_vision_tpu_torch.device import DEFAULT_DEVICE
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
@@ -35,6 +41,7 @@ from tauv_vision_tpu_torch.serving.pipeline import (
     IMAGENET_STDDEV,
     SERVING_DECODE,
     DecodeKnobs,
+    make_centernet_keypoint_pipeline,
     make_centernet_pipeline,
     make_yolact_pipeline,
 )
@@ -144,3 +151,34 @@ def make_int8_pair_pipelines(recipe: Int8PairRecipe, cn: CenterpointDLA34,
             make_yolact_chain_pipeline(yl, yl_cal.scales, device, knobs, dtype=dtype,
                                        join_dtype=None, impl=impl, gains=yl_cal.gains,
                                        corrections=yl_cal.corrections))
+
+
+def calibrate_per_layer(recipe: PerLayerInt8Recipe, cn: CenterpointDLA34,
+                        cn_config: CenternetModelConfig, frames: torch.Tensor) -> Dict[str, Any]:
+    """``calibrate``'s scales of ``recipe`` for the CenterNet ``cn`` (built
+    from ``recipe.centernet``) on its image in ``recipe.input_dtype`` of
+    the first ``CALIBRATION_FRAMES`` uint8 NHWC ``frames``, keyed by
+    ``centerpoint_calibration_paths``, the recipe's float paths
+    stripped."""
+    img = _images(frames[:CALIBRATION_FRAMES], (cn_config.in_h, cn_config.in_w), IMAGENET_MEAN,
+                  IMAGENET_STDDEV, recipe.input_dtype)
+    return strip_scales(calibrate(cn, [img], per_channel=recipe.scales.per_channel,
+                                  paths_of=centerpoint_calibration_paths),
+                        recipe.scales.float_paths)
+
+
+def make_keypoints_per_layer_pipeline(kp: CenterpointDLA34, cn_config: CenternetModelConfig,
+                                      scales: Dict[str, Any], projection_matrix,
+                                      device=DEFAULT_DEVICE,
+                                      knobs: DecodeKnobs = SERVING_DECODE,
+                                      impl: str = "kernel",
+                                      recipe: PerLayerInt8Recipe = KEYPOINTS_PER_LAYER_INT8):
+    """uint8 frames -> ``KeypointDetections``: the keypoint net ``kp``
+    through ``quantized_call`` on ``calibrate_per_layer``'s ``scales``,
+    decoded as ``make_centernet_keypoint_pipeline`` decodes (its
+    ``recipe.input_dtype`` image; ``impl`` picks kernel A or its plain
+    version, kernel C is ``kp``'s own)."""
+    forward = quantized_call(kp, scales, paths_of=centerpoint_calibration_paths)
+    return make_centernet_keypoint_pipeline(forward, cn_config, kp.object_config,
+                                            projection_matrix, device, knobs, impl=impl,
+                                            dtype=recipe.input_dtype)

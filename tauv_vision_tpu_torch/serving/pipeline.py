@@ -13,6 +13,9 @@ the port's default is f32, and a served recipe passes its own
 and the int8 chains' bf16 through ``serving/quantize_chain.py``), but for
 ``make_yolo_pose_pipeline``, whose default is the JAX function's bf16.
 
+``make_float_pair_pipeline`` serves the float profiles of the pair
+(``configs.BF16_PAIR`` and its ladder).
+
 ``depth_window_z``, ``mask_mean_z`` and ``back_project`` turn decoded
 detections and a depth image into camera-frame 3D points, for the node
 servers of ``serving/nodes.py``.
@@ -21,11 +24,12 @@ servers of ``serving/nodes.py``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from tauv_vision_tpu_torch.configs import FloatPairRecipe
 from tauv_vision_tpu_torch.configs.centernet import CenternetModelConfig, ObjectConfigSet
 from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig
 from tauv_vision_tpu_torch.configs.yolo_pose import YoloPoseModelConfig
@@ -125,10 +129,12 @@ def make_centernet_keypoint_pipeline(model, model_config: CenternetModelConfig,
 def make_yolact_pipeline(model, model_config: YolactModelConfig,
                          device=DEFAULT_DEVICE,
                          knobs: DecodeKnobs = SERVING_DECODE,
-                         impl: str = "kernel", dtype=torch.float32):
+                         impl: str = "kernel", dtype=torch.float32,
+                         mask_hw: Optional[Tuple[int, int]] = None):
     """``fn(img_uint8) -> YolactDetections``; ``model(img)`` takes the
     normalised NCHW image (the model itself, or a chain forward of
-    ``serving/quantize_chain.py``), and is kept as ``fn.forward``."""
+    ``serving/quantize_chain.py``), and is kept as ``fn.forward``.
+    ``mask_hw`` resizes the decoded masks (``decode_yolact``)."""
     device = resolve_device(device)
     out_hw = (model_config.in_h, model_config.in_w)
 
@@ -138,7 +144,8 @@ def make_yolact_pipeline(model, model_config: YolactModelConfig,
                              model_config.img_mean, model_config.img_stddev, dtype)
             return decode_yolact(model(img), model_config, knobs.top_k,
                                  knobs.iou_threshold,
-                                 knobs.confidence_threshold, impl=impl)
+                                 knobs.confidence_threshold, mask_hw=mask_hw,
+                                 impl=impl)
 
     pipeline.forward = model
     return pipeline
@@ -218,6 +225,33 @@ def make_combined_pipeline(cn_forward, cn_model_config: CenternetModelConfig,
                                     knobs.confidence_threshold, impl=impl)
         return cn_dets, yl_dets
 
+    return pipeline
+
+
+def make_float_pair_pipeline(recipe: FloatPairRecipe, cn, cn_model_config: CenternetModelConfig,
+                             yl, device=DEFAULT_DEVICE, knobs: DecodeKnobs = SERVING_DECODE,
+                             impl: str = "kernel"):
+    """``fn(img_uint8) -> (Detections, YolactDetections)``: a float
+    profile of the pair (``configs.BF16_PAIR``, its ladder
+    ``configs.bf16_pair``) on the CenterNet ``cn`` built from
+    ``recipe.centernet`` and the YOLACT ``yl`` built in
+    ``recipe.yolact_dtype``.  Unfused, the two requests ``bench.py`` times
+    (``make_centernet_pipeline`` on the image in ``recipe.input_dtype``,
+    ``make_yolact_pipeline`` on its own), kept as ``fn.requests``; with
+    ``recipe.fused``, one ``make_combined_pipeline`` that shares the
+    resize."""
+    if recipe.fused:
+        return make_combined_pipeline(cn, cn_model_config, yl, yl.config, device, knobs, impl,
+                                      dtype=recipe.input_dtype)
+    requests = (make_centernet_pipeline(cn, cn_model_config, device, knobs, impl,
+                                        dtype=recipe.input_dtype),
+                make_yolact_pipeline(yl, yl.config, device, knobs, impl,
+                                     dtype=recipe.yolact_dtype))
+
+    def pipeline(img_uint8):
+        return tuple(request(img_uint8) for request in requests)
+
+    pipeline.requests = requests
     return pipeline
 
 

@@ -4,12 +4,14 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig
 from tauv_vision_tpu_torch.models.yolact import YolactPrediction
 from tauv_vision_tpu_torch.ops.boxes import box_decode
+from tauv_vision_tpu_torch.ops.image import resize_bilinear
 from tauv_vision_tpu_torch.ops.masks import assemble_mask_batch, assemble_mask_cuda
 from tauv_vision_tpu_torch.ops.nms import fast_nms
 
@@ -36,12 +38,17 @@ def decode_yolact(
     top_k: int,
     iou_threshold: float,
     confidence_threshold: float,
+    mask_hw: Optional[Tuple[int, int]] = None,
+    crop_masks: bool = True,
     impl: str = "kernel",
 ) -> YolactDetections:
-    """Masks come out at prototype resolution, cropped to their boxes.
+    """Masks come out at prototype resolution, cropped to their boxes, or
+    uncropped with ``crop_masks=False``, and resized bilinearly to
+    ``mask_hw`` (``ops.image.resize_bilinear``) when it is given.
 
     ``impl="kernel"`` assembles masks with ``assemble_mask_cuda``
-    (kernel B on a CUDA tensor); ``impl="plain"`` with the plain version."""
+    (kernel B on a CUDA tensor; its "no crop" entry without the crop);
+    ``impl="plain"`` with the plain version."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     box = box_decode(
@@ -63,7 +70,9 @@ def decode_yolact(
     # int8 chain), which kernel B reads in place.
     proto = prediction.mask_prototype.permute(0, 3, 1, 2)
     assemble = assemble_mask_cuda if impl == "kernel" else assemble_mask_batch
-    masks = assemble(proto, sel_coeff, sel_box)
+    masks = assemble(proto, sel_coeff, sel_box if crop_masks else None)
+    if mask_hw is not None:
+        masks = resize_bilinear(masks, mask_hw)
     return YolactDetections(
         valid=keep, score=score, label=label, box=sel_box, mask=masks
     )

@@ -250,7 +250,8 @@ def test_torch_port_imports_no_jax():
     for module in ("models/layers.py", "models/centerpoint_dla.py", "configs/__init__.py",
                    "scripts/op_probe.py", "scripts/int8_dot_probe.py", "ops/image.py",
                    "ops/pnp.py", "serving/nodes.py", "serving/centernet_decode.py",
-                   "serving/qat.py", "serving/int8_pair.py"):
+                   "serving/qat.py", "serving/int8_pair.py", "serving/executor.py",
+                   "serving/host_io.py", "serving/pipeline.py", "ops/masks.py"):
         assert PORT / module in sources, module
     for path in sources:
         for name in _imports(path):
