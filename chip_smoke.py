@@ -309,7 +309,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
    launches a request, held to its plain versions at threshold 0 on the
    requests and a frame (the bf16 CenterNet's bars), ``decode_keypoints``
    on one forward's heads kernel A against plain, equal; its request at
-   batch 16 beside the bf16 ``keypoints`` request.
+   batch 16 beside the bf16 ``keypoints`` request;
+17. quantize_accuracy: ``scripts/quantize_accuracy_check.py`` through its
+   functions and ``main``: the bf16 plain-IDA DLA-34 trained at the
+   script's defaults (300 steps, batch 16, 640x360; the losses finite and
+   the last logged below half the first), ``--save-model`` then
+   ``--load-model`` into a fresh net whose decode of a batch is bit-equal;
+   then on those weights, each cut in depth (the evaluation set 8 batches
+   of 16, not 32; 200 bootstrap resamples, not 1,000): the default mode
+   (AP@0.5 with intervals of bf16, per-layer int8 and the chain), a sweep
+   over one rung of each recipe (``QA_SWEEP``), the f32 reference's rungs
+   (``QA_F32_SWEEP``), a keypoint rung on a keypoint net trained 100
+   steps, and QAT (20 steps, ``--qat-save``, then ``--qat-load`` giving
+   the same numbers); A and C counted over those runs.  The asymmetric
+   and GPTQ chains on the kernels against the plain versions (every
+   int8 code equal, the decodes slot for slot), ``calibrate_gptq`` on the
+   card against CPU tensors on two layers (codes equal but near-ties),
+   the ``pc+none`` control's deltas and the trained-weight table printed.
 
 Each phase prints its seconds, and the script its total.
 
@@ -326,6 +342,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import itertools
 import json
@@ -419,6 +436,7 @@ from tauv_vision_tpu_torch.scripts import (
     train_yolact,
     train_yolo_pose,
 )
+from tauv_vision_tpu_torch.scripts import quantize_accuracy_check as qac
 from tauv_vision_tpu_torch.scripts.kernel_times import queued_ms, time_ms
 from tauv_vision_tpu_torch.serving import quantize_chain
 from tauv_vision_tpu_torch.serving.centernet_decode import (
@@ -618,7 +636,8 @@ ALL_PATHS = PATHS + ("keypoints",) + tuple(CHAIN_PAIRS) + (KP_INT8, "train", "tr
                                                              "bf16_pair_f32_early",
                                                              "bf16_pair_f32_level3",
                                                              "north_star_exact",
-                                                             "keypoints_per_layer_int8")
+                                                             "keypoints_per_layer_int8",
+                                                             "quantize_accuracy")
 PAIR_ITERS = 3        # timed repetitions of a pair path's request at batch 32
 CHAIN_ITERS = 2       # of each of a chain pair's two requests
 # Kernel E's 16 calls of a forward at the path's window, and at the other
@@ -5556,6 +5575,310 @@ def keypoints_per_layer_phase(kp_net, kp_scales, card):
     return launches, entries, variants
 
 
+# ---- phase 17: quantize_accuracy ----------------------------------------
+
+# scripts/quantize_accuracy_check.py on the card: its training at its
+# defaults, then its modes on the trained weights, each cut in depth (the
+# evaluation set, the bootstrap, the keypoint net's training, QAT).
+QA_EVAL_BATCHES = 8       # of 16 frames: 128 images (the script's 32: 512)
+QA_BOOTSTRAP = 200        # resamples (the script's 1,000)
+QA_KP_STEPS = 100         # the keypoint net's training steps (300)
+QA_QAT_STEPS = 20         # --qat-steps (the script's default: none)
+QA_SWEEP = ("pc+none", "pc+bf16heads+early01+updown", "mse+bf16heads+early0123+updown",
+            "seqmean+bf16heads+early01+updown", "seq+bf16heads+early01+updown",
+            "pc+early0123+updown+margin1.25", "asym+early0123+updown",
+            "gptq+asym+early0123+updown")
+QA_F32_SWEEP = ("flax-bf16", "flax-bf16-bn16", "float-f32heads", "ida-int8+f32heads")
+QA_KP_RUNG = "pc+bf16heads+early01+updown"
+GPTQ_TIE = 1e-9           # W / ws this close to a .5 tie: a code may round either way
+
+
+def qa_argv(path, *extra):
+    return ["--load-model", str(path), "--eval-batches", str(QA_EVAL_BATCHES), *extra]
+
+
+def qa_rung(name, model, cal):
+    """A rung of the ladder as the script builds it (``qac.run_sweep``):
+    (scales, ranges) of ``model`` on the calibration images ``cal``."""
+    cfg = dict(qac.SWEEP_LADDER)[name]
+    scales = strip_scales(calibrate(model, cal, per_channel=cfg["per_channel"],
+                                    paths_of=centerpoint_calibration_paths), cfg["strip"])
+    ranges = None
+    if cfg.get("asym"):
+        ranges = {k: v for k, v in quantize.calibrate_range(
+            model, cal, paths_of=centerpoint_calibration_paths).items() if k in scales}
+    return scales, ranges
+
+
+def qa_chain_kernel_vs_plain(label, model, cal, frames, mc, **options):
+    """One request's chain of ``options`` on the kernels (C, A) against
+    their plain versions: every int8 map equal, the decodes slot for slot
+    (center and size p95 0, the score within kernel A's ``PEAK_ATOL``)."""
+    img = qac.image(frames)
+    out = {}
+    for impl in ("kernel", "plain"):
+        ctx = ChainCtx(model, path_of=centerpoint_flax_path, dtype=torch.bfloat16,
+                       join_dtype=None, impl=impl, **options)
+        forward = dla34_chain_forward(ctx)
+        with torch.inference_mode():
+            codes = chain_codes(ctx, forward, img)
+            dets = decode(forward(img), mc, ALL_SLOTS.n_detections, 0.0, impl=impl)
+        out[impl] = codes, dets
+    (codes_k, dets_k), (codes_p, dets_p) = out["kernel"], out["plain"]
+    require(codes_k.keys() == codes_p.keys() and codes_k,
+            f"quantize_accuracy {label}: int8 layers kernel vs plain")
+    differ = sum(int((codes_k[k] != codes_p[k]).sum()) for k in codes_k)
+    stats = detection_deltas(dets_p, dets_k, score_threshold=0.0)
+    require(differ == 0, f"quantize_accuracy {label}: {differ} int8 codes differ kernel vs plain")
+    require(stats["matched_fraction"] == 1.0 and stats["center_delta_p95"] == 0.0
+            and stats["size_delta_p95"] == 0.0 and stats["score_delta_p95"] <= PEAK_ATOL,
+            f"quantize_accuracy {label}: decode kernel vs plain {stats}")
+    print(f"check quantize_accuracy {label} chain kernel vs plain on {frames.shape[0]} frames: "
+          f"{len(codes_k)} int8 maps, all {sum(c.numel() for c in codes_k.values())} codes equal; "
+          f"decode at threshold 0 {stats['total']} slots matched {stats['matched_fraction']}, "
+          f"p95 center {stats['center_delta_p95']} size {stats['size_delta_p95']} score "
+          f"{stats['score_delta_p95']} (bar {PEAK_ATOL})")
+
+
+class _ConvReplay(torch.nn.Module):
+    """Calls ``convs`` on recorded ``inputs``; the batch is ignored."""
+
+    def __init__(self, convs, inputs):
+        super().__init__()
+        self.convs, self.inputs = torch.nn.ModuleList(convs), inputs
+
+    def forward(self, _):
+        for conv, x in zip(self.convs, self.inputs):
+            conv(x)
+
+
+def qa_gptq_card_vs_cpu(model, cal, ranges, paths):
+    """``calibrate_gptq`` on the card against the same function on CPU
+    tensors, on the same recorded inputs of ``paths``: codes equal but
+    where the card's rounding finds W / ws within ``GPTQ_TIE`` of a .5
+    tie; returns the card's seconds a layer."""
+    modules = ChainCtx(model, {}, path_of=centerpoint_flax_path).modules
+    inputs = {}
+
+    def recorder(path):
+        def hook(_, args):
+            inputs.setdefault(path, args[0].clone())
+        return hook
+
+    hooks = [modules[p].register_forward_pre_hook(recorder(p)) for p in paths]
+    try:
+        with torch.inference_mode():
+            model(cal[0])
+    finally:
+        for h in hooks:
+            h.remove()
+    fold = {p: ranges[p] for p in paths}
+    names = {f"convs.{i}": p for i, p in enumerate(paths)}
+    seen, rounding = [], quantize._gptq_round
+
+    def spy(wf, hinv, ws):
+        seen.append((wf, hinv, ws))
+        return rounding(wf, hinv, ws)
+
+    results = {}
+    for dev in ("cuda", "cpu"):
+        convs = [copy.deepcopy(modules[p]).to(dev) for p in paths]
+        replay = _ConvReplay(convs, [inputs[p].to(dev) for p in paths])
+        quantize._gptq_round = spy if dev == "cuda" else rounding
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[dev] = quantize.calibrate_gptq(replay, [None], fold, paths_of=names.get)
+            results[dev + "_s"] = time.perf_counter() - t0
+        finally:
+            quantize._gptq_round = rounding
+    ties, differ = [], 0
+    for i, p in enumerate(paths):
+        (qc, wc), (qp, wp) = results["cuda"][p], results["cpu"][p]
+        require(np.array_equal(wc, wp), f"quantize_accuracy gptq {p}: weight scales card vs CPU")
+        d = (qc != qp).reshape(-1, qc.shape[-1])
+        differ += int(d.sum())
+        wf, hinv, ws = seen[i]
+        for col in np.flatnonzero(d.any(axis=0)):
+            row = int(np.argmax(d[:, col]))
+            w = wf[:, col].clone()
+            for r in range(row + 1):
+                v = float(w[r] / ws[col])
+                q = torch.clamp(torch.round(w[r] / ws[col]), -127, 127)
+                w[r + 1:] -= hinv[r, r + 1:] * ((w[r] - q * ws[col]) / hinv[r, r])
+            require(abs(abs(v - math.floor(v)) - 0.5) <= GPTQ_TIE,
+                    f"quantize_accuracy gptq {p}: code [{row}, {col}] differs card vs CPU at "
+                    f"W / ws = {v}, not a near-tie")
+            ties.append(f"{p}[{row},{col}]")
+    n = sum(results["cuda"][p][0].size for p in paths)
+    print(f"check quantize_accuracy calibrate_gptq card vs CPU tensors on {len(paths)} layers "
+          f"{paths} (asymmetric folds, the same recorded inputs): {n - differ} of {n} codes "
+          f"equal, weight scales equal; near-ties where codes part: {ties or 'none'}; card "
+          f"{results['cuda_s']:.3f} s, CPU {results['cpu_s']:.3f} s for the {len(paths)} layers")
+    return results["cuda_s"] / len(paths)
+
+
+def qa_table(default, sweep, f32, kp, qat, card):
+    print(f"quantize_accuracy table (trained DLA-34, {default['n_eval_samples']} images, "
+          f"{default['bf16_detections']} bf16 detections; {card}):")
+    print(f"  AP@0.5 bf16 {default['bf16_ap_iou0.5']} CI {default.get('bf16_ap_ci95')}; per-layer "
+          f"int8 {default['int8_ap_iou0.5']} CI {default.get('int8_ap_ci95')}; chain "
+          f"{default['int8_chain_ap_iou0.5']} CI {default.get('int8_chain_ap_ci95')}")
+    for tag in ("int8", "int8_chain"):
+        print(f"  default {tag}: {default['quantized_convs']} int8 convs, matched "
+              f"{default[f'{tag}_matched_fraction']}, score p95 "
+              f"{default.get(f'{tag}_score_delta_p95')}, center p95 "
+              f"{default.get(f'{tag}_center_delta_p95')}, size p95 "
+              f"{default.get(f'{tag}_size_delta_p95')}")
+    for label, result in (("sweep vs bf16", sweep), ("sweep vs f32", f32),
+                          ("keypoints sweep vs bf16", kp)):
+        for r in result["sweep"]:
+            extra = (f", kp matched {r.get('kp_matched_fraction')}, kp_center p95 "
+                     f"{r.get('kp_center_delta_p95')}, kp_score p95 {r.get('kp_score_delta_p95')}"
+                     if "kp_total" in r else "")
+            print(f"  {label} {r['name']}: {r['int8_convs']} int8 convs, matched "
+                  f"{r['matched_fraction']} of {r['total']}, score p95 "
+                  f"{r.get('score_delta_p95')}, center p95 {r.get('center_delta_p95')}, size "
+                  f"p95 {r.get('size_delta_p95')}{extra}")
+    print(f"  qat ({qat['qat_steps']} steps, lr {qat['qat_lr']}): {qat['int8_convs']} int8 convs, "
+          f"matched {qat['matched_fraction']}, score p95 {qat.get('score_delta_p95')}, center "
+          f"p95 {qat.get('center_delta_p95')}, size p95 {qat.get('size_delta_p95')}, AP "
+          f"bf16 {qat['bf16_ap_iou0.5']} qat int8 {qat['qat_int8_ap_iou0.5']}")
+
+
+def quantize_accuracy_phase(card):
+    """``scripts/quantize_accuracy_check.py`` (see the module docstring);
+    returns the launches (by kernel, by entry point, by variant) of the
+    script's runs.  Its weight files live in a temporary directory that
+    is removed whether the phase passes or fails."""
+    with tempfile.TemporaryDirectory(prefix="quantize_accuracy_") as tmp:
+        return _quantize_accuracy_runs(card, pathlib.Path(tmp))
+
+
+def _quantize_accuracy_runs(card, tmp):
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    args = qac.parser().parse_args([])
+    s = qac.setup(args)
+    weights = tmp / "trained.pkl"
+    logs = []
+
+    def log(line):
+        logs.append(line)
+        print(line, flush=True)
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model = qac.train_model(args, s, device, log=log)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    losses = [float(line.split("total=")[1]) for line in logs if "total=" in line]
+    require(len(losses) == math.ceil(args.steps / qac.LOG_EVERY)
+            and all(math.isfinite(v) for v in losses) and losses[-1] < 0.5 * losses[0],
+            f"quantize_accuracy: train losses {losses}")
+    qac.save_model(weights, model)
+    fresh = qac.load_model(weights, s.object_config, device)
+    img, _ = generate_square_batch(np.random.default_rng(qac.EVAL_SEED), args.batch_size,
+                                   s.square_config)
+    frames = torch.from_numpy((np.clip(img, 0, 1) * 255).astype(np.uint8)).to(device)
+    with torch.inference_mode():
+        a = decode(model(qac.image(frames)), s.model_config, 10, 0.3)
+        b = decode(fresh(qac.image(frames)), s.model_config, 10, 0.3)
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        require((x is None) == (y is None) and (x is None or torch.equal(x, y)),
+                f"quantize_accuracy: {f.name} of the reloaded net's decode differs")
+    print(f"quantize_accuracy: trained {args.steps} steps at batch {args.batch_size} "
+          f"{qac.IN_H}x{qac.IN_W} in {train_s:.1f} s ({train_s * 1000 / args.steps:.1f} ms a step, "
+          f"the host's square painting included), losses every {qac.LOG_EVERY} steps {losses}; "
+          f"--save-model -> --load-model: the reloaded net's decode of {args.batch_size} frames "
+          f"bit-equal ({card})")
+
+    times = {}
+
+    def run(label, argv):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = qac.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        times[label] = round(time.perf_counter() - start, 1)
+        return result
+
+    default = run("default", qa_argv(weights, "--bootstrap", str(QA_BOOTSTRAP)))
+    sweep = run("sweep", qa_argv(weights, "--sweep", "--rungs", *QA_SWEEP))
+    f32 = run("f32", qa_argv(weights, "--sweep", "--baseline", "f32", "--rungs", *QA_F32_SWEEP))
+    kp = run("keypoints", ["--keypoints", "--sweep", "--rungs", QA_KP_RUNG, "--steps",
+                           str(QA_KP_STEPS), "--eval-batches", str(QA_EVAL_BATCHES),
+                           "--save-model", str(tmp / "keypoints.pkl")])
+    qat = run("qat", qa_argv(weights, "--qat-steps", str(QA_QAT_STEPS), "--qat-save",
+                             str(tmp / "qat.pkl")))
+    qat_again = run("qat_load", qa_argv(weights, "--qat-load", str(tmp / "qat.pkl")))
+    torch.cuda.synchronize()
+    launches = (dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES),
+                dict(kernels.VARIANT_LAUNCHES))
+    require(launches[0]["peak_decode"] > 0 and launches[1]["tauv_depthwise_upsample_bf16"] > 0,
+            f"quantize_accuracy: kernels A and C launches {launches[0]}")
+    names = [r["name"] for r in sweep["sweep"]]
+    require(names == [n for n, _ in qac.SWEEP_LADDER if n in QA_SWEEP]
+            and [r["name"] for r in f32["sweep"]] == list(QA_F32_SWEEP)
+            and [r["name"] for r in kp["sweep"]] == [QA_KP_RUNG],
+            f"quantize_accuracy: rungs {names}")
+    for result in (sweep, f32, kp):
+        for r in result["sweep"]:
+            require(r["total"] > 0 and 0 < r["matched_fraction"] <= 1,
+                    f"quantize_accuracy: rung {r['name']} {r}")
+    require(kp["sweep"][0].get("kp_total", 0) > 0, f"quantize_accuracy: keypoints {kp}")
+    require({k: v for k, v in qat_again.items() if k != "qat_steps"}
+            == {k: v for k, v in qat.items() if k != "qat_steps"},
+            "quantize_accuracy: --qat-load of the --qat-save file decodes otherwise")
+    for key in ("bf16_ap_iou0.5", "int8_ap_iou0.5", "int8_chain_ap_iou0.5"):
+        require(0.0 <= default[key] <= 1.0 and math.isfinite(default[key]),
+                f"quantize_accuracy: {key} {default[key]}")
+    control = sweep["sweep"][names.index("pc+none")]
+    print(f"quantize_accuracy: the pc+none control (the chain, no int8 conv, against the bf16 "
+          f"net): matched {control['matched_fraction']}, score p95 "
+          f"{control.get('score_delta_p95')} max {control.get('score_delta_max')}, center p95 "
+          f"{control.get('center_delta_p95')}, size p95 {control.get('size_delta_p95')} (the "
+          f"JAX package measured 0.0)")
+    qa_table(default, sweep, f32, kp, qat, card)
+    print(f"time quantize_accuracy runs (s, the script's own calibrations and evaluation "
+          f"included): {json.dumps(times)}; kernel launches {launches[0]} ({card})")
+
+    # Card checks on the trained net: the asymmetric and GPTQ chains on
+    # the kernels against the plain versions, GPTQ on the card against the
+    # CPU.
+    eval_rng = np.random.default_rng(qac.EVAL_SEED)
+    eval_frames = [torch.from_numpy((np.clip(generate_square_batch(
+        eval_rng, args.batch_size, s.square_config)[0], 0, 1) * 255).astype(np.uint8)).to(device)
+        for _ in range(args.cal_batches)]
+    cal = [qac.image(f[:4]) for f in eval_frames]
+    scales, ranges = qa_rung("asym+early0123+updown", model, cal)
+    qa_chain_kernel_vs_plain("asym+early0123+updown", model, cal, eval_frames[0],
+                             s.model_config, scales=scales, ranges=ranges)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    wq = quantize.calibrate_gptq(model, cal, ranges, paths_of=centerpoint_calibration_paths)
+    torch.cuda.synchronize()
+    gptq_s = time.perf_counter() - t1
+    qa_chain_kernel_vs_plain("gptq+asym+early0123+updown", model, cal, eval_frames[0],
+                             s.model_config, scales=scales, ranges=ranges, wq_override=wq)
+    conv3 = next(p for p in wq if wq[p][0].shape[:2] == (3, 3) and "level4" in p)
+    conv1 = next(p for p in wq if p.endswith("/root/conv"))
+    layer_s = qa_gptq_card_vs_cpu(model, cal, ranges, [conv3, conv1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    calibrate(model, cal, per_channel=True, paths_of=centerpoint_calibration_paths)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t1
+    print(f"time quantize_accuracy layers: per-channel calibrate of {len(cal)} x 4 frames "
+          f"{cal_s:.3f} s; calibrate_gptq of the rung's {len(wq)} convs {gptq_s:.2f} s "
+          f"({gptq_s / len(wq):.3f} s a conv; the two-layer check {layer_s:.3f} s a layer); the "
+          f"train step {train_s * 1000 / args.steps:.1f} ms ({card})")
+    print(f"quantize_accuracy phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _first_path(paths):
     return paths if paths is None or isinstance(paths, str) else paths[0]
 
@@ -5643,6 +5966,8 @@ def main(argv=None) -> int:
         served.update(bf16_pair_phase(nets, pair_cns, cn_cfg, yl, yl_bf16, chains, card))
     with phase("keypoints_per_layer_int8"):
         served[KP_PER_LAYER] = keypoints_per_layer_phase(kp_net, kp_scales, card)
+    with phase("quantize_accuracy"):
+        served["quantize_accuracy"] = quantize_accuracy_phase(card)
 
     def launches(path, row):
         kernel, entry = ROWS[row]

@@ -1,7 +1,8 @@
 """Post-training int8 quantization: the calibration of the int8 chains and
 the per-layer int8 forward (counterpart of ``calibrate``,
-``refine_scales_mse``, ``calibrate_bias_correction``, ``strip_scales`` and
-``quantized_call`` in ``tauv_vision_tpu/serving/quantize.py``).
+``calibrate_range``, ``refine_scales_mse``, ``calibrate_bias_correction``,
+``calibrate_gptq``, ``strip_scales`` and ``quantized_call`` in
+``tauv_vision_tpu/serving/quantize.py``).
 
 ``calibrate`` records the input range of every ``nn.Conv2d`` of a model
 over some batches, with the JAX package's rules: a conv is recorded when
@@ -16,11 +17,13 @@ for the YOLACT, ``weights.centerpoint_calibration_paths`` for the
 CenterNet), so one scales dict feeds both stacks.  ``refine_scales_mse``
 (the clip factor of least squared quantization error, per channel) and
 ``calibrate_bias_correction`` (each conv's mean output error in int8,
-per output channel) read the calibrated convs' inputs the same way.  A
-path that the JAX forward runs and the port's does not (the CenterNet's
-discarded parent projection, ``centerpoint_calibration_paths``) is
-computed from the input of the conv that stands for it, with that path's
-own conv.
+per output channel) read the calibrated convs' inputs the same way, and
+so do ``calibrate_range`` (each input channel's (min, max), for the
+chain's asymmetric ranges) and ``calibrate_gptq`` (error-compensated int8
+weights, for ``ChainCtx(wq_override=)``).  A path that the JAX forward
+runs and the port's does not (the CenterNet's discarded parent
+projection, ``centerpoint_calibration_paths``) is computed from the input
+of the conv that stands for it, with that path's own conv.
 
 ``quantized_call`` runs a model with every calibrated conv as the JAX
 ``_quantized_conv``: the input quantized with the layer's scale, the
@@ -29,7 +32,7 @@ weights per output channel, the exact integer conv
 x weight scale) and the bias in f32, the result cast to the conv's
 compute dtype; every other op is the float model's.  The JAX
 ``_quantized_s2d_stem`` is not ported (the port has no space-to-depth
-stem), nor are ``calibrate_range`` and ``calibrate_gptq``.
+stem).
 """
 
 from __future__ import annotations
@@ -43,7 +46,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from tauv_vision_tpu_torch.ops.int8_conv import conv2d_int8
-from tauv_vision_tpu_torch.serving.quantize_chain import _hwio, _int8_weights, _quant
+from tauv_vision_tpu_torch.serving.quantize_chain import (
+    _hwio,
+    _int8_weights,
+    _quant,
+    f32_convs,
+)
 from tauv_vision_tpu_torch.weights import yolact_flax_path
 
 # Convs with fewer input channels (the 3-channel stem) stay float.
@@ -159,6 +167,33 @@ def calibrate(model: nn.Module, batches: Iterable[torch.Tensor],
     return {path: max(v, 1e-6) / 127.0 for path, v in absmax.items()}
 
 
+def calibrate_range(model: nn.Module, batches: Iterable[torch.Tensor],
+                    paths_of: Callable[[str], Paths] = yolact_flax_path
+                    ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """{JAX module path: (min [C_in], max [C_in]) float64}: each recorded
+    conv input's per-channel range over the batches (the convs
+    ``calibrate`` records), widened to hold 0 (min <= 0) and to at least
+    1e-6 (max >= min + 1e-6), as the JAX ``calibrate_range``: the
+    asymmetric chain's ``ChainCtx(ranges=)``."""
+    lo: Dict[str, np.ndarray] = {}
+    hi: Dict[str, np.ndarray] = {}
+
+    def record(convs, x):
+        flat = x.to(torch.float32).permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+        mn = flat.amin(dim=0).double().cpu().numpy()
+        mx = flat.amax(dim=0).double().cpu().numpy()
+        for path, _ in convs:
+            lo[path] = mn if path not in lo else np.minimum(lo[path], mn)
+            hi[path] = mx if path not in hi else np.maximum(hi[path], mx)
+
+    _run_hooked(model, batches, paths_of, record)
+    out = {}
+    for path in lo:
+        mn = np.minimum(lo[path], 0.0)
+        out[path] = (mn, np.maximum(hi[path], mn + 1e-6))
+    return out
+
+
 # ``refine_scales_mse``'s candidate clip factors, 0.5 to 1.0 by 0.05.
 MSE_FACTORS = tuple(0.5 + 0.05 * i for i in range(11))
 
@@ -206,20 +241,6 @@ def refine_scales_mse(model: nn.Module, batches: Iterable[torch.Tensor],
     return refined
 
 
-@contextlib.contextmanager
-def f32_convs():
-    """cuDNN's f32 convolutions in full f32, not TF32, inside the ``with``,
-    whatever ``torch.backends.cudnn.allow_tf32`` is outside it (restored
-    after): the f32 reference convs of the calibration and of QAT, as
-    the JAX package's."""
-    was = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = was
-
-
 def calibrate_bias_correction(model: nn.Module, batches: Iterable[torch.Tensor],
                               scales: Dict[str, Any],
                               paths_of: Callable[[str], Paths] = yolact_flax_path
@@ -260,6 +281,111 @@ def calibrate_bias_correction(model: nn.Module, batches: Iterable[torch.Tensor],
 
     _run_hooked(model, batches, paths_of, record)
     return {path: sums[path] / counts[path] for path in sums}
+
+
+def _gptq_fold(scale) -> np.ndarray:
+    """The activation scale a conv's kernel is multiplied by in the chain:
+    a symmetric scale (float or per-channel vector) as it is, an
+    asymmetric (min, max) range its width over 255 (``ChainCtx.asym``)."""
+    if isinstance(scale, tuple):
+        mn, mx = scale
+        return np.maximum(np.asarray(mx) - np.asarray(mn), 1e-6) / 255.0
+    return np.asarray(scale, np.float64)
+
+
+def _gptq_rows(x: torch.Tensor, conv: nn.Conv2d, take_of, rng: np.random.Generator
+               ) -> torch.Tensor:
+    """[take, kh*kw*C] float64 im2col rows of ``x`` (NCHW) under ``conv``'s
+    window: output positions drawn by ``rng.choice(n_pos, take,
+    replace=False)``, take = ``take_of(n_pos)``, with batch, row and column
+    from the flat position as the JAX ``calibrate_gptq``'s, each row in
+    (tap row, tap column, channel) order."""
+    kh, kw = conv.kernel_size
+    sh, sw = conv.stride
+    ph, pw = conv.padding
+    xp = F.pad(x.permute(0, 2, 3, 1).to(torch.float64), (0, 0, pw, pw, ph, ph))
+    b, hp, wp, c = xp.shape
+    oh, ow = (hp - kh) // sh + 1, (wp - kw) // sw + 1
+    n_pos = b * oh * ow
+    idx = torch.as_tensor(rng.choice(n_pos, size=take_of(n_pos), replace=False),
+                          device=x.device)
+    bi, rest = idx // (oh * ow), idx % (oh * ow)
+    ys = (rest // ow * sh)[:, None] + torch.arange(kh, device=x.device)
+    xs = (rest % ow * sw)[:, None] + torch.arange(kw, device=x.device)
+    return xp[bi[:, None, None], ys[:, :, None], xs[:, None, :]].reshape(len(idx), kh * kw * c)
+
+
+def _gptq_round(wf: torch.Tensor, hinv: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """GPTQ's row-by-row rounding of the folded kernel ``wf`` [n, O] on the
+    grid ``ws`` [O]: each row rounded to nearest, its error over the inverse
+    Hessian's diagonal carried onto the rows after it through the upper
+    Cholesky factor ``hinv`` of the damped inverse Hessian."""
+    w = wf.clone()
+    q_all = torch.zeros_like(w)
+    for i in range(w.shape[0]):
+        q = torch.clamp(torch.round(w[i] / ws), -127, 127)
+        q_all[i] = q
+        err = (w[i] - q * ws) / hinv[i, i]
+        if i + 1 < w.shape[0]:
+            w[i + 1:] -= torch.outer(hinv[i, i + 1:], err)
+    return q_all
+
+
+def calibrate_gptq(model: nn.Module, batches: Iterable[torch.Tensor], scales: Dict[str, Any],
+                   paths_of: Callable[[str], Paths] = yolact_flax_path, max_rows: int = 8192,
+                   damp: float = 0.01, seed: int = 0
+                   ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """{path: (qk int8 [kh, kw, C, O], w_scale [O] f32)}: error-compensated
+    int8 weights (GPTQ, Frantar et al., 2022) for every recorded conv of
+    ``scales``, as the JAX ``calibrate_gptq``, for
+    ``ChainCtx(wq_override=)``.
+
+    Each kernel is folded as the chain folds it (``_gptq_fold``: a
+    symmetric scale, or an asymmetric range's width over 255), its weight
+    scale fixed at absmax / 127, and its input dimensions rounded in order
+    (``_gptq_round``) against H = X^T X of im2col rows of its calibration
+    inputs in the folded units, damped by ``damp`` times H's mean diagonal.
+    The rows: per path, in the order the JAX forward first meets the paths,
+    and per batch, ``max_rows // n_batches + 1`` output positions drawn
+    without replacement from one ``np.random.default_rng(seed)``
+    (``_gptq_rows``), as JAX draws them, so that H is JAX's.  The JAX
+    forward runs the projection a port conv also stands for
+    (``centerpoint_calibration_paths``) before that conv's own, so its
+    draws come first.  H, its damped inverse's Cholesky factor and the
+    rounding run in float64 on the model's device."""
+    inputs: Dict[str, List[torch.Tensor]] = {}
+    convs: Dict[str, nn.Conv2d] = {}
+
+    def record(hooked, x):
+        for path, conv in reversed(hooked):
+            if path in scales:
+                convs.setdefault(path, conv)
+                inputs.setdefault(path, []).append(x.detach().clone())
+
+    _run_hooked(model, batches, paths_of, record)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for path, conv in convs.items():
+        if conv.groups != 1 or tuple(conv.dilation) != (1, 1):
+            raise ValueError(f"calibrate_gptq takes ungrouped, undilated convs, got {path}: "
+                             f"{conv}")
+        kernel = _hwio(conv).detach().to(torch.float64)
+        kh, kw, c, o = kernel.shape
+        dev = dict(dtype=torch.float64, device=kernel.device)
+        fold = torch.as_tensor(np.broadcast_to(_gptq_fold(scales[path]), (c,)).copy(), **dev)
+        wf = (kernel * fold.reshape(1, 1, -1, 1)).reshape(kh * kw * c, o)
+        n_batches = len(inputs[path])
+        # The rows are in the activation's units; the chain quantizes x / fold.
+        x = torch.cat([_gptq_rows(t, conv, lambda n: min(max_rows // n_batches + 1, n), rng)
+                       for t in inputs[path]]) / fold.repeat(kh * kw)
+        h = x.T @ x
+        h = h + torch.eye(h.shape[0], **dev) * damp * torch.mean(torch.diagonal(h))
+        hinv = torch.linalg.cholesky(torch.linalg.inv(h)).mT
+        ws = torch.clamp_min(wf.abs().amax(dim=0), 1e-6) / 127.0
+        qk = _gptq_round(wf, hinv, ws)
+        out[path] = (qk.reshape(kh, kw, c, o).to(torch.int8).cpu().numpy(),
+                     ws.to(torch.float32).cpu().numpy())
+    return out
 
 
 def strip_scales(scales: Dict[str, Any], substrings) -> Dict[str, Any]:

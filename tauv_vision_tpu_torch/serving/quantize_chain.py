@@ -63,16 +63,26 @@ BatchNorm, as the JAX chain does (``refine_scales_mse``'s scales,
 fits feed ``configs.PARITY_INT8``); on the card they are two elementwise
 passes more, where XLA folds them into the epilogue.
 
-Not ported here: asymmetric ranges (``calibrate_range``), ``wq_override``
-(``calibrate_gptq``), ``f32_paths``, ``calibrate_sequential(mode="mean")``
-(only ``scripts/quantize_accuracy_check.py`` reaches these), and the
-YOLO-Pose pipeline's ``split_pnp`` (a dispatch split that fences a TPU
-runtime fault; the port runs PnP after the decode in any case).
+The recipes of ``scripts/quantize_accuracy_check.py``'s ladder:
+``ChainCtx(ranges=)`` quantizes a conv's input ASYMMETRICALLY
+(``quantize.calibrate_range``'s per-channel (min, max): x ~= s (q - z)
+on the full [-128, 127] grid), its zero point folded into a per-output
+int32 offset on the accumulator (``_asym_offset_map``: only taps that
+land inside the map owe it, since the integer core pads the codes with
+0, not z); ``wq_override`` replaces a conv's round-to-nearest weights
+(``quantize.calibrate_gptq``); ``f32_paths`` runs the uncalibrated convs
+whose path holds one of its substrings in f32 (no TF32, ``f32_convs``);
+``calibrate_sequential(mode="mean")`` fits offsets alone.
+
+Not ported: the YOLO-Pose pipeline's ``split_pnp`` (a dispatch split that
+fences a TPU runtime fault; the port runs PnP after the decode in any
+case).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+import contextlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -171,10 +181,58 @@ def _quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127).to(torch.int8)
 
 
+def _quant_asym(x: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
+    """Asymmetric int8: clip(round(x / s) + z, -128, 127), so that
+    x ~= s (q - z); ``scale`` and ``zero`` (f32) per channel over the
+    trailing axis."""
+    return torch.clamp(torch.round(x.to(torch.float32) / scale) + zero, -128, 127).to(torch.int8)
+
+
+def _asym_offset_map(qk: torch.Tensor, z: np.ndarray, out_hw, in_hw, strides,
+                     padding) -> torch.Tensor:
+    """[Ho, Wo, O] int32: the zero-point term an asymmetric conv's
+    accumulator owes at each output, sum(qk * z) over the taps that land
+    inside the [H, W] input (a padded tap reads the code 0, where the
+    true activation 0 is z: it owes nothing).  The taps' validity is a
+    0/1 mask per axis of the output coordinate, so the map is an einsum of
+    the masks with the per-tap sums, as the JAX chain's; in float64, which
+    holds every partial sum of these integers exactly."""
+    kh, kw = qk.shape[:2]
+    f64 = dict(dtype=torch.float64, device=qk.device)
+    offtap = torch.einsum("abco,c->abo", qk.to(torch.float64), torch.as_tensor(z, **f64))
+    masks = []
+    for k, out_d, in_d, stride, pad in ((kh, out_hw[0], in_hw[0], strides[0], padding[0]),
+                                        (kw, out_hw[1], in_hw[1], strides[1], padding[1])):
+        pos = np.arange(out_d)[None, :] * stride + np.arange(k)[:, None] - pad
+        masks.append(torch.as_tensor((pos >= 0) & (pos < in_d), **f64))
+    return torch.einsum("ay,bx,abo->yxo", masks[0], masks[1], offtap).round().to(torch.int32)
+
+
+@contextlib.contextmanager
+def f32_convs():
+    """cuDNN's f32 convolutions in full f32, not TF32, inside the ``with``,
+    whatever ``torch.backends.cudnn.allow_tf32`` is outside it (restored
+    after): the f32 reference convs of the calibration and of QAT, and the
+    chain's ``f32_paths``, as the JAX package's."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 square root (PyTorch's CPU ``sqrt`` is not
     always; the f64 root rounded to f32 is)."""
     return torch.sqrt(x.double()).float()
+
+
+def _rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 reciprocal square root (in f64, rounded once),
+    the one the models' BatchNorm takes (``models/layers.BatchNorm2d``), so
+    that the chain's float path rounds as the model does."""
+    return (1.0 / torch.sqrt(x.double())).float()
 
 
 def _bn_affine(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -217,13 +275,24 @@ class ChainCtx:
     ``join_dtype`` rounds residual joins and feature taps (None keeps the
     flax flow's f32).  ``impl`` picks kernels C, D and E or their plain
     versions.  The defaults are the served YOLACT recipe
-    (``configs.NORTH_STAR.yolact``)."""
+    (``configs.NORTH_STAR.yolact``).
+
+    ``ranges`` ({path: (min [C], max [C])}, ``quantize.calibrate_range``)
+    quantizes those convs' inputs asymmetrically; ``wq_override`` ({path:
+    (qk int8 HWIO, w_scale [O])}, ``quantize.calibrate_gptq``) replaces
+    their int8 weights on the asymmetric, per-channel and transposed
+    paths (a per-tensor scale keeps its own, as in the JAX chain);
+    ``f32_paths`` names substrings of the uncalibrated convs that run in
+    f32 rather than ``dtype``."""
 
     def __init__(self, model: nn.Module, scales: Dict[str, object],
                  dtype=NORTH_STAR.yolact.dtype, join_dtype=NORTH_STAR.yolact.join_dtype,
                  impl: str = "kernel", path_of: Callable[[str], str] = yolact_flax_path,
                  gains: Optional[Dict[str, object]] = None,
-                 corrections: Optional[Dict[str, object]] = None):
+                 corrections: Optional[Dict[str, object]] = None,
+                 ranges: Optional[Dict[str, tuple]] = None,
+                 wq_override: Optional[Dict[str, tuple]] = None,
+                 f32_paths: Sequence[str] = ()):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.model = model
@@ -237,6 +306,9 @@ class ChainCtx:
         self.impl = impl
         self.gains = dict(gains or {})
         self.corrections = dict(corrections or {})
+        self.ranges = dict(ranges or {})
+        self.wq_override = dict(wq_override or {})
+        self.f32_paths = tuple(f32_paths)
         # ``hook(path, y, quantized)``, when set, sees every conv's pre-bias
         # output (not the transposed convs') and returns what the layer
         # goes on with: ``calibrate_sequential``'s passes.
@@ -258,6 +330,34 @@ class ChainCtx:
         return self._memo(("scale", path), lambda: torch.as_tensor(
             self.scales[path], dtype=torch.float32, device=self.device))
 
+    def has(self, path: str) -> bool:
+        """Whether ``path`` runs int8 (a scale or a range)."""
+        return path in self.scales or path in self.ranges
+
+    def asym(self, path: str) -> Tuple[np.ndarray, np.ndarray]:
+        """(scale [C] f32, zero point [C] int32) of an asymmetric path,
+        computed in float64 numpy and only then cast, as the JAX
+        ``ChainCtx.asym``."""
+        def make():
+            mn, mx = (np.asarray(v, np.float64) for v in self.ranges[path])
+            s = np.maximum(mx - mn, 1e-6) / 255.0
+            z = np.clip(-128.0 - np.round(mn / s), -128, 127)
+            return s.astype(np.float32), z.astype(np.int32)
+        return self._memo(("asym", path), make)
+
+    def asym_tensors(self, path: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``asym(path)`` as f32 tensors on the device."""
+        return self._memo(("asym_t", path), lambda: tuple(
+            torch.as_tensor(v, dtype=torch.float32, device=self.device)
+            for v in self.asym(path)))
+
+    def emits_int8(self, next_path: Optional[str], transpose: bool = False) -> bool:
+        """Whether a layer hands ``next_path`` int8 codes: when that layer
+        is int8, but a transposed conv's kernel emits symmetric codes only."""
+        if next_path is None or not self.has(next_path):
+            return False
+        return not transpose or (next_path in self.scales and next_path not in self.ranges)
+
     def bn(self, path: str) -> Tuple[torch.Tensor, torch.Tensor]:
         return self._memo(("bn", path), lambda: _bn_affine(self.modules[path]))
 
@@ -267,17 +367,38 @@ class ChainCtx:
         bn = self.modules[path]
 
         def make():
-            mul = (1.0 / _sqrt(bn.running_var.float() + BN_EPS)) * bn.weight.float()
+            mul = _rsqrt(bn.running_var.float() + BN_EPS) * bn.weight.float()
             return bn.running_mean.float(), mul, bn.bias.float()
 
         mean, mul, bias = self._memo(("bn_exact", path), make)
         return (y.to(torch.float32) - mean) * mul + bias
 
-    def int8_weights(self, path: str) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(qk int8 HWIO, deq [O] f32) of a calibrated conv
-        (``_int8_weights``)."""
-        return self._memo(("int8", path), lambda: _int8_weights(
-            _hwio(self.modules[path]).detach(), self.scales[path]))
+    def int8_weights(self, path: str, transpose: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(qk int8 HWIO, deq [O] f32) of a calibrated conv: its
+        ``wq_override`` where it has one and its input is asymmetric, per
+        channel or ``transpose``'s, else ``_wq`` with the asymmetric scale
+        folded in, else ``_int8_weights``."""
+        def make():
+            kernel = _hwio(self.modules[path]).detach()
+            override = self.wq_override.get(path)
+            if override is not None and (path in self.ranges or transpose
+                                         or _is_per_channel(self.scales[path])):
+                qk, w_scale = override
+                return (torch.as_tensor(np.asarray(qk), dtype=torch.int8, device=self.device),
+                        torch.as_tensor(np.asarray(w_scale), dtype=torch.float32,
+                                        device=self.device))
+            if path in self.ranges:
+                return _wq(kernel, in_scale=self.asym(path)[0])
+            return _int8_weights(kernel, self.scales[path])
+        return self._memo(("int8", path), make)
+
+    def offset_map(self, path: str, qk: torch.Tensor, out_hw, in_hw, strides,
+                   padding) -> torch.Tensor:
+        """``_asym_offset_map`` of an asymmetric conv at these sizes."""
+        key = ("offset", path, tuple(out_hw), tuple(in_hw), tuple(strides), tuple(padding))
+        return self._memo(key, lambda: _asym_offset_map(qk, self.asym(path)[1], out_hw, in_hw,
+                                                        strides, padding))
 
     def transpose_args(self, path: str, next_path: Optional[str]):
         """Kernel D's weights of a calibrated transposed conv: (qk, deq,
@@ -285,14 +406,14 @@ class ChainCtx:
         tap words (None for the plain version).  The out scale is
         ``next_path``'s when that layer is calibrated (int8 out), else 1."""
         def make():
-            qk, deq = self.int8_weights(path)
+            qk, deq = self.int8_weights(path, transpose=True)
             if path in self.gains:
                 deq = deq * self.vector("gains", path)
             bias = self.modules[path].bias
             bias = torch.zeros_like(deq) if bias is None else bias.detach().float().contiguous()
             if path in self.corrections:
                 bias = bias + self.vector("corrections", path)
-            emit_int8 = next_path is not None and next_path in self.scales
+            emit_int8 = self.emits_int8(next_path, transpose=True)
             out_scale = (self.s(next_path) if emit_int8 else torch.ones_like(deq))
             taps = kernel_taps(qk) if self.impl == "kernel" else None
             return qk, deq, bias, out_scale.expand_as(deq).contiguous(), taps
@@ -304,9 +425,12 @@ class ChainCtx:
         return self._memo((kind, path), lambda: torch.tensor(
             np.asarray(getattr(self, kind)[path]), dtype=torch.float32, device=self.device))
 
-    def float_weight(self, path: str) -> torch.Tensor:
-        """The conv's weight in the context's float dtype."""
-        return self._memo(("float", path), lambda: self.modules[path].weight.detach().to(self.dtype))
+    def float_weight(self, path: str, dtype=None) -> torch.Tensor:
+        """The conv's weight in ``dtype`` (the context's float dtype by
+        default)."""
+        dtype = self.dtype if dtype is None else dtype
+        return self._memo(("float", path, dtype),
+                          lambda: self.modules[path].weight.detach().to(dtype))
 
     def run_layer(self, inp: torch.Tensor, path: str, *, strides=(1, 1), padding=1,
                   transpose: bool = False, bn_path: Optional[str] = None,
@@ -324,31 +448,44 @@ class ChainCtx:
         if (
             transpose
             and path in self.scales
+            and path not in self.ranges
             and tuple(m.kernel_size) == (3, 3)
             and bn_path is None
             and act in (None, "leaky", "relu")
         ):
             q = inp if inp.dtype == torch.int8 else _quant(inp, self.s(path))
             qk, deq, bias_eff, out_scale, taps = self.transpose_args(path, next_path)
-            out_dtype = torch.int8 if next_path is not None and next_path in self.scales else self.dtype
+            out_dtype = torch.int8 if self.emits_int8(next_path, transpose=True) else self.dtype
             if self.impl == "kernel":
                 return transpose_conv2x_int8_cuda(q, qk, deq, bias_eff, out_scale, act=act or "none",
                                                   out_dtype=out_dtype, taps=taps)
             return transpose_conv2x_int8(q, qk, deq, bias_eff, out_scale, act=act or "none",
                                          out_dtype=out_dtype)
         if transpose:
-            if inp.dtype == torch.int8:
+            if inp.dtype == torch.int8 and path in self.ranges:
+                s_in, z_in = self.asym_tensors(path)
+                xf = (inp.to(torch.float32) - z_in) * s_in
+            elif inp.dtype == torch.int8:
                 xf = inp.to(torch.float32) * self.s(path)
             else:
                 xf = inp
             y = _nhwc(F.conv_transpose2d(
                 _nchw(xf.to(self.dtype)), self.float_weight(path), stride=m.stride, padding=m.padding,
                 output_padding=m.output_padding))
-        elif path in self.scales:
+        elif self.has(path):
             quantized = True
-            q = inp if inp.dtype == torch.int8 else _quant(inp, self.s(path))
             qk, deq = self.int8_weights(path)
-            acc = conv2d_int8(q, qk, tuple(strides), padding)
+            if path in self.ranges:
+                # x ~= s (q - z): the accumulator less the zero point's
+                # offset, times the weight scale (s folded into the weights).
+                s_in, z_in = self.asym_tensors(path)
+                q = inp if inp.dtype == torch.int8 else _quant_asym(inp, s_in, z_in)
+                acc = conv2d_int8(q, qk, tuple(strides), padding)
+                acc = acc - self.offset_map(path, qk, acc.shape[1:3], q.shape[1:3],
+                                            tuple(strides), (padding, padding))
+            else:
+                q = inp if inp.dtype == torch.int8 else _quant(inp, self.s(path))
+                acc = conv2d_int8(q, qk, tuple(strides), padding)
             y = acc.to(torch.float32) * deq
             if path in self.gains:
                 y = y * self.vector("gains", path)
@@ -357,8 +494,11 @@ class ChainCtx:
         else:
             if inp.dtype == torch.int8:
                 raise ValueError(f"producer emitted int8 but {path} is uncalibrated")
-            y = _nhwc(F.conv2d(_nchw(inp.to(self.dtype)), self.float_weight(path),
-                               stride=tuple(strides), padding=padding))
+            f32 = any(sub in path for sub in self.f32_paths)
+            dtype = torch.float32 if f32 else self.dtype
+            with f32_convs() if f32 else contextlib.nullcontext():
+                y = _nhwc(F.conv2d(_nchw(inp.to(dtype)), self.float_weight(path, dtype),
+                                   stride=tuple(strides), padding=padding))
         if self.hook is not None and not transpose:
             y = self.hook(path, y, quantized)
 
@@ -376,11 +516,17 @@ class ChainCtx:
             y = torch.clamp_min(y, 0)
         elif act == "leaky":
             y = _leaky(y)
-        if next_path is not None and next_path in self.scales:
+        if self.emits_int8(next_path):
+            if next_path in self.ranges:
+                return _quant_asym(y, *self.asym_tensors(next_path))
             return _quant(y, self.s(next_path))
         if quantized and bn_path is None:
             return y.to(self.dtype)
         return y
+
+
+# ``calibrate_sequential``'s fits: a gain and an offset, or the offset alone.
+SEQ_MODES = ("affine", "mean")
 
 
 class _Capture:
@@ -401,11 +547,13 @@ class _Fit:
     """Pass B of ``calibrate_sequential``: at the first call of each path of
     ``targets`` (pass A's captures), the per-channel affine a * y + b of
     least squared error from the dequantized accumulator y to the captured
-    float map, a clipped to [0.5, 2] (1 where y is flat), every op in f32
-    as the JAX fit; at every call of the path, the fit applied."""
+    float map, a clipped to [0.5, 2] (1 where y is flat), or with
+    ``mode="mean"`` a = 1 and b the difference of the means, every op in
+    f32 as the JAX fit; at every call of the path, the fit applied."""
 
-    def __init__(self, targets: Dict[str, torch.Tensor]):
+    def __init__(self, targets: Dict[str, torch.Tensor], mode: str = "affine"):
         self.targets = targets
+        self.mode = mode
         self.gains: Dict[str, np.ndarray] = {}
         self.corrections: Dict[str, np.ndarray] = {}
 
@@ -416,11 +564,14 @@ class _Fit:
             yf = self.targets[path]
             mq = y.mean(dim=(0, 1, 2))
             mf = yf.mean(dim=(0, 1, 2))
-            var = torch.square(y - mq).mean(dim=(0, 1, 2))
-            cov = ((y - mq) * (yf - mf)).mean(dim=(0, 1, 2))
-            a = torch.where(var > 1e-10, cov / torch.clamp_min(var, 1e-10),
-                            torch.ones_like(var))
-            a = torch.clamp(a, 0.5, 2.0)
+            if self.mode == "affine":
+                var = torch.square(y - mq).mean(dim=(0, 1, 2))
+                cov = ((y - mq) * (yf - mf)).mean(dim=(0, 1, 2))
+                a = torch.where(var > 1e-10, cov / torch.clamp_min(var, 1e-10),
+                                torch.ones_like(var))
+                a = torch.clamp(a, 0.5, 2.0)
+            else:
+                a = torch.ones_like(mq)
             self.gains[path] = a.cpu().numpy()
             self.corrections[path] = (mf - a * mq).cpu().numpy()
         y = y * torch.as_tensor(self.gains[path], device=y.device)
@@ -428,7 +579,7 @@ class _Fit:
 
 
 def calibrate_sequential(build_forward: Callable[[ChainCtx], Callable], model: nn.Module,
-                         scales: Dict[str, object], batch, *,
+                         scales: Dict[str, object], batch, *, mode: str = "affine",
                          dtype=torch.bfloat16, path_of: Callable[[str], str] = yolact_flax_path,
                          impl: str = "kernel") -> Tuple[Dict[str, np.ndarray],
                                                         Dict[str, np.ndarray]]:
@@ -438,19 +589,21 @@ def calibrate_sequential(build_forward: Callable[[ChainCtx], Callable], model: n
     (``_Capture``); pass B runs it int8 and fits, per path and output
     channel, the affine ``a * y + b`` of least squared error from the
     dequantized accumulator as it arrives (every earlier fit applied) to
-    that output, then applies it (``_Fit``).  ``build_forward(ctx)``
+    that output (``mode="mean"``: a = 1), then applies it (``_Fit``).  ``build_forward(ctx)``
     returns ``fn(batch)``, the chain forward on ``ctx`` with its
     preprocessing (``dla34_chain_forward`` or ``yolact_chain_forward``).
     Each pass has a context of its own, with f32 joins, as the JAX passes.
     The CenterNet chain runs no projection of a depth-2 tree's own input,
     so the two paths the JAX chain fits there and discards
     (``model/base/level3/project_conv``, ``level4``) get no fit."""
+    if mode not in SEQ_MODES:
+        raise ValueError(f"mode must be one of {SEQ_MODES}, got {mode!r}")
     ctx_a = ChainCtx(model, {}, dtype=dtype, join_dtype=None, impl=impl, path_of=path_of)
     ctx_a.hook = _Capture(scales)
     build_forward(ctx_a)(batch)
 
     ctx_b = ChainCtx(model, scales, dtype=dtype, join_dtype=None, impl=impl, path_of=path_of)
-    ctx_b.hook = fit = _Fit(ctx_a.hook.captured)
+    ctx_b.hook = fit = _Fit(ctx_a.hook.captured, mode)
     build_forward(ctx_b)(batch)
     return fit.gains, fit.corrections
 

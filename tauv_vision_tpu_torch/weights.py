@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights between the JAX package and the port.
 
 Each function takes the JAX package's ``{"params", "batch_stats"}`` tree
 as nested dicts of numpy arrays (for example ``jax.device_get`` of a
@@ -10,10 +10,17 @@ the protonet's transposed-conv ``[kh, kw, Cin, Cout]`` ->
 ``[Cin, Cout, kh, kw]``, BatchNorm ``scale/bias/mean/var`` ->
 ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``).
 The port never needs JAX for this.
+
+``centerpoint_flax_from_state_dict`` is the CenterNet's way back, and
+``read_flax_variables`` / ``write_flax_variables`` read and write such a
+tree as the pickle of the JAX package's
+``scripts/quantize_accuracy_check.py --save-model``, so that weights
+trained in either stack load in the other.
 """
 
 from __future__ import annotations
 
+import pickle
 import re
 from typing import Callable, Dict, Iterator, Tuple
 
@@ -300,3 +307,76 @@ def yolo_pose_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
                                 if p[0] == "protonet" and p[1].startswith("upsample")
                                 else _HWIO_TO_OIHW),
     )
+
+
+_OIHW_TO_HWIO = (2, 3, 1, 0)
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def _put(tree: dict, path: str, leaf: str, value: np.ndarray) -> None:
+    node = tree
+    for k in path.split("/"):
+        node = node.setdefault(k, {})
+    node[leaf] = value
+
+
+def centerpoint_flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``centerpoint_state_dict_from_flax``: a port
+    ``CenterpointDLA34`` state dict -> the JAX package's
+    ``{"params", "batch_stats"}`` tree of f32 numpy arrays (conv kernels
+    OIHW -> HWIO, a DCN block's ``conv.weight`` / ``conv.bias`` -> its own
+    ``weight`` / ``bias`` leaves, BatchNorm ``weight/bias`` -> ``scale/bias``
+    under ``params`` and ``running_mean/var`` -> ``mean/var`` under
+    ``batch_stats``; ``num_batches_tracked`` has no counterpart)."""
+    variables: dict = {"params": {}, "batch_stats": {}}
+
+    def array(t):
+        return np.array(t.detach().cpu().float().numpy(), np.float32, order="C")
+
+    for key, value in state_dict.items():
+        module, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        if f"{module}.running_mean" in state_dict:
+            collection, name = _BN_LEAVES[leaf]
+            _put(variables[collection], centerpoint_flax_path(module), name, array(value))
+            continue
+        block = module[:-len(".conv")]
+        if module.endswith(".conv") and f"{block}.offset.weight" in state_dict:
+            module, name = block, leaf   # a DCN block's deformable conv
+        else:
+            name = "kernel" if leaf == "weight" else leaf
+        value = array(value)
+        if leaf == "weight":
+            value = np.ascontiguousarray(np.transpose(value, _OIHW_TO_HWIO))
+        _put(variables["params"], centerpoint_flax_path(module), name, value)
+    return variables
+
+
+class _VariablesUnpickler(pickle.Unpickler):
+    """Reads a pickled variables tree without flax: an older flax pickles
+    its trees as ``FrozenDict``, read here as a ``dict`` (flax 0.12 pickles
+    plain dicts)."""
+
+    def find_class(self, module, name):
+        if module.startswith("flax.") and name == "FrozenDict":
+            return dict
+        return super().find_class(module, name)
+
+
+def read_flax_variables(path) -> dict:
+    """The ``{"params", "batch_stats"}`` tree of numpy arrays that
+    ``write_flax_variables``, or the JAX package's
+    ``scripts/quantize_accuracy_check.py --save-model``, pickled at
+    ``path``."""
+    with open(path, "rb") as fp:
+        return _VariablesUnpickler(fp).load()
+
+
+def write_flax_variables(path, variables: dict) -> None:
+    """Pickle a variables tree of numpy arrays (for example
+    ``centerpoint_flax_from_state_dict``'s) as the JAX package's
+    ``--save-model`` does, so that either stack reads it."""
+    with open(path, "wb") as fp:
+        pickle.dump(variables, fp)
