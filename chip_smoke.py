@@ -91,7 +91,19 @@ CenterNet node's full configuration alone, and three serve YOLO-Pose:
   the YOLACT chain;
 - ``keypoints_per_layer_int8``: ``bench.py --keypoints --per-layer-int8``
   (``configs.KEYPOINTS_PER_LAYER_INT8``): the ``keypoints`` net with every
-  conv of 16 input channels or more int8 through ``quantized_call``.
+  conv of 16 input channels or more int8 through ``quantized_call``;
+- eleven more of ``bench.py --deform`` (``DCN_PROFILES``), the DCN
+  CenterNet on ``dcn_ida``'s weights: ``dcn_parity_int8`` and its
+  ``--mse --bias-correct`` and ``--mse --seq-correct`` forms
+  (``configs.DCN_PARITY_INT8``), ``dcn_per_layer_int8``
+  (``DCN_PER_LAYER_INT8``), ``dcn_bf16_pair`` (``DCN_BF16_PAIR``) and its
+  rung ``--f32-from dla_up,ida_up`` (kernel E's f32 entry point with the
+  window), ``dcn_north_star_exact`` (``DCN_NORTH_STAR_EXACT``),
+  ``dcn_north_star_r1_bound`` (``--dcn-max-offset 1 --dcn-bound``: every
+  DCN through E's lerp body), ``dcn_chain_int8_r1`` (R = 1 unbounded: the
+  window's hats), ``dcn_chain_int8_r05_bound`` (the lerp) and
+  ``dcn_chain_fused_joins`` (``--deform --fused --bf16-joins``: both
+  chains' joins bf16, one combined request).
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -325,7 +337,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and GPTQ chains on the kernels against the plain versions (every
    int8 code equal, the decodes slot for slot), ``calibrate_gptq`` on the
    card against CPU tensors on two layers (codes equal but near-ties),
-   the ``pc+none`` control's deltas and the trained-weight table printed.
+   the ``pc+none`` control's deltas and the trained-weight table printed;
+18. dcn_profiles: each path of ``DCN_PROFILES`` calibrated on the card as
+   ``bench.py`` calibrates it (the int8 profiles' conv counts; no DCN
+   offset or mask conv among them), one request of 8 frames with every
+   launch counted from 0 (A 1, B 1, C 8, E 16 in the IDA stages' dtype,
+   E's lerp 16 where the block's bound and window are within a cell and
+   0 elsewhere, nothing else), held to its plain versions (decodes 100%
+   matched; the int8 paths' CenterNet p95 <= 1e-3, the float CenterNets
+   by the bf16 bars), the fused chain equal bit for bit to its two
+   requests; E's lerp body at the 16 calls of a batch-8
+   ``dcn_north_star_r1_bound`` forward against its plain version in bf16
+   and f32, timed (its ``kernels`` row) beside the full body at R = 1
+   and R = 3; each path at batch 32 (two requests, or the combined one),
+   2 repetitions, with its device busy time and idle share.
 
 Each phase prints its seconds, and the script its total.
 
@@ -365,8 +390,13 @@ from tauv_vision_tpu_torch.configs import (
     BF16_PAIR,
     CALIBRATION_FRAMES,
     CHAIN_INT8,
+    DCN_BF16_PAIR,
     DCN_CHAIN_INT8,
     DCN_NORTH_STAR,
+    DCN_NORTH_STAR_EXACT,
+    DCN_PARITY_INT8,
+    DCN_PER_LAYER_INT8,
+    DCN_WINDOW,
     HOST_IO,
     INT8_CHAIN_YOLACT,
     KEYPOINTS,
@@ -380,6 +410,8 @@ from tauv_vision_tpu_torch.configs import (
     ClassConfigSet,
     bf16_pair,
     centernet_config,
+    dcn_knobs,
+    int8_knobs,
     keypoints_config,
     yolact_config,
 )
@@ -475,6 +507,7 @@ from tauv_vision_tpu_torch.serving.quantize_chain import (
     dla34_chain_forward,
     make_centernet_chain_pipeline,
     make_centernet_keypoint_chain_pipeline,
+    make_chain_pair_pipeline,
     make_yolact_chain_pipeline,
     make_yolo_pose_chain_pipeline,
     yolact_chain_forward,
@@ -556,7 +589,6 @@ DCN_TOL = 1e-4        # f32 rtol and atol: 9 C (up to 4,608) 3xTF32
 # then rounded once: one bf16 ulp of the larger output plus 9 C 2^-24
 # max|plain| (the accumulation-order term).
 PLANTED_OFFSET = 40.0  # cells: past the map edge, as torch-trained offsets go
-DCN_WINDOW = 3.0      # the served and trained DCN window (bench.py, the JAX CLI)
 WINDOW_REACH = 6.0    # cells the window check scales the net's offsets to
 N_DCN = 16            # DeformConv2d calls of one DCN-IDA forward
 N_DCN_SHAPES = 7      # distinct (x shape, O) among them
@@ -595,6 +627,7 @@ ROWS = {
     "depthwise_upsample_bf16": ("depthwise_upsample", "tauv_depthwise_upsample_bf16"),
     "deform_conv": ("deform_conv", "tauv_deform_conv_f32"),
     "deform_conv_bf16": ("deform_conv", "tauv_deform_conv_bf16"),
+    "deform_conv_lerp": ("deform_conv", None),
     "transpose_conv": ("transpose_conv", None),
     "int8_dot_probe": ("int8_dot_probe", None),
     "op_probe/dot": ("op_probe", "tauv_op_probe_dot"),
@@ -605,9 +638,13 @@ ROWS = {
 }
 # Rows that report one variant of their kernel's launches (kernel A at
 # K = 50: the keypoint heatmap's calls; kernel B without the crop: the
-# YOLO-Pose belief maps).
+# YOLO-Pose belief maps; kernel E's lerp body, both entry points).
 ROW_VARIANTS = {"peak_decode_k50": ("peak_decode", "K=50"),
-                "mask_assembly_belief": ("mask_assembly", "no crop")}
+                "mask_assembly_belief": ("mask_assembly", "no crop"),
+                "deform_conv_lerp": ("deform_conv", "lerp")}
+# Rows whose TPU kernel is a body of their kernel's Pallas call: kernel E's
+# lerp, ``_dcn_kernel``'s variant "lerp".
+ROW_REPLACES = {"deform_conv_lerp": "tauv_vision_tpu/ops/pallas/deform_conv.py:279"}
 # P1: the JAX site each row replaces, and the probe row it reports.
 P1_ROWS = {
     "op_probe/dot": (126, "dot[32x144xN640]"),
@@ -1522,7 +1559,7 @@ def check_answers(path, answers, plain_answers, batch):
     on the plain versions; returns (CenterNet slots swapped at ties, worst
     CenterNet p95s, worst mask difference)."""
     b, k, kk = batch, SERVING_DECODE.n_detections, SERVING_DECODE.top_k
-    bf16 = path in BF16_PATHS or path in BF16_RUNGS
+    bf16 = path in BF16_PATHS or path in BF16_RUNGS or path in DCN_FLOAT_CN
     for cn_d, yl_d in answers:
         require(all(t.shape == (b, k) for t in
                     (cn_d.valid, cn_d.score, cn_d.label, cn_d.y, cn_d.x, cn_d.h, cn_d.w)),
@@ -4922,11 +4959,11 @@ def serve_int8_pair(path, recipe, cns, cn_cfg, yl_bf16, cal, n_requests=N_REQUES
     return launches, entries, variants
 
 
-def calibrate_int8_pair(path, recipe, cn, cn_cfg, yl_bf16, frames):
-    """``calibrate_pair`` on the card, its convs counted, and what its
-    options made printed."""
+def calibrate_int8_pair(path, recipe, cn, cn_cfg, yl_bf16, frames, convs=PAIR_INT8_CONVS):
+    """``calibrate_pair`` on the card, its convs counted (``convs``), and
+    what its options made printed."""
     cal = calibrate_pair(recipe, cn, cn_cfg, yl_bf16, frames)
-    want = PAIR_INT8_CONVS["per_layer" if recipe.per_layer else "parity"]
+    want = convs["per_layer" if recipe.per_layer else "parity"]
     got = tuple(len(c.scales) for c in cal)
     require(got == want, f"{path}: {got} calibrated convs (CenterNet, YOLACT), expected {want}")
     for name, c in zip(("CenterNet", "YOLACT"), cal):
@@ -5879,6 +5916,260 @@ def _quantize_accuracy_runs(card, tmp):
     return launches
 
 
+# ---- phase 18: dcn_profiles ---------------------------------------------
+
+# ``bench.py --deform`` in the profiles and knobs that phases 5 and 12 do
+# not serve, on dcn_ida's weights: {path: (recipe, kind)}.  The kinds:
+# "int8_pair" (``make_int8_pair_pipelines``' two requests), "float_pair"
+# (``make_float_pair_pipeline``), "north_star" (the float CenterNet beside
+# the recipe's YOLACT chain, one combined request, the profile's default)
+# and "chain" or "chain_fused" (``make_chain_pair_pipeline``: two requests,
+# or ``--fused``'s one).
+DCN_PROFILES = {
+    "dcn_parity_int8": (DCN_PARITY_INT8, "int8_pair"),
+    "dcn_parity_int8_corrected": (dataclasses.replace(DCN_PARITY_INT8, mse=True,
+                                                      bias_correct=True), "int8_pair"),
+    "dcn_parity_int8_seq": (dataclasses.replace(DCN_PARITY_INT8, mse=True, seq_correct=True),
+                            "int8_pair"),
+    "dcn_per_layer_int8": (DCN_PER_LAYER_INT8, "int8_pair"),
+    "dcn_bf16_pair": (DCN_BF16_PAIR, "float_pair"),
+    "dcn_bf16_pair_f32_up": (bf16_pair(f32_stages=("dla_up", "ida_up"), deform=True),
+                             "float_pair"),
+    "dcn_north_star_exact": (DCN_NORTH_STAR_EXACT, "north_star"),
+    "dcn_north_star_r1_bound": (dcn_knobs(DCN_NORTH_STAR, 1.0, bound=True), "north_star"),
+    "dcn_chain_int8_r1": (dcn_knobs(DCN_CHAIN_INT8, 1.0), "chain"),
+    "dcn_chain_int8_r05_bound": (dcn_knobs(DCN_CHAIN_INT8, 0.5, bound=True), "chain"),
+    "dcn_chain_fused_joins": (int8_knobs(DCN_CHAIN_INT8, bf16_joins=True), "chain_fused"),
+}
+# The paths whose CenterNet is a float net (bf16, or f32 in dla_up and
+# ida_up): their decodes are held by the bf16 CenterNet's bars.
+DCN_FLOAT_CN = ("dcn_bf16_pair", "dcn_bf16_pair_f32_up", "dcn_north_star_exact",
+                "dcn_north_star_r1_bound")
+# Calibrated convs (CenterNet, YOLACT) of the DCN int8 profiles: the
+# parity tail keeps every IDA and DLA-up conv bf16, so the trunk's 36
+# remain; per layer, the plain-IDA net's 60 less its 16 IDA convs (the DCN
+# offset and mask convs are never calibrated).
+DCN_PAIR_INT8_CONVS = {"parity": (36, 30), "per_layer": (44, 38)}
+DCN_PROFILE_ITERS = 2     # timed repetitions of each path's requests at batch 32
+LERP_ROW = "deform_conv_lerp"
+LERP_PATH = "dcn_north_star_r1_bound"
+
+
+def dcn_profile_nets(recipe, state):
+    """{impl: the recipe's CenterNet on ``state``, its kernels C and E or
+    their plain versions}."""
+    oc, _ = centernet_config()
+    cns = {}
+    for impl in ("kernel", "plain"):
+        cn = CenterpointDLA34(oc, up_impl=impl, dcn_impl=impl, device=torch.device("cuda"),
+                              **recipe.centernet_kwargs()).eval()
+        cn.load_state_dict(state)
+        cns[impl] = cn
+    return cns
+
+
+def two_requests(requests):
+    """``fn(frames) -> (Detections, YolactDetections)`` of two requests,
+    kept as ``fn.requests``."""
+    def pipeline(frames):
+        return tuple(request(frames) for request in requests)
+
+    pipeline.requests = tuple(requests)
+    return pipeline
+
+
+def dcn_profile_pipes(path, cns, cn_cfg, yl, yl_bf16, ns_scales, yl_scales, frames):
+    """{impl: the path's pipeline}, each ``fn(frames) -> (Detections,
+    YolactDetections)`` with ``fn.requests`` where it is two requests; on
+    the fused chain also "unfused", its two requests on the kernels."""
+    recipe, kind = DCN_PROFILES[path]
+    device = torch.device("cuda")
+    pipes = {}
+    if kind == "int8_pair":
+        cal = calibrate_int8_pair(path, recipe, cns["kernel"], cn_cfg, yl_bf16, frames,
+                                  DCN_PAIR_INT8_CONVS)
+        require(not any("offset" in p or "mask" in p for p in cal[0].scales),
+                f"{path}: a DCN offset or mask conv calibrated")
+        return {impl: two_requests(make_int8_pair_pipelines(recipe, cns[impl], cn_cfg, yl_bf16,
+                                                            cal, device, impl=impl))
+                for impl in ("kernel", "plain")}
+    if kind == "float_pair":
+        return {impl: make_float_pair_pipeline(recipe, cns[impl], cn_cfg, yl_bf16, device,
+                                               impl=impl) for impl in ("kernel", "plain")}
+    if kind == "north_star":
+        chain = recipe.yolact
+        for impl in ("kernel", "plain"):
+            ctx = ChainCtx(yl, ns_scales, dtype=chain.dtype, join_dtype=chain.join_dtype,
+                           impl=impl)
+            pipes[impl] = make_combined_pipeline(cns[impl], cn_cfg, yolact_chain_forward(ctx),
+                                                 yl.config, device, impl=impl,
+                                                 dtype=recipe.input_dtype)
+        return pipes
+    # The int8-chain pair: the CenterNet calibrated per tensor on its bf16
+    # image of 2 frames, as build_chain_nets calibrates dcn_chain_int8's.
+    img = preprocess(frames[:N_CALIBRATION], (cn_cfg.in_h, cn_cfg.in_w), IMAGENET_MEAN,
+                     IMAGENET_STDDEV, recipe.input_dtype)
+    cn_scales = calibrate(cns["kernel"], [img], paths_of=centerpoint_calibration_paths)
+    require(len(cn_scales) == DCN_PAIR_INT8_CONVS["per_layer"][0],
+            f"{path}: {len(cn_scales)} calibrated CenterNet convs")
+    fused = kind == "chain_fused"
+    for impl in ("kernel", "plain"):
+        pipes[impl] = make_chain_pair_pipeline(
+            cns["kernel"], cn_cfg, cn_scales, yl, yl_scales, device, dtype=recipe.input_dtype,
+            join_dtype=recipe.yolact.join_dtype, impl=impl, fused=fused)
+    if fused:
+        pipes["unfused"] = make_chain_pair_pipeline(
+            cns["kernel"], cn_cfg, cn_scales, yl, yl_scales, device, dtype=recipe.input_dtype,
+            join_dtype=recipe.yolact.join_dtype, impl="kernel")
+    return pipes
+
+
+def dcn_profile_launches(path, cn, launches, entries, variants):
+    """A request's launches: A 1, B 1, C 8 and E 16 (in the dtype of the
+    CenterNet's IDA stages), E's lerp 16 where the path's DCN takes it,
+    nothing else."""
+    want = {**{name: 0 for name in KERNELS}, "peak_decode": 1, "mask_assembly": 1,
+            "depthwise_upsample": 8, "deform_conv": N_DCN}
+    require(launches == want, f"{path}: launch counts {launches}, expected {want}")
+    f32_up = "ida_up" in DCN_PROFILES[path][0].centernet.f32_stages
+    entry = "tauv_deform_conv_" + ("f32" if f32_up else "bf16")
+    require(entries[entry] == N_DCN, f"{path}: {entry} launched {entries[entry]} times")
+    lerp = {m.variant for m in cn.deform_convs()} == {"lerp"}
+    got = variants.get(("deform_conv", "lerp"), 0)
+    require(got == (N_DCN if lerp else 0), f"{path}: {got} lerp launches, lerp={lerp}")
+    return entry, got
+
+
+def check_lerp_kernel(cns, cn_cfg, card):
+    """Kernel E's lerp body at the 16 calls of a batch-8 forward of the
+    bounded R = 1 net (its own bounded offsets), each distinct shape once,
+    against the plain lerp, in bf16 and in f32 (the calls cast up); then
+    its row's times: the 16 calls kernel against plain, on the device, and
+    the full body at R = 1 and at R = 3 on the same calls.  Returns (the
+    row's max_abs_err, its times)."""
+    img = preprocess(request_frames(18, (CHECK_BATCH, FRAME_H, FRAME_W, 3)).cuda(),
+                     (cn_cfg.in_h, cn_cfg.in_w), IMAGENET_MEAN, IMAGENET_STDDEV,
+                     DCN_PROFILES[LERP_PATH][0].input_dtype)
+    calls = dcn_calls(cns["plain"], img)
+    require(len(calls) == N_DCN and [(tuple(x.shape), o, n) for (_, o), ((x, *_), n)
+                                     in dcn_shapes(calls).items()] == kernel_times.E_CALLS,
+            f"{LERP_PATH}: kernel E's calls are not kernel_times.E_CALLS")
+    reach = max(c[1].abs().max().item() for c in calls)
+    require(reach <= 1.0, f"{LERP_PATH}: offsets reach {reach} cells past the bound")
+    err = 0.0
+    for (shape, o), ((x, offset, mask, w, bias), _) in dcn_shapes(calls).items():
+        for dtype in (torch.bfloat16, torch.float32):
+            args = (x.to(dtype), offset, mask.to(dtype), w.to(dtype), bias)
+            got = deform_conv2d_cuda(*args, max_offset=1.0, variant="lerp")
+            want = deform_conv2d(*args, max_offset=1.0, variant="lerp")
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            if dtype == torch.float32:
+                bar = DCN_TOL + DCN_TOL * want.abs()
+            else:
+                big = torch.maximum(got.float().abs(), want.float().abs())
+                bar = bf16_ulp(big) + 9 * shape[1] * 2.0 ** -24 * want.float().abs().max()
+            e = diff.max().item()
+            require(bool(torch.isfinite(got).all()) and not (diff > bar).any().item(),
+                    f"{LERP_ROW} {shape}->{o} {dtype}: err {e}")
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+            print(f"check {LERP_ROW} {shape} -> O={o} {str(dtype)[6:]} (the net's offsets, |d| "
+                  f"<= {reach:.3f}): max_abs_err {e:.3g}, {int((got != want).sum())} of "
+                  f"{got.numel()} outputs differ")
+    taps = [deform_conv.kernel_weights(c[3]) for c in calls]
+
+    def kernel(r, variant):
+        return lambda: [deform_conv2d_cuda(*c, taps=t, max_offset=r, variant=variant)
+                        for c, t in zip(calls, taps)]
+
+    k_ms, p_ms = abba(kernel(1.0, "lerp"),
+                      lambda: [deform_conv2d(*c, max_offset=1.0, variant="lerp") for c in calls],
+                      DCN_ITERS)
+    d_ms = queued_ms(kernel(1.0, "lerp"), DCN_ITERS)
+    full = {r: queued_ms(kernel(r, "full"), DCN_ITERS) for r in (1.0, DCN_WINDOW)}
+    b_ms, by = dcn_bound(calls)
+    print(f"time {LERP_ROW} all {N_DCN} calls of one batch-{CHECK_BATCH} {LERP_PATH} forward, "
+          f"bf16: kernel {k_ms:.4f} ms ({d_ms:.4f} ms on the device), plain {p_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({by}); the full body on the same calls {full[1.0]:.4f} ms at "
+          f"R = 1 and {full[DCN_WINDOW]:.4f} ms at R = {DCN_WINDOW:g} on the device; "
+          f"{dcn_flop(calls) / 1e9 / d_ms:.2f} TFLOP/s lerp ({card})")
+    return err, {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": by, "library_ms": None,
+                 "timed": f"all {N_DCN} calls of one batch-{CHECK_BATCH} {LERP_PATH} forward, "
+                          f"bf16, lerp at R = 1"}
+
+
+def dcn_profiles_phase(nets, cn_cfg, yl, yl_cfg, chains, yl_scales, yl_bf16, card):
+    """``bench.py --deform`` in every other profile (see the module
+    docstring); returns ({path: the checked request's launches (by kernel,
+    by entry point, by variant)}, kernel E lerp's max_abs_err, its times)."""
+    t0 = time.perf_counter()
+    state = nets["dcn_ida"][0].state_dict()
+    ns_scales = chains["north_star"]["kernel"][0].scales
+    cal_frames = request_frames(0, (SEQ_FRAMES, FRAME_H, FRAME_W, 3)).cuda()
+    request = request_frames(17, (CHECK_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    frames = request_frames(16, (FPS_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    served, rates, lerp = {}, {}, None
+    for path, (recipe, _) in DCN_PROFILES.items():
+        t1 = time.perf_counter()
+        cns = dcn_profile_nets(recipe, state)
+        pipes = dcn_profile_pipes(path, cns, cn_cfg, yl, yl_bf16, ns_scales, yl_scales,
+                                  cal_frames)
+        pipes["kernel"](request)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = pipes["kernel"](request)
+        torch.cuda.synchronize()
+        launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+        variants = dict(kernels.VARIANT_LAUNCHES)
+        served[path] = launches, entries, variants
+        entry, n_lerp = dcn_profile_launches(path, cns["kernel"], launches, entries, variants)
+        _, cn_p95, mask_err = check_answers(path, [got], [pipes["plain"](request)], CHECK_BATCH)
+        if path not in DCN_FLOAT_CN:
+            require(all(v <= CHAIN_P95 for v in cn_p95.values()),
+                    f"{path}: CenterNet decode kernel vs plain p95 {cn_p95} (bar {CHAIN_P95})")
+        if "unfused" in pipes:
+            for got_d, want_d in zip(got, pipes["unfused"](request)):
+                for name, value in vars(want_d).items():
+                    other = getattr(got_d, name)
+                    require((value is None and other is None) or torch.equal(other, value),
+                            f"{path}: fused {type(want_d).__name__}.{name} differs from the "
+                            f"two requests")
+        cn = recipe.centernet
+        print(f"serve {path}: 1 request x {CHECK_BATCH} frames, window {cn.dcn_max_offset:g}, "
+              f"bound {cn.offset_bound}, launches {launches} ({entry} {entries[entry]}, lerp "
+              f"{n_lerp}); decoded kernel vs plain: CenterNet 100% matched, p95 {cn_p95}, "
+              f"YOLACT 100% matched, mask max_abs_err {mask_err:.3g}"
+              f"{'; fused equal bit for bit to the two requests' if 'unfused' in pipes else ''}")
+        if path == LERP_PATH:
+            lerp = check_lerp_kernel(cns, cn_cfg, card)
+        requests = getattr(pipes["kernel"], "requests", (pipes["kernel"],))
+        for fn in requests:
+            fn(frames)
+        torch.cuda.synchronize()
+        ms = [time_ms(lambda fn=fn: fn(frames), DCN_PROFILE_ITERS) for fn in requests]
+        busy_ms, n_kernels = device_busy(lambda: [fn(frames) for fn in requests], reps=1)
+        idle = "not measured" if busy_ms is None else f"{1 - busy_ms / sum(ms):.1%}"
+        rates[path] = FPS_BATCH * 1000 / sum(ms)
+        shape = "one combined request" if len(ms) == 1 else "two requests"
+        print(f"time {path} batch {FPS_BATCH} ({shape}, {DCN_PROFILE_ITERS} repetitions): "
+              f"{' + '.join(f'{m:.3f}' for m in ms)} ms = {rates[path]:.2f} frames/s; "
+              f"{n_kernels} device kernels and copies, busy {busy_ms} ms, the device idle "
+              f"{idle} ({card}); {time.perf_counter() - t1:.1f} s")
+        del cns, pipes
+        torch.cuda.empty_cache()
+    require(lerp is not None, f"{LERP_PATH} not served")
+    for path in DCN_PROFILES:
+        n = served[path][2].get(("deform_conv", "lerp"), 0)
+        require((n > 0) == (DCN_PROFILES[path][0].centernet.offset_bound is not None),
+                f"{path}: {n} lerp launches")
+    print(f"time dcn_profiles batch {FPS_BATCH} frames/s: " + ", ".join(
+        f"{p} {r:.2f}" for p, r in rates.items()) + f" ({card})")
+    lap("dcn_profiles", t0)
+    return served, lerp[0], lerp[1]
+
+
 def _first_path(paths):
     return paths if paths is None or isinstance(paths, str) else paths[0]
 
@@ -5968,6 +6259,11 @@ def main(argv=None) -> int:
         served[KP_PER_LAYER] = keypoints_per_layer_phase(kp_net, kp_scales, card)
     with phase("quantize_accuracy"):
         served["quantize_accuracy"] = quantize_accuracy_phase(card)
+    with phase("dcn_profiles"):
+        dcn_served, errs["deform_conv_lerp"], times["deform_conv_lerp"] = dcn_profiles_phase(
+            nets, cn_cfg, yl, yl_cfg, chains, chain_yl_scales, yl_bf16, card)
+    served.update(dcn_served)
+    all_paths = ALL_PATHS + tuple(DCN_PROFILES)
 
     def launches(path, row):
         kernel, entry = ROWS[row]
@@ -5983,9 +6279,9 @@ def main(argv=None) -> int:
     report = {"kernels": [
         {"name": row, "route": "cuda", "source": KERNELS[ROWS[row][0]][0],
          "replaces": (f"tauv_vision_tpu/scripts/mosaic_op_probe.py:{P1_ROWS[row][0]}"
-                      if row in P1_ROWS else KERNELS[ROWS[row][0]][1]),
-         "launches": sum(launches(path, row) for path in ALL_PATHS),
-         "launches_by_path": {path: launches(path, row) for path in ALL_PATHS},
+                      if row in P1_ROWS else ROW_REPLACES.get(row, KERNELS[ROWS[row][0]][1])),
+         "launches": sum(launches(path, row) for path in all_paths),
+         "launches_by_path": {path: launches(path, row) for path in all_paths},
          "max_abs_err": errs[row], **times[row]}
         for row in ROWS
     ]}

@@ -26,6 +26,12 @@ masks); ``BF16_PAIR`` is the float pair of ``bench.py --bf16``, and
 ``bf16_pair`` builds its ladder (``--bn-bf16``, ``--f32-from``,
 ``--fused``); ``NORTH_STAR_EXACT`` is ``--exact-flow``; and
 ``KEYPOINTS_PER_LAYER_INT8`` is ``bench.py --keypoints --per-layer-int8``.
+The DCN CenterNet (``bench.py --deform``) in the other profiles:
+``DCN_PARITY_INT8``, ``DCN_PER_LAYER_INT8``, ``DCN_BF16_PAIR``
+(``bf16_pair(deform=True)``) and ``DCN_NORTH_STAR_EXACT``; ``dcn_knobs``
+applies ``--dcn-max-offset R`` and ``--dcn-bound`` to any DCN recipe, and
+``int8_knobs`` ``--bf16-joins`` and ``--bf16-tail S1,...`` to a chain
+profile.
 """
 
 from __future__ import annotations
@@ -62,8 +68,13 @@ __all__ = [
     "ClassConfig",
     "CALIBRATION_FRAMES",
     "ClassConfigSet",
+    "DCN_BF16_PAIR",
     "DCN_CHAIN_INT8",
     "DCN_NORTH_STAR",
+    "DCN_NORTH_STAR_EXACT",
+    "DCN_PARITY_INT8",
+    "DCN_PER_LAYER_INT8",
+    "DCN_WINDOW",
     "FloatPairRecipe",
     "HOST_IO",
     "HostIoRecipe",
@@ -88,6 +99,8 @@ __all__ = [
     "YoloPoseModelConfig",
     "bf16_pair",
     "centernet_config",
+    "dcn_knobs",
+    "int8_knobs",
     "get_head_channels",
     "keypoints_config",
     "yolact_config",
@@ -153,14 +166,20 @@ def yolact_config(in_h: int = 360, in_w: int = 640,
 
 @dataclass(frozen=True)
 class CenternetRecipe:
-    """``CenterpointDLA34``'s precision knobs and DCN window (its keyword
-    arguments)."""
+    """``CenterpointDLA34``'s precision knobs, DCN window and offset bound
+    (its keyword arguments)."""
 
     dtype: torch.dtype
     bn_out: torch.dtype
     f32_stages: Tuple[str, ...]
     deform: bool
     dcn_max_offset: Optional[float] = None
+    offset_bound: Optional[float] = None
+
+
+# ``bench.py``'s DCN window, ``--dcn-max-offset``'s default
+# (``bench.py:1221-1228``), as the JAX CLI trains it.
+DCN_WINDOW = 3.0
 
 
 @dataclass(frozen=True)
@@ -229,7 +248,7 @@ INT8_CHAIN_YOLACT = replace(NORTH_STAR.yolact, int8_transposes=True)
 # dcn_max_offset=None)`` serves the deployed reference's torchvision
 # semantics instead (unbounded offsets), as the ``dcn_ida`` path does.
 DCN_NORTH_STAR = replace(NORTH_STAR, centernet=replace(NORTH_STAR.centernet, deform=True,
-                                                       dcn_max_offset=3.0))
+                                                       dcn_max_offset=DCN_WINDOW))
 
 
 # ``bench.py --keypoints``'s bf16 net (its ``bf16_fps``): bf16 convs with
@@ -302,7 +321,9 @@ class Int8PairRecipe(ServedCenternetRecipe):
     ``calibrate_bias_correction``'s corrections, and ``seq_correct`` fits
     ``calibrate_sequential``'s gains and corrections on the first
     ``SEQ_FRAMES`` frames, which replace ``bias_correct``'s
-    (``bench.py:1465-1511``)."""
+    (``bench.py:1465-1511``).  ``join_dtype`` rounds both chains' joins
+    (None: f32; bf16 is ``--bf16-joins``, which ``bench.py`` passes to
+    both chains, ``bench.py:1519,1524``)."""
 
     centernet_scales: Int8Scales
     yolact_scales: Int8Scales
@@ -310,11 +331,26 @@ class Int8PairRecipe(ServedCenternetRecipe):
     mse: bool = False
     bias_correct: bool = False
     seq_correct: bool = False
+    join_dtype: Optional[torch.dtype] = None
 
 
 # ``bench.py --parity-int8``'s CenterNet tail: the paths (by substring)
 # whose convs stay bf16 (``bench.py:1373``).
 PARITY_BF16_TAIL = ("head_", "level0_", "level1_", "ida_up", "dla_up")
+# The YOLACT's own parity tail, beside what it keeps of the CenterNet's
+# (``bench.py:1439-1450``): the whole prediction head and the protonet's
+# output conv.
+YOLACT_PARITY_TAIL = ("prediction_head", "protonet/output")
+
+
+def yolact_bf16_tail(bf16_tail: Tuple[str, ...]) -> Tuple[str, ...]:
+    """The YOLACT's float paths for the CenterNet's ``--bf16-tail``:
+    ``bench.py:1446-1449`` keeps the entries that name no CenterNet part
+    (not ``head_``, ``level*``, ``ida_up`` or ``dla_up``) and adds
+    ``YOLACT_PARITY_TAIL``."""
+    return tuple(t for t in bf16_tail
+                 if not t.startswith(("head_", "level", "ida_up", "dla_up"))) + YOLACT_PARITY_TAIL
+
 
 # ``bench.py --parity-int8`` (``bench.py:1331-1339,1373-1526``): both nets
 # int8 chains with per-channel scales (``calibrate(per_channel=parity)``).
@@ -330,8 +366,7 @@ PARITY_INT8 = Int8PairRecipe(
     centernet=CHAIN_INT8.centernet,
     input_dtype=torch.bfloat16,
     centernet_scales=Int8Scales(per_channel=True, float_paths=PARITY_BF16_TAIL),
-    yolact_scales=Int8Scales(per_channel=True,
-                             float_paths=("prediction_head", "protonet/output")),
+    yolact_scales=Int8Scales(per_channel=True, float_paths=yolact_bf16_tail(PARITY_BF16_TAIL)),
 )
 
 # ``bench.py --per-layer-int8`` on the pair (``bench.py:371-382,1536-1546``):
@@ -349,7 +384,25 @@ PER_LAYER_INT8 = replace(PARITY_INT8, per_layer=True,
 # ``offset_bound``), through kernel E's bf16 entry point with the same
 # 3-cell window as the JAX graph's Pallas kernel.
 DCN_CHAIN_INT8 = replace(CHAIN_INT8, centernet=replace(CHAIN_INT8.centernet, deform=True,
-                                                       dcn_max_offset=3.0))
+                                                       dcn_max_offset=DCN_WINDOW))
+
+# ``bench.py --deform --parity-int8`` (``bench.py:1318-1321,1412-1526`` with
+# ``deform=True``): ``PARITY_INT8`` with the CenterNet's 16 IDA blocks
+# deformable at ``DCN_WINDOW``, calibrated on that net
+# (``centernet_dcn_b{B}``, ``bench.py:1420-1423``).  Every DCN block lies
+# in ``ida_up`` or ``dla_up``, so the parity tail keeps all of them, and
+# their offset and mask convs, bf16; only the trunk's convs are int8.  Its
+# options as ``PARITY_INT8``'s: ``replace(DCN_PARITY_INT8, mse=True,
+# bias_correct=True)``, ``replace(..., mse=True, seq_correct=True)``.
+DCN_PARITY_INT8 = replace(PARITY_INT8, centernet=replace(PARITY_INT8.centernet, deform=True,
+                                                         dcn_max_offset=DCN_WINDOW))
+
+# ``bench.py --deform --per-layer-int8`` (``bench.py:1528-1546``): the DCN
+# CenterNet of ``DCN_PARITY_INT8`` through ``quantized_call``, per-tensor
+# scales.  The offset and mask convs stay bf16, as the JAX block serves
+# them as one merged conv that ``calibrate``'s interceptor never sees
+# (``weights.centerpoint_calibration_paths``), and so does the DCN itself.
+DCN_PER_LAYER_INT8 = replace(PER_LAYER_INT8, centernet=DCN_PARITY_INT8.centernet)
 
 
 @dataclass(frozen=True)
@@ -419,6 +472,12 @@ NORTH_STAR_EXACT = replace(
     NORTH_STAR, centernet=replace(NORTH_STAR.centernet, bn_out=torch.float32, f32_stages=()),
     yolact=replace(NORTH_STAR.yolact, join_dtype=None), input_dtype=torch.bfloat16)
 
+# ``bench.py --deform --north-star --exact-flow``: ``NORTH_STAR_EXACT`` with
+# the CenterNet's IDA blocks deformable at ``DCN_WINDOW`` (kernel E bf16).
+DCN_NORTH_STAR_EXACT = replace(
+    NORTH_STAR_EXACT, centernet=replace(NORTH_STAR_EXACT.centernet, deform=True,
+                                        dcn_max_offset=DCN_WINDOW))
+
 
 @dataclass(frozen=True)
 class FloatPairRecipe(ServedCenternetRecipe):
@@ -456,14 +515,16 @@ F32_IMAGE_STAGES = ("stem", "early")
 
 
 def bf16_pair(bn_bf16: bool = False, f32_stages: Tuple[str, ...] = (),
-              fused: bool = False) -> FloatPairRecipe:
+              fused: bool = False, deform: bool = False) -> FloatPairRecipe:
     """``BF16_PAIR`` with ``bench.py``'s ladder knobs: ``--bn-bf16`` (bf16
     BatchNorm outputs), ``--f32-from S1,...`` (the CenterNet stages that
     compute in f32, ``bench.py:1306-1317``; an unknown name raises, as
-    there) and ``--fused``.  A rung with ``stem`` or ``early`` in
-    ``f32_stages`` feeds the CenterNet the f32 image
-    (``F32_IMAGE_STAGES``); every other rung the bf16 image, as JAX
-    does."""
+    there), ``--fused`` and ``--deform`` (the 16 IDA blocks deformable at
+    ``DCN_WINDOW``; with ``dla_up`` and ``ida_up`` in ``f32_stages`` the
+    DCN computes in f32, kernel E's f32 entry point with the window).  A
+    rung with ``stem`` or ``early`` in ``f32_stages`` feeds the CenterNet
+    the f32 image (``F32_IMAGE_STAGES``); every other rung the bf16
+    image, as JAX does."""
     from tauv_vision_tpu_torch.models.centerpoint_dla import check_f32_stages
 
     stages = check_f32_stages(f32_stages)
@@ -472,8 +533,36 @@ def bf16_pair(bn_bf16: bool = False, f32_stages: Tuple[str, ...] = (),
         BF16_PAIR,
         centernet=replace(BF16_PAIR.centernet,
                           bn_out=torch.bfloat16 if bn_bf16 else torch.float32,
-                          f32_stages=stages),
+                          f32_stages=stages, deform=deform,
+                          dcn_max_offset=DCN_WINDOW if deform else None),
         input_dtype=torch.float32 if f32_image else torch.bfloat16, fused=fused)
+
+
+# ``bench.py --deform --bf16`` (``bench.py:1318-1321,1548-1550``): the float
+# pair with the CenterNet's 16 IDA blocks deformable, bf16 through kernel
+# E's bf16 entry point at ``DCN_WINDOW``.
+# ``bf16_pair(deform=True)``, written out: ``bf16_pair`` reads the model
+# module, which imports this one.
+DCN_BF16_PAIR = replace(BF16_PAIR, centernet=replace(BF16_PAIR.centernet, deform=True,
+                                                     dcn_max_offset=DCN_WINDOW))
+
+
+def dcn_knobs(recipe, max_offset: float = DCN_WINDOW, bound: bool = False):
+    """``bench.py --dcn-max-offset R`` and ``--dcn-bound`` on a recipe whose
+    CenterNet is deformable (``bench.py:1221-1238``, ``build_centernet``'s
+    ``offset_bound=dcn_max_offset if dcn_bound else None``, ``bench.py:92``):
+    the DCN window R, and with ``bound`` the offsets squashed through
+    ``R tanh(offset / R)``.  With the bound and R <= 1 the DCN samples by
+    kernel E's lerp (``ops/deform_conv.dcn_variant``).  ``--dcn-impl
+    gather`` is ``replace(..., dcn_max_offset=None)``, the unbounded
+    offsets of the f32 ``dcn_ida`` path; ``shift`` computes what kernel E
+    computes at R.  Raises on a recipe without DCN, where ``bench.py``
+    ignores the flags."""
+    if not recipe.centernet.deform:
+        raise ValueError("--dcn-max-offset and --dcn-bound reach only a DCN CenterNet")
+    r = float(max_offset)
+    return replace(recipe, centernet=replace(recipe.centernet, dcn_max_offset=r,
+                                             offset_bound=r if bound else None))
 
 
 @dataclass(frozen=True)
@@ -505,6 +594,38 @@ class HostIoRecipe:
 # pair path is timed: a cut of the batch, not of width.
 HOST_IO = HostIoRecipe(pair=CHAIN_INT8, batch=32, n_batches=8, prefetch=2, raw_reps=4,
                        png_reps=1, mask_threshold=0.5, frame_hw=(480, 640))
+
+
+def int8_knobs(recipe, bf16_joins: bool = False,
+               bf16_tail: Optional[Tuple[str, ...]] = None):
+    """``bench.py --bf16-joins`` and ``--bf16-tail S1,...`` on an int8-chain
+    profile (``bench.py:1373-1377,1404-1417``).  ``--bf16-joins`` rounds both
+    chains' joins to bf16: on a chain pair (``CHAIN_INT8``,
+    ``DCN_CHAIN_INT8``) the YOLACT's ``join_dtype``, which the pair's
+    CenterNet chain takes too, on ``PARITY_INT8`` and its forms
+    ``Int8PairRecipe.join_dtype``.  ``--bf16-tail`` replaces the parity
+    profile's CenterNet float paths, and the YOLACT's follow
+    (``yolact_bf16_tail``).  Raises where ``bench.py`` ignores a knob: the
+    tail off the parity profile, either on ``--per-layer-int8``."""
+    if isinstance(recipe, Int8PairRecipe):
+        if recipe.per_layer:
+            raise ValueError("--bf16-joins and --bf16-tail reach only the chain profiles")
+        if bf16_joins:
+            recipe = replace(recipe, join_dtype=torch.bfloat16)
+        if bf16_tail is not None:
+            recipe = replace(
+                recipe,
+                centernet_scales=replace(recipe.centernet_scales, float_paths=tuple(bf16_tail)),
+                yolact_scales=replace(recipe.yolact_scales,
+                                      float_paths=yolact_bf16_tail(tuple(bf16_tail))))
+        return recipe
+    if not isinstance(recipe, ServedRecipe):
+        raise TypeError(f"int8_knobs takes an int8-chain recipe, got {type(recipe).__name__}")
+    if bf16_tail is not None:
+        raise ValueError("--bf16-tail reaches only the parity profile")
+    if bf16_joins:
+        recipe = replace(recipe, yolact=replace(recipe.yolact, join_dtype=torch.bfloat16))
+    return recipe
 
 
 @dataclass(frozen=True)

@@ -23,6 +23,15 @@
 //   bf16, multiplied by the bf16 weight with f32 accumulation, + f32
 //   bias, rounded to bf16.
 //
+// Both take a variant: 0 the above ("full"), 1 "lerp", the Pallas body's
+// sign-selected lerp (_dcn_kernel, variant "lerp"), exact where every
+// |offset| <= 1: on each axis the corners at shifts 0 and sign(d) (+1 at
+// d == 0) from the tap's base, lerp0 = t00 + |dx| (t0s - t00), lerps
+// likewise on the row at sign(dy), then lerp0 + |dy| (lerps - lerp0), x
+// mask, each an f32 op rounded on its own; the rest as the entry point's
+// full variant.  Only the choice and blend of a thread's 4 corners
+// differ; the loads, tiles and products are the same.
+//
 // What bounds it on Hopper: the products, 2 x 9 C O operations an output
 // pixel (12.56 GFLOP a 640x360 frame over the 16 calls), on the tensor
 // cores, and the bilinear gather that feeds them, 4 reads from L1 / L2 for
@@ -75,6 +84,9 @@ constexpr int kThreads = 256;
 constexpr int kTaps = 9;
 constexpr int kRow = 64;   // bytes a tile row: one K step
 constexpr int kNoWindow = -2147483647 - 1;   // lo of "no window": INT_MIN
+// How a sample blends its 4 corners: the gather's corner weights (f32, no
+// window), the hats, or the sign-selected lerp.
+enum Blend { kGather = 0, kHat = 1, kLerp = 2 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -140,7 +152,8 @@ __device__ __forceinline__ void from_f32(__nv_bfloat16& d, float v) { d = __floa
 // (-1 outside the map or the window, read as zero) and the weights.  The
 // hats (bf16, and f32 with a window): wx0, wx1, wy0, wy1, mask (the
 // Pallas body's); f32 without a window: the 4 corner weights x mask (the
-// gather formulation), w[4] unused.
+// gather formulation), w[4] unused; the lerp: corners (0, 0), (0, sx),
+// (sy, 0), (sy, sx) and weights |dx|, -, |dy|, -, mask.
 struct Corners {
   int idx[4];
   float w[5];
@@ -160,6 +173,19 @@ __device__ __forceinline__ void corner_offsets(Corners& c, int r, int col, int b
   c.idx[3] = r1 && c1 ? base + W * C + C : -1;
 }
 
+// The lerp's corners: shift 0 and the signs sy, sx (each -1 or +1) from
+// the tap's base (r, col); -1 for those outside the map.
+__device__ __forceinline__ void lerp_offsets(Corners& c, int r, int col, int sy, int sx,
+                                             int bhw, int H, int W, int C) {
+  const bool r0 = (unsigned)r < (unsigned)H, r1 = (unsigned)(r + sy) < (unsigned)H;
+  const bool c0 = (unsigned)col < (unsigned)W, c1 = (unsigned)(col + sx) < (unsigned)W;
+  const int base = (bhw + r * W + col) * C;
+  c.idx[0] = r0 && c0 ? base : -1;
+  c.idx[1] = r0 && c1 ? base + sx * C : -1;
+  c.idx[2] = r1 && c0 ? base + sy * W * C : -1;
+  c.idx[3] = r1 && c1 ? base + (sy * W + sx) * C : -1;
+}
+
 // floor(v) as an int, clamped far outside any map first, so that any
 // finite offset converts safely.
 __device__ __forceinline__ int floor_int(float f) {
@@ -169,7 +195,7 @@ __device__ __forceinline__ int floor_int(float f) {
 template <bool kBf16>
 __device__ __forceinline__ void corners(Corners& c, bool valid, int bhw, int oy, int ox,
                                         int ky, int kx, float dy, float dx, float m,
-                                        int H, int W, int C, int lo, int hi) {
+                                        int H, int W, int C, int lo, int hi, bool lerp) {
   if (!valid) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) c.idx[k] = -1;
@@ -177,7 +203,16 @@ __device__ __forceinline__ void corners(Corners& c, bool valid, int bhw, int oy,
     for (int k = 0; k < 5; ++k) c.w[k] = 0.f;
     return;
   }
-  if (kBf16 || lo != kNoWindow) {
+  if (lerp) {
+    // _dcn_kernel's "lerp": the neighbour at sign(d), +1 where d >= 0.
+    c.w[0] = fabsf(dx);
+    c.w[1] = 0.f;
+    c.w[2] = fabsf(dy);
+    c.w[3] = 0.f;
+    c.w[4] = m;
+    lerp_offsets(c, oy - 1 + ky, ox - 1 + kx, dy < 0.f ? -1 : 1, dx < 0.f ? -1 : 1, bhw, H, W,
+                 C);
+  } else if (kBf16 || lo != kNoWindow) {
     // hat(s) = max(0, 1 - |d - s|) at the integer shifts s = floor(d)
     // and floor(d) + 1, as _dcn_kernel's "full" variant computes it.
     const float fy = floorf(dy), fx = floorf(dx);
@@ -221,8 +256,25 @@ __device__ __forceinline__ float hat_sample(const float (&w)[5], float a00, floa
   return __fmul_rn(__fadd_rn(__fmul_rn(w[2], t0), __fmul_rn(w[3], t1)), w[4]);
 }
 
-// 8 bf16 channels of the 4 corners -> 8 bf16 samples (always the hats).
-__device__ __forceinline__ uint4 sample_vec(const uint4 (&v)[4], const float (&w)[5], bool,
+// The lerp of corners (0, 0), (0, sx), (sy, 0), (sy, sx): the columns at
+// |dx| on each row, then the rows at |dy|, then x mask, each step an f32
+// op rounded on its own, in the Pallas body's order.
+__device__ __forceinline__ float lerp_sample(const float (&w)[5], float t00, float t0s,
+                                             float ts0, float tss) {
+  const float l0 = __fadd_rn(t00, __fmul_rn(w[0], __fsub_rn(t0s, t00)));
+  const float ls = __fadd_rn(ts0, __fmul_rn(w[0], __fsub_rn(tss, ts0)));
+  return __fmul_rn(__fadd_rn(l0, __fmul_rn(w[2], __fsub_rn(ls, l0))), w[4]);
+}
+
+__device__ __forceinline__ float blend(int mode, const float (&w)[5], float a00, float a01,
+                                       float a10, float a11) {
+  if (mode == kLerp) return lerp_sample(w, a00, a01, a10, a11);
+  if (mode == kHat) return hat_sample(w, a00, a01, a10, a11);
+  return fmaf(w[3], a11, fmaf(w[2], a10, fmaf(w[1], a01, fmaf(w[0], a00, 0.f))));
+}
+
+// 8 bf16 channels of the 4 corners -> 8 bf16 samples (the hats or the lerp).
+__device__ __forceinline__ uint4 sample_vec(const uint4 (&v)[4], const float (&w)[5], int mode,
                                             __nv_bfloat16*) {
   const uint32_t* c0 = reinterpret_cast<const uint32_t*>(&v[0]);
   const uint32_t* c1 = reinterpret_cast<const uint32_t*>(&v[1]);
@@ -232,17 +284,19 @@ __device__ __forceinline__ uint4 sample_vec(const uint4 (&v)[4], const float (&w
   uint32_t* o = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
-    const float lo = hat_sample(w, lo_bf16(c0[p]), lo_bf16(c1[p]), lo_bf16(c2[p]), lo_bf16(c3[p]));
-    const float hi = hat_sample(w, hi_bf16(c0[p]), hi_bf16(c1[p]), hi_bf16(c2[p]), hi_bf16(c3[p]));
+    const float lo =
+        blend(mode, w, lo_bf16(c0[p]), lo_bf16(c1[p]), lo_bf16(c2[p]), lo_bf16(c3[p]));
+    const float hi =
+        blend(mode, w, hi_bf16(c0[p]), hi_bf16(c1[p]), hi_bf16(c2[p]), hi_bf16(c3[p]));
     const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
     o[p] = *reinterpret_cast<const uint32_t*>(&pair);
   }
   return out;
 }
 
-// 4 f32 channels of the 4 corners -> 4 f32 samples: the hats where
-// ``hat`` (a window), else the 4 corner weights.
-__device__ __forceinline__ uint4 sample_vec(const uint4 (&v)[4], const float (&w)[5], bool hat,
+// 4 f32 channels of the 4 corners -> 4 f32 samples: the lerp, the hats (a
+// window) or the 4 corner weights.
+__device__ __forceinline__ uint4 sample_vec(const uint4 (&v)[4], const float (&w)[5], int mode,
                                             float*) {
   uint4 out;
   uint32_t* o = reinterpret_cast<uint32_t*>(&out);
@@ -254,8 +308,7 @@ __device__ __forceinline__ uint4 sample_vec(const uint4 (&v)[4], const float (&w
   for (int e = 0; e < 4; ++e) {
     const float a00 = __uint_as_float(c0[e]), a01 = __uint_as_float(c1[e]);
     const float a10 = __uint_as_float(c2[e]), a11 = __uint_as_float(c3[e]);
-    o[e] = __float_as_uint(hat ? hat_sample(w, a00, a01, a10, a11)
-                               : fmaf(w[3], a11, fmaf(w[2], a10, fmaf(w[1], a01, fmaf(w[0], a00, 0.f)))));
+    o[e] = __float_as_uint(blend(mode, w, a00, a01, a10, a11));
   }
   return out;
 }
@@ -278,8 +331,10 @@ __global__ void __launch_bounds__(kThreads, BN <= 128 ? 2 : 1) deform_conv_kerne
     const float* __restrict__ bias,    // [O] or null
     T* __restrict__ out,               // [B, O, H, W]
     float* __restrict__ partial,       // [S, B, O, H, W] when split, else null
-    int B, int C, int H, int W, int O, int per_split, int lo, int hi) {
+    int B, int C, int H, int W, int O, int per_split, int lo, int hi, int variant) {
   constexpr bool kBf16 = sizeof(T) == 2;
+  const bool lerp = variant == 1;
+  const int mode = lerp ? kLerp : (kBf16 || lo != kNoWindow ? kHat : kGather);
   constexpr int kWarpsM = BM / 32;
   constexpr int kWarpsN = (kThreads / 32) / kWarpsM;
   constexpr int kWN = BN / kWarpsN;        // output channels a warp
@@ -339,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, BN <= 128 ? 2 : 1) deform_conv_kerne
 #pragma unroll
       for (int j = 0; j < kRJ; ++j)
         corners<kBf16>(cor[j], pval[j], pbhw[j], poy[j], pox[j], g_tap / 3, g_tap % 3,
-                       ndy[j], ndx[j], nm[j], H, W, C, lo, hi);
+                       ndy[j], ndx[j], nm[j], H, W, C, lo, hi, lerp);
       if (g_tap + 1 < kTaps) load_offsets(g_tap + 1);
     }
     const T* xc = x + g_chunk * kChunkC + q * kVec;
@@ -360,7 +415,7 @@ __global__ void __launch_bounds__(kThreads, BN <= 128 ? 2 : 1) deform_conv_kerne
 #pragma unroll
     for (int j = 0; j < kRJ; ++j)
       *reinterpret_cast<uint4*>(a + swz(r + 64 * j, q)) =
-          sample_vec(vals[j], cor[j].w, lo != kNoWindow, static_cast<T*>(nullptr));
+          sample_vec(vals[j], cor[j].w, mode, static_cast<T*>(nullptr));
   };
   // The weight copy: BN rows x 4 chunks of 16 bytes, kBR of them a thread,
   // at offsets fixed for the whole loop.
@@ -567,7 +622,8 @@ __global__ void __launch_bounds__(kThreads) nchw_to_nhwc(const T* __restrict__ x
 template <typename T, int BM, int BN>
 cudaError_t launch(const void* x_nchw, const void* x, const void* offset, const void* mask,
                    const void* taps, const void* bias, void* out, void* partial, int B, int C,
-                   int H, int W, int O, int split, int lo, int hi, cudaStream_t stream) {
+                   int H, int W, int O, int split, int lo, int hi, int variant,
+                   cudaStream_t stream) {
   constexpr int kChunkC = kRow / sizeof(T);
   constexpr int bytes = smem_bytes(BM, BN);
   static bool attr_set = false;   // per instantiation
@@ -587,7 +643,8 @@ cudaError_t launch(const void* x_nchw, const void* x, const void* offset, const 
   const dim3 grid((M + BM - 1) / BM, split);
   deform_conv_kernel<T, BM, BN><<<grid, kThreads, bytes, stream>>>(
       (const T*)x, (const float*)offset, (const T*)mask, (const T*)taps, (const float*)bias,
-      (T*)out, split > 1 ? (float*)partial : nullptr, B, C, H, W, O, per_split, lo, hi);
+      (T*)out, split > 1 ? (float*)partial : nullptr, B, C, H, W, O, per_split, lo, hi,
+      variant);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return err;
   const int n = M * O;
@@ -599,18 +656,19 @@ cudaError_t launch(const void* x_nchw, const void* x, const void* offset, const 
 template <typename T>
 int dispatch(const void* x_nchw, const void* x, const void* offset, const void* mask,
              const void* taps, const void* bias, void* out, void* partial, int B, int C, int H,
-             int W, int O, int bm, int bn, int split, int lo, int hi, int device,
+             int W, int O, int bm, int bn, int split, int lo, int hi, int variant, int device,
              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!x_nchw || !x || C % 32 || O % 8 || O > bn || split < 1 ||
-      (split > 1 && partial == nullptr) || (lo != kNoWindow && lo > hi))
+      (split > 1 && partial == nullptr) || (lo != kNoWindow && lo > hi) ||
+      (variant != 0 && variant != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
 #define TAUV_DCN_TILE(BM_, BN_)                                                         \
   if (bm == BM_ && bn == BN_)                                                           \
     return (int)launch<T, BM_, BN_>(x_nchw, x, offset, mask, taps, bias, out, partial, B, \
-                                    C, H, W, O, split, lo, hi, s);
+                                    C, H, W, O, split, lo, hi, variant, s);
   TAUV_DCN_TILE(64, 256)
   TAUV_DCN_TILE(64, 128)
   TAUV_DCN_TILE(64, 64)
@@ -634,22 +692,23 @@ int dispatch(const void* x_nchw, const void* x, const void* offset, const void* 
 // tile, with partial a [split, B, O, H, W] f32 scratch.  C a multiple of
 // 32, O a multiple of 8 and at most bn.  [lo, hi]: the window of integer
 // corner shifts from a tap's base that are read (ops/deform_conv.window),
-// or lo = INT_MIN for none.  Returns cudaGetLastError() after the
-// launches.
+// or lo = INT_MIN for none.  variant: 0 "full", 1 "lerp" (exact for
+// |offset| <= 1 only; the caller bounds the offsets).  Returns
+// cudaGetLastError() after the launches.
 extern "C" int tauv_deform_conv_f32(const void* x_nchw, const void* x, const void* offset,
                                     const void* mask, const void* taps, const void* bias,
                                     void* out, void* partial, int B, int C, int H, int W,
                                     int O, int bm, int bn, int split, int lo, int hi,
-                                    int device, void* stream) {
+                                    int variant, int device, void* stream) {
   return dispatch<float>(x_nchw, x, offset, mask, taps, bias, out, partial, B, C, H, W, O,
-                         bm, bn, split, lo, hi, device, stream);
+                         bm, bn, split, lo, hi, variant, device, stream);
 }
 
 extern "C" int tauv_deform_conv_bf16(const void* x_nchw, const void* x, const void* offset,
                                      const void* mask, const void* taps, const void* bias,
                                      void* out, void* partial, int B, int C, int H, int W,
                                      int O, int bm, int bn, int split, int lo, int hi,
-                                     int device, void* stream) {
+                                     int variant, int device, void* stream) {
   return dispatch<__nv_bfloat16>(x_nchw, x, offset, mask, taps, bias, out, partial, B, C, H,
-                                 W, O, bm, bn, split, lo, hi, device, stream);
+                                 W, O, bm, bn, split, lo, hi, variant, device, stream);
 }

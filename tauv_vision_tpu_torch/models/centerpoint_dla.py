@@ -246,8 +246,11 @@ class DeformConvBlock(nn.Module):
     the offsets through ``bound * tanh(offset / bound)`` as the JAX
     block's option does, ``dcn_max_offset`` is the DCN's window (None:
     unbounded offsets; ``DeformConv2d``), and ``dcn_impl`` picks kernel E
-    or the plain version.  Every conv computes in ``dtype`` and
-    the BatchNorm rounds to ``bn_out``.  In bf16 the block computes as the
+    or the plain version.  The two together pick the DCN's sampling body
+    (``ops/deform_conv.dcn_variant``): kernel E's lerp where the bound and
+    the window are both at most one cell (``bench.py --dcn-bound
+    --dcn-max-offset R``, R <= 1), the window's hats elsewhere.  Every
+    conv computes in ``dtype`` and the BatchNorm rounds to ``bn_out``.  In bf16 the block computes as the
     JAX block (``tauv_vision_tpu/models/centerpoint_dla.py:447-537``): the
     offset and mask convs in bf16 with the bias added after the conv's
     rounding (JAX merges them into one 27-channel conv, bit-identical,
@@ -272,7 +275,8 @@ class DeformConvBlock(nn.Module):
             self.offset = Conv2d(in_channels, 18, 3, padding=1, compute_dtype=dtype)
             self.mask = Conv2d(in_channels, 9, 3, padding=1, compute_dtype=dtype)
             self.offset.zero_init = self.mask.zero_init = True
-            self.conv = DeformConv2d(in_channels, out_channels, dcn_impl, dcn_max_offset)
+            self.conv = DeformConv2d(in_channels, out_channels, dcn_impl, dcn_max_offset,
+                                     offset_bound)
         else:
             self.conv = Conv2d(in_channels, out_channels, 3, padding=1, compute_dtype=dtype)
         self.sow = None
@@ -298,7 +302,10 @@ class DeformConvBlock(nn.Module):
         if not self.deform:
             return self.actf(self.conv(x))
         offset, mask = self.modulation(self.offset(x), self.mask(x))
-        return self.actf(self.conv(x.to(self.dtype), offset, mask))
+        # Kernel E takes contiguous NCHW maps; ``quantized_call``'s int8
+        # convs hand on channels-last ones, and so do convs of them.
+        return self.actf(self.conv(x.to(self.dtype).contiguous(), offset.contiguous(),
+                                   mask.contiguous()))
 
 
 @contextlib.contextmanager

@@ -23,7 +23,16 @@ How each case rounds, as the JAX package computes it:
 - bf16: the same hats, as the Pallas kernel's body
   (``tauv_vision_tpu/ops/pallas/deform_conv._dcn_kernel``, variant
   "full") rounds: the sample rounded to bf16, its product with the bf16
-  weight summed in f32, + the f32 bias, rounded to bf16.
+  weight summed in f32, + the f32 bias, rounded to bf16;
+- ``variant="lerp"`` (a window of R <= 1 only): the Pallas body's
+  variant "lerp", exact where every |offset| <= 1.  On each axis the
+  corners at shifts 0 and sign(d) (+1 at d == 0) from the tap's base,
+  lerp0 = t00 + |dx| (t0s - t00), lerps the same on the row at sign(dy),
+  then lerp0 + |dy| (lerps - lerp0), x mask, every step an f32 op; the
+  sample rounded to x's dtype, then as above.  Past |d| = 1 it would
+  extrapolate from those two corners (weights 1 - |d| < 0 and |d|)
+  where the window drops the corners outside it, so the port takes it
+  only where the offsets are bounded inside it (``dcn_variant``).
 
 ``deform_conv2d`` is the plain version; ``deform_conv2d_cuda`` wraps
 ``csrc/deform_conv.cu`` (kernel E, entry points ``tauv_deform_conv_f32``
@@ -58,6 +67,10 @@ MIN_SPLIT_STEPS = 8     # K steps a split keeps at least
 BACKWARD_RANGE = "deform_conv/backward"
 # The (lo, hi) that tells kernel E "no window": lo at INT_MIN.
 NO_WINDOW = (-2**31, 0)
+# The sampling bodies: the hats (or, with no window, the gather), and the
+# sign-selected lerp of the Pallas kernel, exact for |offset| <= LERP_REACH.
+VARIANTS = ("full", "lerp")
+LERP_REACH = 1.0
 
 
 def _check_shapes(x, offset, mask, weight, bias) -> None:
@@ -135,6 +148,29 @@ def _deform_conv2d_bf16(x, offset, mask, weight, bias):
     return out.to(torch.bfloat16).reshape(b, -1, h, w)
 
 
+def dcn_variant(max_offset: Optional[float], offset_bound: Optional[float]) -> str:
+    """The sampling body a DCN serves with: "lerp" where both the window
+    ``max_offset`` and the tanh bound ``offset_bound`` are set and at most
+    ``LERP_REACH`` (``bench.py --dcn-bound --dcn-max-offset R`` with R <= 1),
+    so that every offset lies where the lerp is exact; else "full".  The
+    JAX package serves "lerp" wherever R <= 1 (``centerpoint_dla.py:515-521``,
+    ``quantize_chain.py:981-992``) and its kernel checks only R, not the
+    offsets: unbounded, an offset past one cell is extrapolated there
+    (ROADMAP, "Known defects on the reference side"), where the port's
+    window drops the corners outside it."""
+    bounded = (max_offset is not None and offset_bound is not None
+               and max_offset <= LERP_REACH and offset_bound <= LERP_REACH)
+    return "lerp" if bounded else "full"
+
+
+def _check_variant(variant: str, max_offset: Optional[float]) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    if variant == "lerp" and (max_offset is None or max_offset > LERP_REACH):
+        raise ValueError(f"the lerp is exact for offsets within {LERP_REACH} only: it needs a "
+                         f"window max_offset <= {LERP_REACH}, got {max_offset}")
+
+
 def window(max_offset: Optional[float]) -> Optional[Tuple[int, int]]:
     """The shifts [lo, hi] from a tap's base that a ``max_offset`` window
     keeps (``tauv_vision_tpu/ops/pallas/deform_conv._window``): the bilinear
@@ -198,28 +234,46 @@ def _window_hats(d: torch.Tensor, lo: int, hi: int):
     return f, weights
 
 
-def _deform_conv2d_window(x, offset, mask, weight, bias, lo: int, hi: int):
-    """The windowed plain version (see ``deform_conv2d``), NCHW in and out:
-    per tap, 8 corners gathered as rows of x's channels, each row's
-    columns summed first (shifts 0, 1, then -1 at weight 0), then the
-    rows, every step an f32 op (the Pallas body's order, and
-    ``deform_conv2d_shift``'s), x mask; bf16 rounds the sample to bf16."""
+def _per_tap(x, offset, mask, weight, bias, sample):
+    """The windowed and lerp plain versions' common frame, NCHW in and out:
+    per tap, ``sample(rows, dy, dx, ry, rx)`` -> f32 [B, P, C] from x's rows
+    (``_rows``), the tap's offsets dy, dx [B, P] f32 and its base rows and
+    columns ry, rx [B, P]; x mask, rounded to x's dtype, its product with
+    the tap's weight summed in f32; + bias, rounded to x's dtype."""
     b, c, h, w = x.shape
     p = h * w
-    bf16 = x.dtype == torch.bfloat16
     rows = _rows(x)
     grid_y = torch.arange(h, dtype=torch.float32, device=x.device) - 1
     grid_x = torch.arange(w, dtype=torch.float32, device=x.device) - 1
-    base_y = grid_y[:, None].expand(h, w).reshape(1, p)
-    base_x = grid_x[None, :].expand(h, w).reshape(1, p)
+    base_y = grid_y[:, None].expand(b, h, w).reshape(b, p)
+    base_x = grid_x[None, :].expand(b, h, w).reshape(b, p)
     out = torch.zeros((b, p, weight.shape[0]), dtype=torch.float32, device=x.device)
     for tap in range(N_TAPS):
         ky, kx = divmod(tap, 3)
-        fy, wy = _window_hats(offset[:, 2 * tap].reshape(b, p).float(), lo, hi)
-        fx, wx = _window_hats(offset[:, 2 * tap + 1].reshape(b, p).float(), lo, hi)
+        sampled = sample(rows, offset[:, 2 * tap].reshape(b, p).float(),
+                         offset[:, 2 * tap + 1].reshape(b, p).float(), base_y + ky, base_x + kx)
+        if mask is not None:
+            sampled = sampled * mask[:, tap].reshape(b, p, 1).float()
+        sampled = sampled.to(x.dtype).float()
+        out = out + torch.einsum("bpc,oc->bpo", sampled, weight[:, :, ky, kx].float())
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype).permute(0, 2, 1).reshape(b, -1, h, w).contiguous()
+
+
+def _deform_conv2d_window(x, offset, mask, weight, bias, lo: int, hi: int):
+    """The windowed plain version (see ``deform_conv2d``): per tap, 8
+    corners gathered as rows of x's channels, each row's columns summed
+    first (shifts 0, 1, then -1 at weight 0), then the rows, every step an
+    f32 op (the Pallas body's order, and ``deform_conv2d_shift``'s)."""
+    h, w = x.shape[2:]
+
+    def sample(rows, dy, dx, ry, rx):
+        fy, wy = _window_hats(dy, lo, hi)
+        fx, wx = _window_hats(dx, lo, hi)
         corner = dict(zip(PAIRS, _corners(
-            rows, torch.stack([base_y + ky + fy + SHIFTS[i] for i, _ in PAIRS]),
-            torch.stack([base_x + kx + fx + SHIFTS[j] for _, j in PAIRS]), h, w)))
+            rows, torch.stack([ry + fy + SHIFTS[i] for i, _ in PAIRS]),
+            torch.stack([rx + fx + SHIFTS[j] for _, j in PAIRS]), h, w)))
         sampled = None
         for i in range(len(SHIFTS)):
             row = None
@@ -229,26 +283,45 @@ def _deform_conv2d_window(x, offset, mask, weight, bias, lo: int, hi: int):
                     row = term if row is None else row + term
             term = row * wy[i][..., None]
             sampled = term if sampled is None else sampled + term
-        if mask is not None:
-            sampled = sampled * mask[:, tap].reshape(b, p, 1).float()
-        if bf16:
-            sampled = sampled.to(torch.bfloat16).float()
-        out = out + torch.einsum("bpc,oc->bpo", sampled, weight[:, :, ky, kx].float())
-    if bias is not None:
-        out = out + bias.float()
-    return out.to(x.dtype).permute(0, 2, 1).reshape(b, -1, h, w).contiguous()
+        return sampled
+
+    return _per_tap(x, offset, mask, weight, bias, sample)
+
+
+def _deform_conv2d_lerp(x, offset, mask, weight, bias):
+    """The plain lerp (``variant="lerp"``): per tap the 4 corners at shifts
+    0 and sign(d) of each axis gathered as rows of x's channels, then the
+    Pallas body's lerps, each step an f32 op."""
+    h, w = x.shape[2:]
+
+    def sample(rows, dy, dx, ry, rx):
+        sy = torch.where(dy < 0, -1.0, 1.0)
+        sx = torch.where(dx < 0, -1.0, 1.0)
+        t00, t0s, ts0, tss = _corners(rows, torch.stack([ry, ry, ry + sy, ry + sy]),
+                                      torch.stack([rx, rx + sx, rx, rx + sx]), h, w)
+        ax, ay = dx.abs()[..., None], dy.abs()[..., None]
+        lerp0 = t00 + ax * (t0s - t00)
+        lerps = ts0 + ax * (tss - ts0)
+        return lerp0 + ay * (lerps - lerp0)
+
+    return _per_tap(x, offset, mask, weight, bias, sample)
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
                   mask: Optional[torch.Tensor], weight: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, *,
-                  max_offset: Optional[float] = None) -> torch.Tensor:
+                  max_offset: Optional[float] = None, variant: str = "full") -> torch.Tensor:
     """Plain version: per tap, the corner gathers, x mask, then a GEMM with
     ``weight[:, :, ky, kx]`` accumulated in f32.  Returns [B, O, H, W] in
     x's dtype; the module docstring says how each case rounds.  With a
     ``max_offset`` window, x's gradient sums in a fixed order on the card
-    (``_corners``); without one, through ``gather``'s scatter-adds."""
+    (``_corners``); without one, through ``gather``'s scatter-adds.
+    ``variant="lerp"`` samples by the Pallas body's lerp and needs a
+    window of at most ``LERP_REACH`` (the caller bounds the offsets)."""
     _check_shapes(x, offset, mask, weight, bias)
+    _check_variant(variant, max_offset)
+    if variant == "lerp":
+        return _deform_conv2d_lerp(x, offset, mask, weight, bias)
     if max_offset is not None:
         return _deform_conv2d_window(x, offset, mask, weight, bias, *window(max_offset))
     if x.dtype == torch.bfloat16:
@@ -310,7 +383,7 @@ def plan(b: int, c: int, h: int, w: int, o: int, dtype, sms: int) -> tuple:
 def deform_conv2d_cuda(x: torch.Tensor, offset: torch.Tensor,
                        mask: Optional[torch.Tensor], weight: torch.Tensor,
                        bias: Optional[torch.Tensor] = None, *,
-                       max_offset: Optional[float] = None,
+                       max_offset: Optional[float] = None, variant: str = "full",
                        taps: Optional[torch.Tensor] = None,
                        launch_plan: Optional[tuple] = None) -> torch.Tensor:
     """Kernel E: ``deform_conv2d`` as one CUDA op.
@@ -325,10 +398,13 @@ def deform_conv2d_cuda(x: torch.Tensor, offset: torch.Tensor,
     ``launch_plan`` is a (BM, BN, splits) other than ``plan``'s, for
     timing.  ``max_offset`` is the plain version's: the kernel reads no
     corner outside the window (and then rounds as the bf16 entry point
-    does, in f32)."""
+    does, in f32).  ``variant="lerp"`` runs the kernel's lerp body, counted
+    in ``kernels.VARIANT_LAUNCHES[("deform_conv", "lerp")]``."""
     _check_shapes(x, offset, mask, weight, bias)
+    _check_variant(variant, max_offset)
     if x.device.type == "cpu":
-        return deform_conv2d(x, offset, mask, weight, bias, max_offset=max_offset)
+        return deform_conv2d(x, offset, mask, weight, bias, max_offset=max_offset,
+                             variant=variant)
     if x.dtype not in DTYPES:
         raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
     b, c, h, w = x.shape
@@ -368,6 +444,7 @@ def deform_conv2d_cuda(x: torch.Tensor, offset: torch.Tensor,
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         None if partial is None else partial.data_ptr(),
         b, c, h, w, o, bm, bn, split, *(window(max_offset) or NO_WINDOW),
+        VARIANTS.index(variant), variant="lerp" if variant == "lerp" else None,
     )
     return out
 
@@ -378,7 +455,8 @@ class _DeformConvFunction(torch.autograd.Function):
     on a CPU one) or the plain version itself, both at ``max_offset``; it
     saves only its inputs.  The backward recomputes the plain version from
     them under ``torch.enable_grad()`` and takes ``torch.autograd.grad`` of
-    it, to x, offset, mask, weight and bias as they need: stock PyTorch
+    it, to x, offset, mask, weight and bias as they need (by the window's
+    hats, whatever the forward's variant): stock PyTorch
     autograd, the counterpart of XLA's autodiff of ``deform_conv2d_shift``
     that the JAX package trains through (it has no backward kernel).  With
     a window its subgradients are shift's (``_window_hats``) and x's
@@ -389,40 +467,45 @@ class _DeformConvFunction(torch.autograd.Function):
     ``torch.profiler`` range ``BACKWARD_RANGE``."""
 
     @staticmethod
-    def forward(ctx, forward, max_offset, x, offset, mask, weight, bias):
+    def forward(ctx, forward, max_offset, variant, x, offset, mask, weight, bias):
         ctx.save_for_backward(x, offset, mask, weight, bias)
         ctx.max_offset = max_offset
-        return forward(x, offset, mask, weight, bias, max_offset=max_offset)
+        return forward(x, offset, mask, weight, bias, max_offset=max_offset, variant=variant)
 
     @staticmethod
     def backward(ctx, grad):
         saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[2:]
+        needs = ctx.needs_input_grad[3:]
         inputs = [None if t is None else t.detach().requires_grad_(n)
                   for t, n in zip(saved, needs)]
         with record_function(BACKWARD_RANGE), torch.enable_grad():
             out = deform_conv2d(*inputs, max_offset=ctx.max_offset)
             wanted = [t for t, n in zip(inputs, needs) if n]
             grads = iter(torch.autograd.grad(out, wanted, grad))
-        return (None, None) + tuple(next(grads) if n else None for n in needs)
+        return (None, None, None) + tuple(next(grads) if n else None for n in needs)
 
 
 def deform_conv2d_train(x: torch.Tensor, offset: torch.Tensor, mask: Optional[torch.Tensor],
                         weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
-                        max_offset: Optional[float] = None,
+                        max_offset: Optional[float] = None, variant: str = "full",
                         taps: Optional[torch.Tensor] = None, plain: bool = False) -> torch.Tensor:
     """``deform_conv2d_cuda`` (``plain``: ``deform_conv2d``) at
-    ``max_offset`` with gradients to every input, the plain version
-    recomputed in the backward (see ``_DeformConvFunction``)."""
+    ``max_offset`` and ``variant`` with gradients to every input, the
+    plain version recomputed in the backward (see ``_DeformConvFunction``)."""
     forward = deform_conv2d if plain else functools.partial(deform_conv2d_cuda, taps=taps)
-    return _DeformConvFunction.apply(forward, max_offset, x, offset, mask, weight, bias)
+    return _DeformConvFunction.apply(forward, max_offset, variant, x, offset, mask, weight, bias)
 
 
 class DeformConv2d(nn.Module):
     """The deformable 3x3 conv of a DCN block: ``weight`` [O, C, 3, 3] and
     ``bias`` [O], the reference's ``DeformConv2d`` parameters, kept f32,
-    and the block's ``max_offset`` window (None: torchvision's unbounded
-    offsets).
+    the block's ``max_offset`` window (None: torchvision's unbounded
+    offsets) and the tanh bound its offsets come through
+    (``offset_bound``, None: none), which pick ``variant``
+    (``dcn_variant``).  A call that autograd does not record (the
+    serving paths, under ``torch.inference_mode``) samples by ``variant``;
+    one it records (a train step) by the window's hats, as JAX trains
+    through ``deform_conv2d_shift`` at every R.
 
     It computes in its input's dtype (f32 or bf16), with the weight cast
     to it (``params.cast_parameter``: made once and kept until the weight
@@ -435,21 +518,28 @@ class DeformConv2d(nn.Module):
     own)."""
 
     def __init__(self, in_channels: int, out_channels: int, impl: str = "kernel",
-                 max_offset: Optional[float] = None):
+                 max_offset: Optional[float] = None, offset_bound: Optional[float] = None):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.impl = impl
         self.max_offset = max_offset
+        self.offset_bound = offset_bound
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         nn.init.normal_(self.weight, 0.0, 1.0 / math.sqrt(9 * in_channels))
 
+    @property
+    def variant(self) -> str:
+        return dcn_variant(self.max_offset, self.offset_bound)
+
     def forward(self, x, offset, mask, impl: Optional[str] = None):
         weight = cast_parameter(self, "weight", x.dtype)
+        variant = "full" if torch.is_grad_enabled() else self.variant
         plain = (impl or self.impl) == "plain"
         taps = None
         if not plain and x.device.type != "cpu":
             taps = cast_parameter(self, "weight", x.dtype, layout=kernel_weights)
         return deform_conv2d_train(x, offset, mask, weight, self.bias,
-                                   max_offset=self.max_offset, taps=taps, plain=plain)
+                                   max_offset=self.max_offset, variant=variant, taps=taps,
+                                   plain=plain)

@@ -36,7 +36,12 @@ old on one card, one after another, to compare two versions.
 instead times kernel E alone at each of ``E_CALLS`` under every launch
 plan it takes (pixel tile, output tile, K splits; ``ops/deform_conv.plan``
 picks one), in both dtypes, one JSON line: the measurements behind
-``plan``'s choices.
+``plan``'s choices.  Its ``e_lerp`` rows time E's lerp body
+(``variant="lerp"``, ``bench.py --dcn-bound --dcn-max-offset 1``) beside
+the full body at R = 1 and at R = 3, bf16 at ``plan``'s launch, on
+offsets bounded as the served block bounds them (``tanh`` of the +-3-cell
+draw, within one cell), with the lerp's plain version; ``e_lerp_ms`` sums
+each column over a forward's 16 calls.
 """
 
 from __future__ import annotations
@@ -143,12 +148,45 @@ def e_plans(dev) -> dict:
     return rows
 
 
+def e_lerp(dev) -> list:
+    """[{shape, o, calls, ms of each body}]: kernel E in bf16 at each
+    E_CALLS shape, the lerp at R = 1, the full body at R = 1 and at R = 3,
+    and the lerp's plain version, on bounded offsets."""
+    rng = np.random.default_rng(1)
+    rows = []
+    for shape, o, n in E_CALLS:
+        x, offset, mask, weight, bias = _e_inputs(rng, shape, o, dev)
+        offset = torch.tanh(offset)
+        xd, md, wd = x.bfloat16(), mask.bfloat16(), weight.bfloat16()
+        taps = deform_conv.kernel_weights(wd)
+        row = {"x": list(shape), "o": o, "calls": n, "flop": 2 * 9 * x.numel() * o}
+        for key, r, variant in (("lerp_r1_ms", 1.0, "lerp"), ("full_r1_ms", 1.0, "full"),
+                                ("full_r3_ms", 3.0, "full")):
+            fn = lambda r=r, v=variant: deform_conv.deform_conv2d_cuda(  # noqa: E731
+                xd, offset, md, wd, bias, max_offset=r, variant=v, taps=taps)
+            fn()
+            row[key] = queued_ms(fn, ITERS // 5)
+        plain = lambda: deform_conv.deform_conv2d(  # noqa: E731
+            xd, offset, md, wd, bias, max_offset=1.0, variant="lerp")
+        plain()
+        row["plain_lerp_ms"] = time_ms(plain, 2)
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
     dev = torch.device("cuda")
     if "--e-plans" in sys.argv[1:]:
-        print(json.dumps({"device": torch.cuda.get_device_name(0), "e_plans": e_plans(dev)}))
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60).stdout.strip()
+        lerp = e_lerp(dev)
+        totals = {key: sum(r[key] * r["calls"] for r in lerp)
+                  for key in ("lerp_r1_ms", "full_r1_ms", "full_r3_ms", "plain_lerp_ms")}
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                          "e_lerp_ms": totals, "e_lerp": lerp, "e_plans": e_plans(dev)}))
         return 0
     rng = np.random.default_rng(0)
     rows = {"a": [], "a_no_peaks": [], "b_nchw": [], "b_nhwc": [], "c_f32": [], "c_bf16": [],

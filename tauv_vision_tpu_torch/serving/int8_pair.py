@@ -1,6 +1,11 @@
 """The pair's int8 profiles of ``bench.py``: ``--parity-int8`` (with its
 ``--mse``, ``--bias-correct`` and ``--seq-correct`` options) and
-``--per-layer-int8`` (``configs.PARITY_INT8``, ``configs.PER_LAYER_INT8``).
+``--per-layer-int8`` (``configs.PARITY_INT8``, ``configs.PER_LAYER_INT8``),
+on the plain-IDA or the DCN CenterNet (``configs.DCN_PARITY_INT8``,
+``configs.DCN_PER_LAYER_INT8``: ``bench.py --deform``).  On the DCN net the
+offset and mask convs stay float, as JAX's merged 27-channel conv escapes
+its interceptor (``weights.centerpoint_calibration_paths``), and the DCN
+itself is kernel E in the CenterNet's float dtype.
 
 ``calibrate_pair`` calibrates the CenterNet and the YOLACT of a recipe on
 uint8 frames as ``bench.py`` does (``bench.py:1412-1511``): each net's own
@@ -55,8 +60,7 @@ from tauv_vision_tpu_torch.serving.quantize import (
 from tauv_vision_tpu_torch.serving.quantize_chain import (
     calibrate_sequential,
     dla34_chain_forward,
-    make_centernet_chain_pipeline,
-    make_yolact_chain_pipeline,
+    make_chain_pair_pipeline,
     yolact_chain_forward,
 )
 from tauv_vision_tpu_torch.weights import (
@@ -134,10 +138,11 @@ def make_int8_pair_pipelines(recipe: Int8PairRecipe, cn: CenterpointDLA34,
     the two requests of ``recipe`` on ``calibrate_pair``'s
     ``calibration``, each preprocessing its own image in
     ``recipe.input_dtype``: the int8 chains
-    (``make_centernet_chain_pipeline``, ``make_yolact_chain_pipeline``,
-    with f32 joins) or, on ``PER_LAYER_INT8``, the models through
-    ``quantized_call``.  ``impl`` picks kernels A, B and C or their plain
-    versions (through ``quantized_call`` kernel C is ``cn``'s own)."""
+    (``make_chain_pair_pipeline``'s two requests, joins in
+    ``recipe.join_dtype``) or, on ``PER_LAYER_INT8``, the models through
+    ``quantized_call``.  ``impl`` picks kernels A, B, C and E or their
+    plain versions (through ``quantized_call`` kernels C and E are
+    ``cn``'s own)."""
     cn_cal, yl_cal = calibration
     dtype = recipe.input_dtype
     if recipe.per_layer:
@@ -145,12 +150,11 @@ def make_int8_pair_pipelines(recipe: Int8PairRecipe, cn: CenterpointDLA34,
         return (make_centernet_pipeline(cn_fwd, cn_config, device, knobs, impl=impl, dtype=dtype),
                 make_yolact_pipeline(quantized_call(yl, yl_cal.scales), yl.config, device, knobs,
                                      impl=impl, dtype=dtype))
-    return (make_centernet_chain_pipeline(cn, cn_config, cn_cal.scales, device, knobs,
-                                          dtype=dtype, impl=impl, gains=cn_cal.gains,
-                                          corrections=cn_cal.corrections),
-            make_yolact_chain_pipeline(yl, yl_cal.scales, device, knobs, dtype=dtype,
-                                       join_dtype=None, impl=impl, gains=yl_cal.gains,
-                                       corrections=yl_cal.corrections))
+    return make_chain_pair_pipeline(
+        cn, cn_config, cn_cal.scales, yl, yl_cal.scales, device, knobs, dtype=dtype,
+        join_dtype=recipe.join_dtype, impl=impl, cn_gains=cn_cal.gains,
+        cn_corrections=cn_cal.corrections, yl_gains=yl_cal.gains,
+        yl_corrections=yl_cal.corrections).requests
 
 
 def calibrate_per_layer(recipe: PerLayerInt8Recipe, cn: CenterpointDLA34,

@@ -13,8 +13,11 @@ the port's default is f32, and a served recipe passes its own
 and the int8 chains' bf16 through ``serving/quantize_chain.py``), but for
 ``make_yolo_pose_pipeline``, whose default is the JAX function's bf16.
 
+``make_pair_pipeline`` serves a pair of forwards as ``bench.py`` times
+them, as two requests or, with ``--fused``, one combined request;
 ``make_float_pair_pipeline`` serves the float profiles of the pair
-(``configs.BF16_PAIR`` and its ladder).
+(``configs.BF16_PAIR`` and its ladder) through it, and
+``serving/quantize_chain.make_chain_pair_pipeline`` the int8 chains.
 
 ``depth_window_z``, ``mask_mean_z`` and ``back_project`` turn decoded
 detections and a depth image into camera-frame 3D points, for the node
@@ -228,6 +231,36 @@ def make_combined_pipeline(cn_forward, cn_model_config: CenternetModelConfig,
     return pipeline
 
 
+def make_pair_pipeline(cn_forward, cn_model_config: CenternetModelConfig, yl_forward,
+                       yl_model_config: YolactModelConfig, device=DEFAULT_DEVICE,
+                       knobs: DecodeKnobs = SERVING_DECODE, impl: str = "kernel",
+                       dtype=torch.float32, yolact_dtype=None, fused: bool = False):
+    """``fn(img_uint8) -> (Detections, YolactDetections)``: the CenterNet
+    forward ``cn_forward`` and the YOLACT forward ``yl_forward`` (models or
+    chain forwards) on the same frames.  Unfused, the two requests
+    ``bench.py`` times (``bench.py:1620-1627``): ``make_centernet_pipeline``
+    on the image in ``dtype``, ``make_yolact_pipeline`` on its own in
+    ``yolact_dtype`` (``dtype`` when None), kept as ``fn.requests``; with
+    ``fused`` (``bench.py --fused``, ``bench.py:1564-1612``), one
+    ``make_combined_pipeline`` that shares the resize, whose one image is
+    in ``dtype``.  Both nets' images are the same resize normalised the
+    same way either way, so where ``yolact_dtype`` is ``dtype`` (or the
+    YOLACT rounds its input to it first) the two equal bit for bit."""
+    if fused:
+        return make_combined_pipeline(cn_forward, cn_model_config, yl_forward, yl_model_config,
+                                      device, knobs, impl, dtype=dtype)
+    requests = (make_centernet_pipeline(cn_forward, cn_model_config, device, knobs, impl,
+                                        dtype=dtype),
+                make_yolact_pipeline(yl_forward, yl_model_config, device, knobs, impl,
+                                     dtype=yolact_dtype or dtype))
+
+    def pipeline(img_uint8):
+        return tuple(request(img_uint8) for request in requests)
+
+    pipeline.requests = requests
+    return pipeline
+
+
 def make_float_pair_pipeline(recipe: FloatPairRecipe, cn, cn_model_config: CenternetModelConfig,
                              yl, device=DEFAULT_DEVICE, knobs: DecodeKnobs = SERVING_DECODE,
                              impl: str = "kernel"):
@@ -235,24 +268,13 @@ def make_float_pair_pipeline(recipe: FloatPairRecipe, cn, cn_model_config: Cente
     profile of the pair (``configs.BF16_PAIR``, its ladder
     ``configs.bf16_pair``) on the CenterNet ``cn`` built from
     ``recipe.centernet`` and the YOLACT ``yl`` built in
-    ``recipe.yolact_dtype``.  Unfused, the two requests ``bench.py`` times
-    (``make_centernet_pipeline`` on the image in ``recipe.input_dtype``,
-    ``make_yolact_pipeline`` on its own), kept as ``fn.requests``; with
-    ``recipe.fused``, one ``make_combined_pipeline`` that shares the
-    resize."""
-    if recipe.fused:
-        return make_combined_pipeline(cn, cn_model_config, yl, yl.config, device, knobs, impl,
-                                      dtype=recipe.input_dtype)
-    requests = (make_centernet_pipeline(cn, cn_model_config, device, knobs, impl,
-                                        dtype=recipe.input_dtype),
-                make_yolact_pipeline(yl, yl.config, device, knobs, impl,
-                                     dtype=recipe.yolact_dtype))
-
-    def pipeline(img_uint8):
-        return tuple(request(img_uint8) for request in requests)
-
-    pipeline.requests = requests
-    return pipeline
+    ``recipe.yolact_dtype``, through ``make_pair_pipeline``: the CenterNet
+    on the image in ``recipe.input_dtype``, the YOLACT on its own in
+    ``recipe.yolact_dtype``, or with ``recipe.fused`` both on the one in
+    ``recipe.input_dtype``."""
+    return make_pair_pipeline(cn, cn_model_config, yl, yl.config, device, knobs, impl,
+                              dtype=recipe.input_dtype, yolact_dtype=recipe.yolact_dtype,
+                              fused=recipe.fused)
 
 
 def depth_window_z(depth_img: torch.Tensor, centers_px: torch.Tensor,

@@ -122,6 +122,7 @@ from tauv_vision_tpu_torch.serving.pipeline import (
     YoloPoseKnobs,
     make_centernet_keypoint_pipeline,
     make_centernet_pipeline,
+    make_pair_pipeline,
     make_yolact_pipeline,
     make_yolo_pose_pipeline,
 )
@@ -856,7 +857,10 @@ def _dcn_block_chain(ctx: ChainCtx, x, path: str) -> torch.Tensor:
     convs as one 27-channel conv with its bias added after the conv's
     rounding, as the JAX block serves them, the tanh bound and the sigmoid
     (``DeformConvBlock.modulation``), the DCN through kernel E or its
-    plain version at the model's window (``DeformConv2d.max_offset``),
+    plain version at the model's window and sampling body
+    (``DeformConv2d.max_offset`` and ``variant``: the lerp where the
+    block's offsets are bounded within one cell, as the JAX chain takes
+    it at R <= 1, ``tauv_vision_tpu/serving/quantize_chain.py:981-992``),
     then flax's BatchNorm and the relu."""
     block = ctx.modules[path]
 
@@ -939,19 +943,44 @@ def make_centernet_chain_pipeline(model: CenterpointDLA34, model_config: Centern
                                   scales: Dict[str, object], device=DEFAULT_DEVICE,
                                   knobs: DecodeKnobs = SERVING_DECODE, *,
                                   dtype=CHAIN_INT8.input_dtype, impl: str = "kernel",
-                                  gains=None, corrections=None):
+                                  gains=None, corrections=None, join_dtype=None):
     """uint8 frames -> ``Detections`` through the chain-int8 DLA-34 forward
     (``make_centernet_pipeline`` with the chain in place of the model, on
-    the image in ``dtype``, which is also the chain's float dtype), f32
-    joins.  The defaults serve ``bench.py --chain-int8``
-    (``configs.CHAIN_INT8``); the model's IDA (plain or DCN) is the
-    chain's.  ``impl`` picks kernels C and E and the decode's kernel A, or
-    their plain versions; ``gains`` and ``corrections`` are
+    the image in ``dtype``, which is also the chain's float dtype), joins
+    in ``join_dtype`` (None: f32; ``bench.py --bf16-joins`` passes bf16 to
+    both chains, ``bench.py:1519,1524``).  The defaults serve ``bench.py
+    --chain-int8`` (``configs.CHAIN_INT8``); the model's IDA (plain or
+    DCN) is the chain's.  ``impl`` picks kernels C and E and the decode's
+    kernel A, or their plain versions; ``gains`` and ``corrections`` are
     ``ChainCtx``'s (``configs.PARITY_INT8``)."""
-    ctx = ChainCtx(model, scales, dtype=dtype, join_dtype=None, impl=impl,
+    ctx = ChainCtx(model, scales, dtype=dtype, join_dtype=join_dtype, impl=impl,
                    path_of=centerpoint_flax_path, gains=gains, corrections=corrections)
     return make_centernet_pipeline(dla34_chain_forward(ctx), model_config, device, knobs,
                                    impl=impl, dtype=dtype)
+
+
+def make_chain_pair_pipeline(cn: CenterpointDLA34, cn_config: CenternetModelConfig,
+                             cn_scales: Dict[str, object], yl: Yolact,
+                             yl_scales: Dict[str, object], device=DEFAULT_DEVICE,
+                             knobs: DecodeKnobs = SERVING_DECODE, *,
+                             dtype=CHAIN_INT8.input_dtype, join_dtype=None,
+                             impl: str = "kernel", fused: bool = False, cn_gains=None,
+                             cn_corrections=None, yl_gains=None, yl_corrections=None):
+    """``fn(img_uint8) -> (Detections, YolactDetections)``: the CenterNet
+    chain and the YOLACT chain of an int8-chain profile, both in ``dtype``
+    on the image in ``dtype`` with joins in ``join_dtype``, through
+    ``pipeline.make_pair_pipeline``: two requests (``fn.requests``, each
+    what ``make_centernet_chain_pipeline`` and ``make_yolact_chain_pipeline``
+    serve), or with ``fused`` (``bench.py --fused`` on a chain profile,
+    ``bench.py:1564-1612``) one combined request that shares the resize,
+    equal to the two bit for bit."""
+    cn_ctx = ChainCtx(cn, cn_scales, dtype=dtype, join_dtype=join_dtype, impl=impl,
+                      path_of=centerpoint_flax_path, gains=cn_gains, corrections=cn_corrections)
+    yl_ctx = ChainCtx(yl, yl_scales, dtype=dtype, join_dtype=join_dtype, impl=impl,
+                      gains=yl_gains, corrections=yl_corrections)
+    return make_pair_pipeline(dla34_chain_forward(cn_ctx), cn_config,
+                              yolact_chain_forward(yl_ctx), yl.config, device, knobs, impl,
+                              dtype=dtype, fused=fused)
 
 
 def make_centernet_keypoint_chain_pipeline(model: CenterpointDLA34,

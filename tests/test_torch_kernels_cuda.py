@@ -14,7 +14,10 @@ exact bf16 products in another order), its copies exact; deformable conv
 in f32 rtol = atol = 1e-4 (9 C f32 products an output, up to 4,608 at the
 served shapes, summed in another order than the plain per-tap GEMMs, on
 3xTF32 products), in bf16 one bf16 ulp plus the f32 accumulation-order
-term (``assert_dcn_close``), at the 7 served shapes and a ragged tile.
+term (``assert_dcn_close``), at the 7 served shapes and a ragged tile;
+its lerp body (``variant="lerp"``, ``bench.py --dcn-bound`` at R <= 1)
+by the same bars, on offsets bounded by ``R tanh`` and at exactly 0 and
++-1, at R = 1 and 0.5.
 Exact: the int8 transposed conv (integer sums, the same fused
 multiply-add epilogue; at the served shapes and at ragged column and
 channel tiles), the chain's integer conv core against the
@@ -352,6 +355,57 @@ def test_torch_deform_conv_kernel_every_plan_on_card(cuda, dtype):
             assert_dcn_close(got, want, c)
 
 
+def _lerp_inputs(case, r, b, c, o, h, w, dtype):
+    """``_dcn_inputs("block", ...)`` with the offsets the lerp serves:
+    ``bounded``, the block's through ``r tanh(offset / r)`` as
+    ``DeformConvBlock.offset_bound`` squashes them; ``integral``, each of
+    -1, 0 and +1 (the sign's tie at 0, the far corner at 1);
+    ``no_mask``, bounded and no mask."""
+    x, offset, mask, weight, bias = _dcn_inputs("block", b, c, o, h, w, dtype)
+    if case == "integral":
+        rng = np.random.default_rng(12)
+        offset = torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], offset.shape).astype(np.float32))
+    else:
+        offset = r * torch.tanh(offset / r)
+    return x, offset, None if case == "no_mask" else mask, weight, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["bounded", "integral", "no_mask"])
+@pytest.mark.parametrize("r", [1.0, 0.5])
+@pytest.mark.parametrize("b,c,o,h,w", DCN_SHAPES, ids=lambda v: str(v))
+def test_torch_deform_conv_lerp_kernel_on_card(cuda, r, case, b, c, o, h, w, dtype):
+    cpu_args = _lerp_inputs(case, r, b, c, o, h, w, dtype)
+    args = [None if a is None else a.to(cuda) for a in cpu_args]
+    want = deform_conv2d(*args, max_offset=r, variant="lerp")
+    before = kernels.VARIANT_LAUNCHES.get(("deform_conv", "lerp"), 0)
+    got = deform_conv2d_cuda(*args, max_offset=r, variant="lerp")
+    torch.cuda.synchronize()
+    assert kernels.VARIANT_LAUNCHES[("deform_conv", "lerp")] == before + 1
+    assert_dcn_close(got, want, c)
+    assert_dcn_close(got.cpu(), deform_conv2d(*cpu_args, max_offset=r, variant="lerp"), c)
+    assert torch.equal(deform_conv2d_cuda(*args, max_offset=r, variant="lerp"), got)
+    if dtype == torch.float32:
+        # Where every offset lies within a cell the window's hats compute
+        # the same bilinear samples, rounded otherwise in f32 (in bf16 a
+        # sample may round to the neighbouring bf16 number).
+        assert_dcn_close(deform_conv2d_cuda(*args, max_offset=r), got, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_torch_deform_conv_lerp_kernel_every_plan_on_card(cuda, dtype):
+    b, c, o, h, w = 2, 256, 64, 23, 40
+    args = [None if a is None else a.to(cuda)
+            for a in _lerp_inputs("bounded", 1.0, b, c, o, h, w, dtype)]
+    want = deform_conv2d(*args, max_offset=1.0, variant="lerp")
+    for bm in (64, 128):
+        for split in (1, 2, 4, 8):
+            got = deform_conv2d_cuda(*args, max_offset=1.0, variant="lerp",
+                                     launch_plan=(bm, 64, split))
+            torch.cuda.synchronize()
+            assert_dcn_close(got, want, c)
+
+
 def _codes(shape, seed):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
@@ -537,6 +591,10 @@ def test_torch_kernel_wrappers_reject_bad_input(cuda):
         deform_conv2d_cuda(*(a.to(cuda) for a in _dcn_inputs("block", 1, 48, 8, 6, 7)))
     with pytest.raises(ValueError):   # O = 320, above 256
         deform_conv2d_cuda(*(a.to(cuda) for a in _dcn_inputs("block", 1, 32, 320, 6, 7)))
+    with pytest.raises(ValueError):   # the lerp is exact within one cell only
+        deform_conv2d_cuda(x, offset, mask, weight, bias, max_offset=3.0, variant="lerp")
+    with pytest.raises(ValueError):
+        deform_conv2d_cuda(x, offset, mask, weight, bias, variant="lerp")
     with pytest.raises(ValueError):   # f = 3 does not divide the kernel's 8-output run
         depthwise_upsample_cuda(x, torch.ones(4, 1, 6, 6, device=cuda), 3)
     q, qk = _codes((1, 4, 5, 32), 18).to(cuda), _codes((3, 3, 32, 8), 19).to(cuda)

@@ -221,12 +221,15 @@ class ChainRecorder:
     difference from JAX's over JAX's largest magnitude.  With
     ``from_jax="all"`` every layer returns JAX's output, and the codes in
     which the port's own int8 outputs differ are counted in
-    ``code_diffs``.  A port run must follow a JAX run of the same input;
-    ``clear()`` between pairs."""
+    ``code_diffs``.  ``substitutes(path)``, when given, limits either to
+    the paths it accepts (a DCN net's trunk, so that the port's own DCN
+    blocks and heads run on from equal inputs).  A port run must follow a
+    JAX run of the same input; ``clear()`` between pairs."""
 
-    def __init__(self, jax_chain, port_chain, stem: str, from_jax=None):
+    def __init__(self, jax_chain, port_chain, stem: str, from_jax=None, substitutes=None):
         self.jax_chain, self.port_chain, self.stem = jax_chain, port_chain, stem
         self.from_jax = from_jax
+        self.substitutes = substitutes or (lambda path: True)
         self.clear()
 
     def clear(self):
@@ -268,7 +271,7 @@ class ChainRecorder:
                 self.stems[side] = self._numpy(y)
                 if side == "port":
                     y = torch.from_numpy(self.stems["jax"].copy()).to(y.dtype)
-            elif side == "port" and (self.from_jax == "all" or (
+            elif side == "port" and self.substitutes(path) and (self.from_jax == "all" or (
                     self.from_jax == "float" and path not in ctx.scales)):
                 y = self._substitute(ctx, path, key, y)
             maps[key] = self._numpy(y)
