@@ -323,16 +323,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    on one forward's heads kernel A against plain, equal; its request at
    batch 16 beside the bf16 ``keypoints`` request;
 17. quantize_accuracy: ``scripts/quantize_accuracy_check.py`` through its
-   functions and ``main``: the bf16 plain-IDA DLA-34 trained at the
-   script's defaults (300 steps, batch 16, 640x360; the losses finite and
-   the last logged below half the first), ``--save-model`` then
+   functions and ``main``: the bf16 plain-IDA DLA-34 trained ``QA_STEPS``
+   steps (the script's 300; batch 16, 640x360; the losses finite and the
+   last logged below half the first), ``--save-model`` then
    ``--load-model`` into a fresh net whose decode of a batch is bit-equal;
-   then on those weights, each cut in depth (the evaluation set 8 batches
+   then on those weights, each cut in depth (the evaluation set 4 batches
    of 16, not 32; 200 bootstrap resamples, not 1,000): the default mode
    (AP@0.5 with intervals of bf16, per-layer int8 and the chain), a sweep
    over one rung of each recipe (``QA_SWEEP``), the f32 reference's rungs
    (``QA_F32_SWEEP``), a keypoint rung on a keypoint net trained 100
-   steps, and QAT (20 steps, ``--qat-save``, then ``--qat-load`` giving
+   steps, and QAT (10 steps, ``--qat-save``, then ``--qat-load`` giving
    the same numbers); A and C counted over those runs.  The asymmetric
    and GPTQ chains on the kernels against the plain versions (every
    int8 code equal, the decodes slot for slot), ``calibrate_gptq`` on the
@@ -350,7 +350,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``dcn_north_star_r1_bound`` forward against its plain version in bf16
    and f32, timed (its ``kernels`` row) beside the full body at R = 1
    and R = 3; each path at batch 32 (two requests, or the combined one),
-   2 repetitions, with its device busy time and idle share.
+   2 repetitions, with its device busy time and idle share;
+19. trained_weights: ``scripts/yolact_parity_check.py`` and
+   ``scripts/dcn_offset_stats.py`` through their ``main``: the served
+   YOLACT trained ``TW_YL_STEPS`` steps (the script's 300; batch 8,
+   640x360; the losses finite and the last logged below the first), then its
+   ``LADDER`` against the bf16 net and its f32 rungs against the f32 net
+   on those weights (``--save-model`` then ``--load-model``), the
+   evaluation set cut to ``TW_EVAL_BATCHES`` batches of 16 (the
+   script's 32); the ``int8T`` row equal to ``pc+outputs+head``'s key for
+   key (the rung is a no-op, as in JAX), ``flax-bf16`` against the bf16
+   net 1.0 matched with every delta 0, kernel B's decode of the served
+   rung against its plain version; then the bf16 DCN DLA-34 with
+   unbounded offsets trained ``TW_DCN_STEPS`` steps (the script's 200)
+   with the offset penalty and without (losses finite, the penalty term
+   falling from its peak on the regularised run, 0 on the other), its
+   |offset| distribution's count equal to the sown elements; B, C and E
+   counted over the runs, D and E's lerp not launched.
 
 Each phase prints its seconds, and the script its total.
 
@@ -369,6 +385,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -440,7 +457,7 @@ from tauv_vision_tpu_torch.data.synthetic import (
     write_square_pose_dataset,
     write_square_seg_dataset,
 )
-from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
+from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34, sow_dcn_offsets
 from tauv_vision_tpu_torch.models.yolact import Yolact, YolactPrediction
 from tauv_vision_tpu_torch.models.yolo_pose import YoloPose, YoloPosePrediction
 from tauv_vision_tpu_torch.ops.anchors import fpn_level_sizes, get_all_anchors
@@ -468,7 +485,9 @@ from tauv_vision_tpu_torch.scripts import (
     train_yolact,
     train_yolo_pose,
 )
+from tauv_vision_tpu_torch.scripts import dcn_offset_stats as dos
 from tauv_vision_tpu_torch.scripts import quantize_accuracy_check as qac
+from tauv_vision_tpu_torch.scripts import yolact_parity_check as ypc
 from tauv_vision_tpu_torch.scripts.kernel_times import queued_ms, time_ms
 from tauv_vision_tpu_torch.serving import quantize_chain
 from tauv_vision_tpu_torch.serving.centernet_decode import (
@@ -5614,13 +5633,14 @@ def keypoints_per_layer_phase(kp_net, kp_scales, card):
 
 # ---- phase 17: quantize_accuracy ----------------------------------------
 
-# scripts/quantize_accuracy_check.py on the card: its training at its
-# defaults, then its modes on the trained weights, each cut in depth (the
+# scripts/quantize_accuracy_check.py on the card: its training, then its
+# modes on the trained weights, each cut in depth (the training, the
 # evaluation set, the bootstrap, the keypoint net's training, QAT).
-QA_EVAL_BATCHES = 8       # of 16 frames: 128 images (the script's 32: 512)
+QA_STEPS = 150            # the training's steps (the script's 300)
+QA_EVAL_BATCHES = 4       # of 16 frames: 64 images (the script's 32: 512)
 QA_BOOTSTRAP = 200        # resamples (the script's 1,000)
 QA_KP_STEPS = 100         # the keypoint net's training steps (300)
-QA_QAT_STEPS = 20         # --qat-steps (the script's default: none)
+QA_QAT_STEPS = 10         # --qat-steps (the script's default: none)
 QA_SWEEP = ("pc+none", "pc+bf16heads+early01+updown", "mse+bf16heads+early0123+updown",
             "seqmean+bf16heads+early01+updown", "seq+bf16heads+early01+updown",
             "pc+early0123+updown+margin1.25", "asym+early0123+updown",
@@ -5795,7 +5815,7 @@ def quantize_accuracy_phase(card):
 def _quantize_accuracy_runs(card, tmp):
     t0 = time.perf_counter()
     device = torch.device("cuda")
-    args = qac.parser().parse_args([])
+    args = qac.parser().parse_args(["--steps", str(QA_STEPS)])
     s = qac.setup(args)
     weights = tmp / "trained.pkl"
     logs = []
@@ -6170,6 +6190,216 @@ def dcn_profiles_phase(nets, cn_cfg, yl, yl_cfg, chains, yl_scales, yl_bf16, car
     return served, lerp[0], lerp[1]
 
 
+# ---- phase 19: trained_weights ------------------------------------------
+
+# scripts/yolact_parity_check.py and scripts/dcn_offset_stats.py on the
+# card, each cut in depth: the YOLACT's evaluation set, the DCN trainings.
+TW_YL_STEPS = 100         # the YOLACT's training steps (the script's 300)
+TW_EVAL_BATCHES = 4       # of 16 frames: 64 images (the script's 32: 512)
+TW_DCN_STEPS = 30         # each DCN training's steps (the script's 200)
+TW_DCN_LOG_EVERY = 5      # the DCN runs' log lines (the script's 25)
+TW_F32_RUNGS = ("flax-bf16", "pc+f32head", "float+f32head")
+TW_SERVED = "pc+outputs+head"
+TW_INT8T = "pc+outputs+head+int8T"
+
+
+class _TimedLines(io.StringIO):
+    """A stdout that keeps the seconds since ``start`` at which each line
+    ended, beside the line."""
+
+    def __init__(self, start: float):
+        super().__init__()
+        self.start, self.stamps = start, []
+
+    def write(self, text):
+        for _ in range(text.count("\n")):
+            self.stamps.append(time.perf_counter() - self.start)
+        return super().write(text)
+
+
+def run_main(main, argv):
+    """(``main(argv, device="cuda")``'s result, its stdout lines, each
+    line's seconds since the call, its seconds); the lines are printed
+    too."""
+    torch.cuda.synchronize()
+    out = _TimedLines(time.perf_counter())
+    with contextlib.redirect_stdout(out):
+        result = main(argv, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - out.start
+    print(out.getvalue(), end="", flush=True)
+    return result, out.getvalue().splitlines(), out.stamps, seconds
+
+
+def seconds_at(lines, stamps, prefix):
+    """The seconds at which the first line starting with ``prefix`` ended."""
+    return next(t for line, t in zip(lines, stamps) if line.startswith(prefix))
+
+
+def logged(lines, key):
+    """The ``key=`` values of the log lines that carry one."""
+    return [float(line.split(f"{key}=")[1].split()[0]) for line in lines if f"{key}=" in line]
+
+
+def check_yolact_ladder(bf16, f32, lines):
+    """The gates on the YOLACT script's two runs (see the module
+    docstring)."""
+    losses = logged(lines, "total")
+    require(len(losses) == math.ceil(TW_YL_STEPS / ypc.LOG_EVERY)
+            and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"trained_weights yolact: train losses {losses}")
+    rows = {r["name"]: r for r in bf16["sweep"]}
+    require(list(rows) == [entry[0] for entry in ypc.LADDER],
+            f"trained_weights yolact: rungs {list(rows)}")
+    served, int8t = rows[TW_SERVED], rows[TW_INT8T]
+    require({k: v for k, v in int8t.items() if k != "name"}
+            == {k: v for k, v in served.items() if k != "name"},
+            f"trained_weights yolact: {TW_INT8T} {int8t} differs from {TW_SERVED} {served}")
+    flax = rows["flax-bf16"]
+    deltas = {k: v for k, v in flax.items() if "_delta_" in k}
+    require(flax["total"] > 0 and flax["matched_fraction"] == 1.0 and deltas
+            and all(v == 0 for v in deltas.values()) and flax.get("mask_iou_mean", 1.0) == 1.0,
+            f"trained_weights yolact: flax-bf16 against the bf16 net {flax}")
+    for result in (bf16, f32):
+        for r in result["sweep"]:
+            require(r["total"] > 0 and 0 < r["matched_fraction"] <= 1,
+                    f"trained_weights yolact: rung {r['name']} {r}")
+    require([r["name"] for r in f32["sweep"]] == [n for n, *_ in ypc.LADDER if n in TW_F32_RUNGS],
+            f"trained_weights yolact: f32 rungs {[r['name'] for r in f32['sweep']]}")
+    return losses
+
+
+def check_yolact_decode_kernel(weights, card):
+    """Kernel B's decode of the served rung on the trained weights against
+    its plain version, on the first evaluation batch: every field but the
+    masks equal, the masks within ``MASK_ATOL``."""
+    cfg, square = ypc.model_config(), ypc.square_config()
+    model = ypc.load_model(weights, cfg, torch.device("cuda"))
+    img, _ = generate_square_seg_batch(np.random.default_rng(ypc.EVAL_SEED), ypc.EVAL_BATCH,
+                                       square)
+    frames = torch.from_numpy((np.clip(img, 0, 1) * 255).astype(np.uint8)).cuda()
+    scales = calibrate(model, [ypc.image(frames[:16])], per_channel=True)
+    entry = next(e for e in ypc.LADDER if e[0] == TW_SERVED)
+    forward, _ = ypc.rung_forward(model, scales, entry)
+    with torch.inference_mode():
+        prediction = forward(ypc.image(frames))
+        dets = {impl: decode_yolact(prediction, cfg, ypc.TOP_K, ypc.IOU_THRESHOLD,
+                                    ypc.CONFIDENCE_THRESHOLD, impl=impl)
+                for impl in ("kernel", "plain")}
+    for name in ("valid", "score", "label", "box"):
+        require(torch.equal(getattr(dets["kernel"], name), getattr(dets["plain"], name)),
+                f"trained_weights yolact: decode {name} kernel B vs plain")
+    err = float((dets["kernel"].mask - dets["plain"].mask).abs().max())
+    require(err <= MASK_ATOL, f"trained_weights yolact: masks kernel B vs plain {err}")
+    print(f"check trained_weights {TW_SERVED} decode of {frames.shape[0]} frames kernel B vs plain: "
+          f"{int(dets['kernel'].valid.sum())} detections, fields equal, masks max_abs_err {err:.3g} "
+          f"(bar {MASK_ATOL}) ({card})")
+    return err
+
+
+def sown_elements(batch):
+    """The offset elements that the DCN blocks of a forward of ``batch``
+    frames sow, counted on a fresh net of the script's."""
+    model = dos.build_model(dos.object_config(), torch.device("cuda")).eval()
+    img = torch.zeros((batch, 3, dos.IN_H, dos.IN_W), device="cuda")
+    with torch.inference_mode(), sow_dcn_offsets(model) as offsets:
+        model(img)
+        return sum(o.numel() for o in offsets)
+
+
+def check_dcn_offsets(result, lines, args):
+    """The gates on the DCN script's run (see the module docstring);
+    returns the regularised run's penalty trajectory."""
+    runs = {}
+    for line in lines:
+        if line.startswith("lam="):
+            lam = line.split()[0]
+            runs.setdefault(lam, []).append(line)
+    require(list(runs) == [f"lam={args.lambda_dcn}", "lam=0.0"],
+            f"trained_weights dcn: runs {list(runs)}")
+    penalty = logged(runs[f"lam={args.lambda_dcn}"], "dcn_offset")
+    for lam, run in runs.items():
+        losses = logged(run, "total")
+        require(len(losses) == len(range(0, args.steps, TW_DCN_LOG_EVERY))
+                + ((args.steps - 1) % TW_DCN_LOG_EVERY != 0)
+                and all(math.isfinite(v) for v in losses), f"trained_weights dcn: {lam} {losses}")
+    require(all(v == 0.0 for v in logged(runs["lam=0.0"], "dcn_offset")),
+            "trained_weights dcn: a penalty term without the penalty")
+    require(max(penalty) > 0 and penalty[-1] < max(penalty),
+            f"trained_weights dcn: the penalty term does not fall: {penalty}")
+    n = sown_elements(args.batch_size) * args.eval_batches
+    for run in ("regularized", "unregularized"):
+        stats = result[run]
+        require(stats["n"] == n and math.isfinite(stats["final_loss"]),
+                f"trained_weights dcn: {run} {stats}, {n} offsets sown")
+    return penalty
+
+
+def trained_weights_phase(card):
+    """``scripts/yolact_parity_check.py`` and ``scripts/dcn_offset_stats.py``
+    (see the module docstring); returns the launches (by kernel, by entry
+    point, by variant) of the scripts' runs.  The weight file lives in a
+    temporary directory that is removed whether the phase passes or
+    fails."""
+    with tempfile.TemporaryDirectory(prefix="trained_weights_") as tmp:
+        return _trained_weights_runs(card, pathlib.Path(tmp) / "yolact.pkl")
+
+
+def _trained_weights_runs(card, weights):
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    eval_argv = ["--eval-batches", str(TW_EVAL_BATCHES)]
+    bf16, lines, stamps, yl_s = run_main(ypc.main, eval_argv + [
+        "--steps", str(TW_YL_STEPS), "--save-model", str(weights)])
+    yl_train_s = seconds_at(lines, stamps, "decoding")
+    f32, _, _, f32_s = run_main(ypc.main, eval_argv + ["--load-model", str(weights),
+                                                       "--baseline", "f32", "--rungs",
+                                                       *TW_F32_RUNGS])
+    log_every = dos.LOG_EVERY
+    dos.LOG_EVERY = TW_DCN_LOG_EVERY
+    try:
+        dcn_argv = ["--steps", str(TW_DCN_STEPS)]
+        dcn, dcn_lines, dcn_stamps, dcn_s = run_main(dos.main, dcn_argv)
+    finally:
+        dos.LOG_EVERY = log_every
+    torch.cuda.synchronize()
+    launches = (dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES),
+                dict(kernels.VARIANT_LAUNCHES))
+    by_kernel, by_entry, by_variant = launches
+    require(by_kernel["mask_assembly"] > 0 and by_entry["tauv_depthwise_upsample_bf16"] > 0
+            and by_entry["tauv_deform_conv_bf16"] > 0 and by_kernel["transpose_conv"] == 0
+            and by_variant.get(("deform_conv", "lerp"), 0) == 0,
+            f"trained_weights: launches {by_kernel}, {by_entry}, {by_variant}")
+    losses = check_yolact_ladder(bf16, f32, lines)
+    penalty = check_dcn_offsets(dcn, dcn_lines, dos.parser().parse_args(dcn_argv))
+    err = check_yolact_decode_kernel(weights, card)
+    print(f"trained_weights yolact table (trained YOLACT, {bf16['n_eval_images']} images, "
+          f"against the bf16 net; {card}):")
+    for label, result in (("bf16", bf16), ("f32", f32)):
+        for r in result["sweep"]:
+            print(f"  vs {label} {r['name']}: {r['int8_convs']} int8 convs, matched "
+                  f"{r['matched_fraction']} of {r['total']}, score p95 "
+                  f"{r.get('score_delta_p95')}, center p95 {r.get('center_delta_p95')}, size "
+                  f"p95 {r.get('size_delta_p95')}, mask p95 {r.get('mask_delta_p95')}, mask IoU "
+                  f"{r.get('mask_iou_mean')}, <= 1e-3 {r.get('all_deltas_le_1e3')}")
+    print(f"trained_weights yolact: {TW_YL_STEPS} steps, losses every {ypc.LOG_EVERY} steps "
+          f"{losses}")
+    print(f"trained_weights dcn offsets ({TW_DCN_STEPS} steps at batch "
+          f"{dos.parser().parse_args([]).batch_size}, {card}): regularized "
+          f"{json.dumps(dcn['regularized'])}; unregularized {json.dumps(dcn['unregularized'])}; "
+          f"the penalty term every {TW_DCN_LOG_EVERY} steps {penalty}")
+    dcn_run_s = seconds_at(dcn_lines, dcn_stamps, "training unregularized")
+    print(f"time trained_weights (s): yolact train {yl_train_s:.1f} "
+          f"({yl_train_s * 1000 / TW_YL_STEPS:.1f} ms a step at batch "
+          f"{ypc.parser().parse_args([]).batch_size}, the host's painting included), its "
+          f"calibration and ladder {yl_s - yl_train_s:.1f}, f32 rungs {f32_s:.1f}, dcn two "
+          f"trainings + stats {dcn_s:.1f} (the regularised run and its stats {dcn_run_s:.1f}, "
+          f"{dcn_run_s * 1000 / TW_DCN_STEPS:.1f} ms a step with them); kernel launches "
+          f"{by_kernel}; B kernel vs plain masks max_abs_err {err:.3g} ({card})")
+    lap("trained_weights", t0)
+    return launches
+
+
 def _first_path(paths):
     return paths if paths is None or isinstance(paths, str) else paths[0]
 
@@ -6263,7 +6493,9 @@ def main(argv=None) -> int:
         dcn_served, errs["deform_conv_lerp"], times["deform_conv_lerp"] = dcn_profiles_phase(
             nets, cn_cfg, yl, yl_cfg, chains, chain_yl_scales, yl_bf16, card)
     served.update(dcn_served)
-    all_paths = ALL_PATHS + tuple(DCN_PROFILES)
+    with phase("trained_weights"):
+        served["trained_weights"] = trained_weights_phase(card)
+    all_paths = ALL_PATHS + tuple(DCN_PROFILES) + ("trained_weights",)
 
     def launches(path, row):
         kernel, entry = ROWS[row]

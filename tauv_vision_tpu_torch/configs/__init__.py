@@ -79,6 +79,7 @@ __all__ = [
     "HOST_IO",
     "HostIoRecipe",
     "INT8_CHAIN_YOLACT",
+    "INT8_TRANSPOSES",
     "KEYPOINTS",
     "KEYPOINTS_PER_LAYER_INT8",
     "ObjectConfig",
@@ -236,8 +237,10 @@ NORTH_STAR = ServedRecipe(
 )
 
 # The int8 chain with the two protonet upsamples int8 in and out through
-# kernel D, their scales added to the calibrated ones: the rung of
-# ``bench.py --int8-transpose pallas``, served by the ``int8_chain`` path.
+# kernel D, their scales added to the calibrated ones, served by the
+# ``int8_chain`` path.  It is not what ``bench.py --int8-transpose pallas``
+# serves: ``bench.py`` adds no upsample scale, so the JAX chain keeps the
+# bf16 transposes there (``int8_knobs``).
 INT8_CHAIN_YOLACT = replace(NORTH_STAR.yolact, int8_transposes=True)
 
 # ``bench.py --deform --north-star`` (``bench.py:1350,1358,1578-1596``):
@@ -596,20 +599,36 @@ HOST_IO = HostIoRecipe(pair=CHAIN_INT8, batch=32, n_batches=8, prefetch=2, raw_r
                        png_reps=1, mask_threshold=0.5, frame_hw=(480, 640))
 
 
+# ``bench.py --int8-transpose``'s values (``bench.py:1391-1402``).
+INT8_TRANSPOSES = ("off", "xla", "phase-xla", "pallas")
+
+
 def int8_knobs(recipe, bf16_joins: bool = False,
-               bf16_tail: Optional[Tuple[str, ...]] = None):
-    """``bench.py --bf16-joins`` and ``--bf16-tail S1,...`` on an int8-chain
-    profile (``bench.py:1373-1377,1404-1417``).  ``--bf16-joins`` rounds both
-    chains' joins to bf16: on a chain pair (``CHAIN_INT8``,
-    ``DCN_CHAIN_INT8``) the YOLACT's ``join_dtype``, which the pair's
-    CenterNet chain takes too, on ``PARITY_INT8`` and its forms
-    ``Int8PairRecipe.join_dtype``.  ``--bf16-tail`` replaces the parity
-    profile's CenterNet float paths, and the YOLACT's follow
-    (``yolact_bf16_tail``).  Raises where ``bench.py`` ignores a knob: the
-    tail off the parity profile, either on ``--per-layer-int8``."""
+               bf16_tail: Optional[Tuple[str, ...]] = None, int8_transpose: str = "off"):
+    """``bench.py --bf16-joins``, ``--bf16-tail S1,...`` and
+    ``--int8-transpose`` on an int8-chain profile (``bench.py:1373-1377,
+    1391-1417``).  ``--bf16-joins`` rounds both chains' joins to bf16: on a
+    chain pair (``CHAIN_INT8``, ``DCN_CHAIN_INT8``) the YOLACT's
+    ``join_dtype``, which the pair's CenterNet chain takes too, on
+    ``PARITY_INT8`` and its forms ``Int8PairRecipe.join_dtype``.
+    ``--bf16-tail`` replaces the parity profile's CenterNet float paths, and
+    the YOLACT's follow (``yolact_bf16_tail``).  ``--int8-transpose`` (one
+    of ``INT8_TRANSPOSES``) changes no recipe: the JAX chain takes its int8
+    transpose only for a transposed conv with a scale
+    (``tauv_vision_tpu/serving/quantize_chain.py:303-311``), and
+    ``bench.py`` serves ``calibrate``'s scales, which hold none
+    (``tauv_vision_tpu/serving/quantize.py:40-45``), so every value serves
+    the bf16 transposes; the port's kernel D serves ``INT8_CHAIN_YOLACT``,
+    whose two upsample scales are added.  Raises where ``bench.py`` ignores
+    a knob: the tail off the parity profile, any of them on
+    ``--per-layer-int8``."""
+    if int8_transpose not in INT8_TRANSPOSES:
+        raise ValueError(f"--int8-transpose takes one of {INT8_TRANSPOSES}, got "
+                         f"{int8_transpose!r}")
     if isinstance(recipe, Int8PairRecipe):
         if recipe.per_layer:
-            raise ValueError("--bf16-joins and --bf16-tail reach only the chain profiles")
+            raise ValueError("--bf16-joins, --bf16-tail and --int8-transpose reach only the "
+                             "chain profiles")
         if bf16_joins:
             recipe = replace(recipe, join_dtype=torch.bfloat16)
         if bf16_tail is not None:

@@ -11,11 +11,13 @@ the protonet's transposed-conv ``[kh, kw, Cin, Cout]`` ->
 ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``).
 The port never needs JAX for this.
 
-``centerpoint_flax_from_state_dict`` is the CenterNet's way back, and
+``centerpoint_flax_from_state_dict``, ``yolact_flax_from_state_dict`` and
+``yolo_pose_flax_from_state_dict`` are the ways back, and
 ``read_flax_variables`` / ``write_flax_variables`` read and write such a
 tree as the pickle of the JAX package's
-``scripts/quantize_accuracy_check.py --save-model``, so that weights
-trained in either stack load in the other.
+``scripts/quantize_accuracy_check.py`` and ``scripts/yolact_parity_check.py``
+``--save-model``, so that weights trained in either stack load in the
+other.
 """
 
 from __future__ import annotations
@@ -244,14 +246,20 @@ def yolact_flax_path(name: str) -> str:
     raise ValueError(f"unrecognised YOLACT module {name}")
 
 
+def _protonet_upsample(path: Path) -> bool:
+    """Whether a flax module path is one of the protonet's transposed
+    convs, whose kernels are ``[kh, kw, Cin, Cout]`` in both stacks'
+    order ``_HWIO_TO_TRANSPOSED``."""
+    return path[0] == "protonet" and path[1].startswith("upsample")
+
+
+def _yolact_transpose_of(path: Path) -> tuple:
+    return _HWIO_TO_TRANSPOSED if _protonet_upsample(path) else _HWIO_TO_OIHW
+
+
 def yolact_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """``Yolact`` weights -> the port's ``Yolact`` state dict."""
-    return _convert(
-        variables, _yolact_name,
-        transpose_of=lambda p: (_HWIO_TO_TRANSPOSED
-                                if p[0] == "protonet" and p[1].startswith("upsample")
-                                else _HWIO_TO_OIHW),
-    )
+    return _convert(variables, _yolact_name, transpose_of=_yolact_transpose_of)
 
 
 # The YOLO-Pose trunk, FPN and protonet are the YOLACT's under the JAX
@@ -301,12 +309,7 @@ def yolo_pose_flax_path(name: str) -> str:
 
 def yolo_pose_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """``YoloPose`` weights -> the port's ``YoloPose`` state dict."""
-    return _convert(
-        variables, _yolo_pose_name,
-        transpose_of=lambda p: (_HWIO_TO_TRANSPOSED
-                                if p[0] == "protonet" and p[1].startswith("upsample")
-                                else _HWIO_TO_OIHW),
-    )
+    return _convert(variables, _yolo_pose_name, transpose_of=_yolact_transpose_of)
 
 
 _OIHW_TO_HWIO = (2, 3, 1, 0)
@@ -321,14 +324,17 @@ def _put(tree: dict, path: str, leaf: str, value: np.ndarray) -> None:
     node[leaf] = value
 
 
-def centerpoint_flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
-    """The inverse of ``centerpoint_state_dict_from_flax``: a port
-    ``CenterpointDLA34`` state dict -> the JAX package's
-    ``{"params", "batch_stats"}`` tree of f32 numpy arrays (conv kernels
-    OIHW -> HWIO, a DCN block's ``conv.weight`` / ``conv.bias`` -> its own
-    ``weight`` / ``bias`` leaves, BatchNorm ``weight/bias`` -> ``scale/bias``
-    under ``params`` and ``running_mean/var`` -> ``mean/var`` under
-    ``batch_stats``; ``num_batches_tracked`` has no counterpart)."""
+def _flax_from_state_dict(state_dict: Dict[str, torch.Tensor], flax_path: Callable[[str], str],
+                          transposed: Callable[[Path], bool] = lambda path: False) -> dict:
+    """A port state dict -> the JAX package's ``{"params", "batch_stats"}``
+    tree of f32 numpy arrays, each module at ``flax_path(name)``: conv
+    kernels OIHW -> HWIO (a transposed conv's, where ``transposed`` holds
+    for its path's tokens, ``[Cin, Cout, kh, kw]`` -> ``[kh, kw, Cin,
+    Cout]`` by ``_HWIO_TO_TRANSPOSED``, its own inverse), a DCN block's
+    ``conv.weight`` / ``conv.bias`` -> its own ``weight`` / ``bias``
+    leaves, BatchNorm ``weight/bias`` -> ``scale/bias`` under ``params``
+    and ``running_mean/var`` -> ``mean/var`` under ``batch_stats``;
+    ``num_batches_tracked`` has no counterpart."""
     variables: dict = {"params": {}, "batch_stats": {}}
 
     def array(t):
@@ -340,18 +346,42 @@ def centerpoint_flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dic
             continue
         if f"{module}.running_mean" in state_dict:
             collection, name = _BN_LEAVES[leaf]
-            _put(variables[collection], centerpoint_flax_path(module), name, array(value))
+            _put(variables[collection], flax_path(module), name, array(value))
             continue
         block = module[:-len(".conv")]
         if module.endswith(".conv") and f"{block}.offset.weight" in state_dict:
             module, name = block, leaf   # a DCN block's deformable conv
         else:
             name = "kernel" if leaf == "weight" else leaf
+        path = flax_path(module)
         value = array(value)
         if leaf == "weight":
-            value = np.ascontiguousarray(np.transpose(value, _OIHW_TO_HWIO))
-        _put(variables["params"], centerpoint_flax_path(module), name, value)
+            order = _HWIO_TO_TRANSPOSED if transposed(tuple(path.split("/"))) else _OIHW_TO_HWIO
+            value = np.ascontiguousarray(np.transpose(value, order))
+        _put(variables["params"], path, name, value)
     return variables
+
+
+def centerpoint_flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``centerpoint_state_dict_from_flax``: a port
+    ``CenterpointDLA34`` state dict -> the JAX package's variables tree
+    (``_flax_from_state_dict``)."""
+    return _flax_from_state_dict(state_dict, centerpoint_flax_path)
+
+
+def yolact_flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``yolact_state_dict_from_flax``: a port ``Yolact``
+    state dict -> the JAX package's variables tree, the protonet's two
+    transposed convs permuted back as they were imported."""
+    return _flax_from_state_dict(state_dict, yolact_flax_path, _protonet_upsample)
+
+
+def yolo_pose_flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``yolo_pose_state_dict_from_flax``: a port
+    ``YoloPose`` state dict (the YOLACT's trunk, FPN and protonet, the
+    Pointnet's 7x7 convs, the shared head) -> the JAX package's variables
+    tree."""
+    return _flax_from_state_dict(state_dict, yolo_pose_flax_path, _protonet_upsample)
 
 
 class _VariablesUnpickler(pickle.Unpickler):

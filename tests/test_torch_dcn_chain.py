@@ -51,7 +51,9 @@ agree):
   their inputs are equal, the decode is 100% matched and every head code
   equal; XLA's rsqrt in the BatchNorms changes nothing.  Neither stack is
   at fault, and the port cannot follow XLA's CPU summation order, so the
-  served window keeps its 95%;
+  served window keeps its 95%.  ``parting(1, 1)`` traces the bounded
+  R = 1 chain of ``tests/test_torch_dcn_knobs.py`` (the lerp in both
+  stacks) and finds the same ops (that file's docstring);
 - the offset and mask convs: the chain runs them as one 27-channel bf16
   conv, as the JAX block serves them; on the CPU that equals the port
   block's two convs bit for bit.
@@ -177,17 +179,23 @@ def test_torch_dcn_chain_merged_offset_mask_conv(net):
     assert torch.equal(two, merged)
 
 
-def parting(window=SERVED_WINDOW):
+def parting(window=SERVED_WINDOW, bound=None):
     """Where the two chains part at ``window``, printed: each DCN block's
-    offset/mask conv and sampling (kernel E's plain version against the
-    Pallas body in interpret mode) compared on equal inputs, each output
-    element that parts with the exact (float64) sum of the same bf16
-    products, and the port's decode with JAX's outputs of those two ops
-    put in wherever their inputs are equal (then with XLA's rsqrt in the
-    BatchNorms).  ``PYTHONPATH=.:tests JAX_PLATFORMS=cpu python
-    tests/test_torch_dcn_chain.py`` (~4 min)."""
+    offset/mask conv (with ``bound``, then its tanh bound) and sampling
+    (kernel E's plain version against the Pallas body in interpret mode,
+    the lerp where the window and the bound are within a cell) compared on
+    equal inputs, each output element that parts with the exact (float64)
+    sum of the same bf16 products, and the port's decode with JAX's
+    outputs of those ops put in wherever their inputs are equal (then with
+    XLA's rsqrt in the BatchNorms).  With ``bound`` the net, frames and
+    scales are ``tests/test_torch_dcn_knobs.py``'s (``dcn_knobs(...,
+    bound=True)`` on ``test_torch_dcn_profiles.Net``), whose chain that
+    file holds at ``BOUNDED_MATCHED``.  ``PYTHONPATH=.:tests
+    JAX_PLATFORMS=cpu python tests/test_torch_dcn_chain.py [WINDOW
+    [BOUND]]`` (~4 min)."""
     import jax
 
+    from tauv_vision_tpu_torch.configs import dcn_knobs
     from tauv_vision_tpu_torch.ops import deform_conv as port_dcn
     from tauv_vision_tpu_torch.serving.quantize_chain import BN_EPS
 
@@ -212,17 +220,32 @@ def parting(window=SERVED_WINDOW):
         if not np.array_equal(nhwc(x), jx):
             return out
         first = not any(mode.values())
+        # Offset/mask partings are printed in the first pass and in the
+        # pass with JAX's sampling put in, where later blocks' inputs are
+        # equal too.
+        report = first or (mode["dcn"] and not mode["om"])
         if not (np.array_equal(nhwc(offset), jo) and np.array_equal(nhwc(mask), jm)):
-            if not mode["om"] and not first:
+            if not mode["om"] and not report:
                 return out
             block = next(b for b in port.modules() if getattr(b, "conv", None) is self)
             w = torch.cat([block.offset.weight, block.mask.weight]).to(torch.bfloat16)
             exact = F.conv2d(x.double(), w.double(), padding=1).permute(0, 2, 3, 1).numpy()
+            with torch.inference_mode():
+                raw = nhwc(block.offset(x))
             for name, got, want in (("offset", nhwc(offset), jo), ("mask", nhwc(mask), jm)):
-                for idx in map(tuple, np.argwhere(got != want) if first else ()):
+                for idx in map(tuple, np.argwhere(got != want) if report else ()):
                     c = idx[3] + (0 if name == "offset" else 18)
-                    print(f"  DCN call {k}: x equal, {name} {idx} JAX {want[idx]!r} port "
-                          f"{got[idx]!r}; the conv's exact sum {exact[idx[:3] + (c,)]!r}")
+                    line = (f"  DCN call {k}: x equal, {name} {idx} JAX {want[idx]!r} port "
+                            f"{got[idx]!r}; the conv's exact sum {exact[idx[:3] + (c,)]!r}")
+                    if name == "offset" and bound is not None:
+                        # JAX's bound on the port's conv output: equal to
+                        # JAX's offset where the conv agrees and the tanh
+                        # parts.
+                        r = jnp.asarray(bound, jnp.bfloat16)
+                        pre = jnp.asarray(raw[idx], jnp.bfloat16)
+                        line += (f", the port's conv output {raw[idx]!r}, JAX's bound of it "
+                                 f"{float(r * jnp.tanh(pre / r))!r}")
+                    print(line)
             if not mode["om"]:
                 return out
         elif not np.array_equal(nhwc(out), jout) and first:
@@ -236,7 +259,7 @@ def parting(window=SERVED_WINDOW):
             torch.einsum = recording_einsum
             try:
                 port_dcn.deform_conv2d(x, offset, mask, self.weight.to(x.dtype), self.bias,
-                                       max_offset=self.max_offset)
+                                       max_offset=self.max_offset, variant=self.variant)
             finally:
                 torch.einsum = einsum
             b, _, h, w = x.shape
@@ -261,16 +284,29 @@ def parting(window=SERVED_WINDOW):
         return ((y.to(torch.float32) - bn.running_mean.float()) * torch.from_numpy(mul)
                 + bn.bias.float())
 
-    oc, mc = centernet_config(H, W)
-    _, variables, port, scales, _ = _net(oc, mc, DCN_CHAIN_INT8, 0, dcn_impl="gather")
-    want_pipe = jax_chain.make_centernet_chain_pipeline(
-        jax_centernet_config(mc), jax_object_config(oc), variables, scales,
-        n_detections=ALL_SLOTS.n_detections, score_threshold=0.0,
-        dtype=JAX_DTYPE[DCN_CHAIN_INT8.input_dtype], jit=False, deform=True,
-        dcn_max_offset=float(window))
+    if bound is None:
+        oc, mc = centernet_config(H, W)
+        _, variables, port, scales, _ = _net(oc, mc, DCN_CHAIN_INT8, 0, dcn_impl="gather")
+        want_pipe = jax_chain.make_centernet_chain_pipeline(
+            jax_centernet_config(mc), jax_object_config(oc), variables, scales,
+            n_detections=ALL_SLOTS.n_detections, score_threshold=0.0,
+            dtype=JAX_DTYPE[DCN_CHAIN_INT8.input_dtype], jit=False, deform=True,
+            dcn_max_offset=float(window))
+        frames = _frames(1, H, W)
+    else:
+        from tauv_vision_tpu.serving import quantize as jax_quantize
+        from test_torch_dcn_profiles import Net
+
+        net = Net(dcn_knobs(DCN_CHAIN_INT8, window, bound=True))
+        assert net.port.deform_convs()[0].offset_bound == bound
+        mc, port, frames = net.mc, net.port, net.frames
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pallas_deform_conv, "deform_conv2d_pallas", functools.partial(
+                pallas, interpret=True))
+            scales = jax_quantize.calibrate(net.apply, [net.img])
+        want_pipe = net.jax_pipeline(scales, window, offset_bound=bound)
     got_pipe = port_chain.make_centernet_chain_pipeline(port, mc, scales, "cpu", ALL_SLOTS,
                                                         impl="plain")
-    frames = _frames(1, H, W)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pallas_deform_conv, "deform_conv2d_pallas", recording_pallas)
         mp.setattr(port_dcn.DeformConv2d, "forward", substituting_forward)
@@ -286,11 +322,14 @@ def parting(window=SERVED_WINDOW):
                 codes = sum(int((rec.maps["port"][f"model/head_{i}_out"]
                                  != rec.maps["jax"][f"model/head_{i}_out"]).sum())
                             for i in range(3))
-                print(f"window {window}: JAX's DCN sampling put in {dcn}, its offset/mask conv "
+                print(f"window {window}, bound {bound}: JAX's DCN sampling put in {dcn}, its "
+                      f"offset/mask conv{' and bound' if bound else ''} "
                       f"{om}, XLA's rsqrt in the BatchNorms {bn}: matched "
                       f"{stats['matched_fraction']} of {stats['total']}, {codes} head codes "
                       f"differ")
 
 
 if __name__ == "__main__":
-    parting()
+    import sys
+
+    parting(*(float(a) for a in sys.argv[1:3]))

@@ -11,11 +11,23 @@ interpret mode here too):
   ``tests/test_torch_dcn_chain.py`` holds them (trunk equal, later codes
   within one on at most ``CODE_SHARE``), the decodes at threshold 0 to
   ``BOUNDED_MATCHED``: the lerp's samples are the Pallas body's bit for bit
-  on equal bf16 inputs (``tests/test_torch_dcn_lerp.py``), and as at the
-  served window the two stacks part where they sum the same bf16 products
-  of the offset/mask conv and the DCN contraction in another order, so a
-  head code one apart flips a tail slot (measured: 19 of the 20 slots
-  matched, 2.8% of the codes after the trunk one apart);
+  on equal bf16 inputs (``tests/test_torch_dcn_lerp.py``), and the two
+  stacks part where they sum the same bf16 products in another order, so
+  a head code one apart flips a tail slot (measured: 19 of the 20 slots
+  matched, 2.8% of the codes after the trunk one apart).  The op that
+  parts, traced by ``test_torch_dcn_chain.parting(1, 1)`` on this net,
+  its frames and JAX's scales: the DCN's per-tap contraction (the lerp's
+  bf16 samples times the bf16 weights summed in f32, kernel E's plain
+  version against the Pallas body in interpret mode), 13 output elements
+  of 4 of the 16 calls on equal inputs, each an exact sum near a bf16
+  midpoint rounded to its other side; with JAX's sampling put in wherever
+  its inputs are equal the decode matches 20 of 20.  Besides, the
+  offset/mask conv parts at one element (call 7, its exact sum 2.9e-9
+  from a bf16 midpoint, 1 ulp before the bias), the tanh bound at none,
+  and XLA's ``rsqrt`` in the BatchNorms (faithful, not correctly rounded) moves
+  the rest of the head codes (1,013, 0 with it put in).  So the same ops
+  as at R = 3 (``tests/test_torch_dcn_chain.py``), and neither stack is
+  at fault;
 - ``--bf16-joins`` on the DCN int8 chain at the served window: the joins
   bf16 in both chains, held as the chain at that window is;
 - ``--fused`` on the chain pair (``make_chain_pair_pipeline``): the

@@ -27,7 +27,7 @@ from tauv_vision_tpu_torch.serving import quantize_chain as port_chain
 from tauv_vision_tpu_torch.serving.quantize import calibrate_gptq, strip_scales
 from tauv_vision_tpu_torch.serving.quantize_chain import ChainCtx, _wq
 from tauv_vision_tpu_torch.weights import centerpoint_flax_path
-from test_torch_int8_recipes import SCALE_RTOL, Replay, _centernet, _frames, _yolact, jax_conv_inputs
+from test_torch_int8_recipes import SCALE_RTOL, Replay, _centernet, _frames, jax_conv_inputs
 from test_torch_quantize_accuracy import (
     _assert_chains,
     _chains,
@@ -64,7 +64,9 @@ def frames():
 
 @pytest.fixture(scope="module")
 def nets(frames):
-    return {"centernet": _centernet(frames), "yolact": _yolact(frames)}
+    # GPTQ is checked on the CenterNet only: the YOLACT and its JAX conv
+    # inputs (~25 s) are not built here.
+    return {"centernet": _centernet(frames)}
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,7 @@ yardstick measured in the same run:
   the other way on a small difference of its gradient.
 """
 
+import copy
 import dataclasses
 
 import jax
@@ -122,33 +123,53 @@ def setup():
 
     value_and_grad = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
     tx = jax_adam_with_clip(tc.lr, tc.grad_max_norm)
+    # The optimizer compiled, as the JAX package's jitted train step runs it
+    # (op by op it compiles each op of every parameter's shape, ~40 s here).
+    update, apply_updates = jax.jit(tx.update), jax.jit(optax.apply_updates)
+    global_norm = jax.jit(optax.global_norm)
     params, stats = variables["params"], variables["batch_stats"]
-    opt_state = tx.init(params)
+    opt_state = jax.jit(tx.init)(params)
     jax_steps = []
     for _ in range(N_ADAM):
         (_, (losses, new_stats)), grads = value_and_grad(params, stats)
         jax_steps.append((jax.device_get(losses), jax.device_get(grads),
-                          jax.device_get(new_stats), float(optax.global_norm(grads))))
-        updates, opt_state = tx.update(grads, opt_state, params)
-        params, stats = optax.apply_updates(params, updates), new_stats
+                          jax.device_get(new_stats), float(global_norm(grads))))
+        updates, opt_state = update(grads, opt_state, params)
+        params, stats = apply_updates(params, updates), new_stats
     after = jax.device_get({"params": params, "batch_stats": stats})
+
+    state_dict = centerpoint_state_dict_from_flax(variables)
 
     def port_state(max_norm):
         model = CenterpointDLA34(oc, deform=True, device="cpu")
-        model.load_state_dict(centerpoint_state_dict_from_flax(variables), strict=True)
+        model.load_state_dict(state_dict, strict=True)
         return TrainState(model, adam_with_clip(model.parameters(), tc.lr, max_norm))
+
+    def raw_step(state, x):
+        """The first Adam step, and a copy of the model as a step whose clip
+        never bites leaves it: its BatchNorm statistics, and the raw
+        gradients in ``.grad`` (the clip scales them in place)."""
+        model, grads = state.model, {}
+        hook = state.optimizer.register_step_pre_hook(lambda *_: grads.update(
+            {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}))
+        try:
+            state, losses = step(state, x, port_truth)
+        finally:
+            hook.remove()
+        raw = copy.deepcopy(model)
+        for name, p in raw.named_parameters():
+            p.grad = grads.get(name)
+        return state, losses, raw
 
     port_img = torch.from_numpy(img).permute(0, 3, 1, 2).contiguous()
     port_truth = truth.to("cpu")
     step = make_centernet_train_step(mc, tc, oc)
     port = {}
     for key, x in (("port", port_img), ("nudged", port_img * NUDGE)):
-        # A step whose clip never bites leaves the raw gradients in .grad.
-        raw, losses = step(port_state(float("inf")), x, port_truth)
-        state = port_state(MAX_NORM)
-        for _ in range(N_ADAM):
+        state, losses, raw = raw_step(port_state(MAX_NORM), x)
+        for _ in range(N_ADAM - 1):
             state, _ = step(state, x, port_truth)
-        port[key] = dict(raw=raw.model, losses=losses, adam=state)
+        port[key] = dict(raw=raw, losses=losses, adam=state)
     return dict(variables=variables, jax_steps=jax_steps, after=after, **port)
 
 

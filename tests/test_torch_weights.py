@@ -253,7 +253,8 @@ def test_torch_port_imports_no_jax():
                    "serving/qat.py", "serving/int8_pair.py", "serving/executor.py",
                    "serving/host_io.py", "serving/pipeline.py", "ops/masks.py",
                    "scripts/quantize_accuracy_check.py", "ops/deform_conv.py",
-                   "serving/quantize_chain.py", "scripts/kernel_times.py", "kernels.py"):
+                   "serving/quantize_chain.py", "scripts/kernel_times.py", "kernels.py",
+                   "scripts/yolact_parity_check.py", "scripts/dcn_offset_stats.py"):
         assert PORT / module in sources, module
     for path in sources:
         for name in _imports(path):
