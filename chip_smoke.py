@@ -7,7 +7,9 @@ Twenty-four served paths: seven pair a CenterNet with a YOLACT through
 ``make_combined_pipeline``, eleven serve the CenterNet and the YOLACT as
 two requests, as ``bench.py`` times them (six of them in int8, four in
 bf16, and one through the serving executor from disk), three serve the
-CenterNet node's full configuration alone, and three serve YOLO-Pose:
+CenterNet node's full configuration alone, and three serve YOLO-Pose;
+phase 20 also serves the custom-DLA CenterNet (``dla_centernet``) and
+YOLO-Pose on the deep ResNet trunks (``yolo_pose_deep``):
 
 - ``plain_ida``: the CenterpointDLA34 with plain-conv IDA (the IDA that
   ``bench.py`` serves with no flags), all f32, beside the f32 YOLACT;
@@ -327,11 +329,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    steps (the script's 300; batch 16, 640x360; the losses finite and the
    last logged below half the first), ``--save-model`` then
    ``--load-model`` into a fresh net whose decode of a batch is bit-equal;
-   then on those weights, each cut in depth (the evaluation set 4 batches
-   of 16, not 32; 200 bootstrap resamples, not 1,000): the default mode
+   then on those weights, each cut in depth (the evaluation set
+   ``QA_EVAL_BATCHES`` batches of 16, not 32; 200 bootstrap resamples,
+   not 1,000): the default mode
    (AP@0.5 with intervals of bf16, per-layer int8 and the chain), a sweep
    over one rung of each recipe (``QA_SWEEP``), the f32 reference's rungs
-   (``QA_F32_SWEEP``), a keypoint rung on a keypoint net trained 100
+   (``QA_F32_SWEEP``), a keypoint rung on a keypoint net trained ``QA_KP_STEPS``
    steps, and QAT (10 steps, ``--qat-save``, then ``--qat-load`` giving
    the same numbers); A and C counted over those runs.  The asymmetric
    and GPTQ chains on the kernels against the plain versions (every
@@ -366,7 +369,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
    with the offset penalty and without (losses finite, the penalty term
    falling from its peak on the regularised run, 0 on the other), its
    |offset| distribution's count equal to the sown elements; B, C and E
-   counted over the runs, D and E's lerp not launched.
+   counted over the runs, D and E's lerp not launched;
+20. dla_centernet: the custom-DLA ``Centernet`` (``models/dla.py``) at
+   ``samples_torpedo``'s full width (360x640, five trees of height 2, six
+   levels of 128 channels, 2 downsamples, 4 classes with a keypoint
+   each), bf16, the flax init from a seed, served as the CenterNet node
+   serves it (``make_centernet_keypoint_pipeline``, batch 16): 2 requests
+   with every launch counted from 0 (A at K = 10 and K = 50, nothing
+   else), held to the plain decode at threshold 0, A's two calls on the
+   net's own heatmaps against A's plain version, then timed (frames/s,
+   the device's idle share, peak memory); the training CLI with
+   ``backbone = "dla"`` on phase 7's dataset directories at batch 32
+   (one epoch of 2 batches, then a warm start from its checkpoint: every
+   loss finite, the restored parameters equal to the saved ones, no
+   port kernel launched); and YOLO-Pose on the ResNet-50 and ResNet-101
+   trunks at the CLI's widths (960x480, feature depth 64, 21 classes),
+   batch 4: one bf16 train step each (every gradient finite) and a bf16
+   request each (kernel B without the crop, counted, and held to its
+   plain version on the net's belief maps), their ms printed.
 
 Each phase prints its seconds, and the script its total.
 
@@ -457,6 +477,7 @@ from tauv_vision_tpu_torch.data.synthetic import (
     write_square_pose_dataset,
     write_square_seg_dataset,
 )
+from tauv_vision_tpu_torch.models.centernet import Centernet
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34, sow_dcn_offsets
 from tauv_vision_tpu_torch.models.yolact import Yolact, YolactPrediction
 from tauv_vision_tpu_torch.models.yolo_pose import YoloPose, YoloPosePrediction
@@ -3378,27 +3399,39 @@ def print_cli_time(label, epochs, batch, host_ms, workers, prof, batches, peak, 
           f"{batches} steps, peak memory allocated {peak:.2f} GiB ({card})")
 
 
-def train_cli_phase(card):
-    """The training CLI on PNG dataset directories (see the module
-    docstring); returns its launch counts (by kernel, by entry point, by
-    variant)."""
+def cli_dataset_roots(data_root):
+    return [pathlib.Path(data_root) / f"dataset_{i}" for i in range(CLI_DATASETS)]
+
+
+def write_cli_datasets(data_root):
+    """The CLI's dataset directories of squares PNGs under ``data_root``,
+    one a thread; returns their roots."""
+    mc, oc = samples_torpedo.model_config, samples_torpedo.object_config
+    labels = [c.id for c in oc.configs]
+    roots = cli_dataset_roots(data_root)
+
+    def write(i):
+        write_square_pose_dataset(roots[i], np.random.default_rng(20 + i), CLI_TRAIN, CLI_VAL,
+                                  mc.in_h, mc.in_w, labels, min_side=CLI_SIDES[0],
+                                  max_side=CLI_SIDES[1])
+
+    with concurrent.futures.ThreadPoolExecutor(CLI_DATASETS) as pool:
+        list(pool.map(write, range(CLI_DATASETS)))
+    return roots
+
+
+def train_cli_phase(card, data_root):
+    """The training CLI on PNG dataset directories, written under
+    ``data_root`` (see the module docstring); returns its launch counts (by
+    kernel, by entry point, by variant)."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     mc, tc, oc = samples_torpedo.model_config, samples_torpedo.train_config, \
         samples_torpedo.object_config
-    labels = [c.id for c in oc.configs]
     with tempfile.TemporaryDirectory() as directory:
         base = pathlib.Path(directory)
-        roots = [base / f"dataset_{i}" for i in range(CLI_DATASETS)]
-
-        def write(i):
-            write_square_pose_dataset(roots[i], np.random.default_rng(20 + i), CLI_TRAIN,
-                                      CLI_VAL, mc.in_h, mc.in_w, labels,
-                                      min_side=CLI_SIDES[0], max_side=CLI_SIDES[1])
-
-        with concurrent.futures.ThreadPoolExecutor(CLI_DATASETS) as pool:
-            list(pool.map(write, range(CLI_DATASETS)))
+        roots = write_cli_datasets(data_root)
         t_data = time.perf_counter() - t0
         # The loader's host work, one thread: decode, augment, collate.
         ds = PoseDataset(roots[0], Split.TRAIN, oc.label_id_to_index, oc,
@@ -5636,10 +5669,10 @@ def keypoints_per_layer_phase(kp_net, kp_scales, card):
 # scripts/quantize_accuracy_check.py on the card: its training, then its
 # modes on the trained weights, each cut in depth (the training, the
 # evaluation set, the bootstrap, the keypoint net's training, QAT).
-QA_STEPS = 150            # the training's steps (the script's 300)
-QA_EVAL_BATCHES = 4       # of 16 frames: 64 images (the script's 32: 512)
+QA_STEPS = 75             # the training's steps (the script's 300)
+QA_EVAL_BATCHES = 2       # of 16 frames: 32 images (the script's 32: 512)
 QA_BOOTSTRAP = 200        # resamples (the script's 1,000)
-QA_KP_STEPS = 100         # the keypoint net's training steps (300)
+QA_KP_STEPS = 50          # the keypoint net's training steps (300)
 QA_QAT_STEPS = 10         # --qat-steps (the script's default: none)
 QA_SWEEP = ("pc+none", "pc+bf16heads+early01+updown", "mse+bf16heads+early0123+updown",
             "seqmean+bf16heads+early01+updown", "seq+bf16heads+early01+updown",
@@ -6194,8 +6227,8 @@ def dcn_profiles_phase(nets, cn_cfg, yl, yl_cfg, chains, yl_scales, yl_bf16, car
 
 # scripts/yolact_parity_check.py and scripts/dcn_offset_stats.py on the
 # card, each cut in depth: the YOLACT's evaluation set, the DCN trainings.
-TW_YL_STEPS = 100         # the YOLACT's training steps (the script's 300)
-TW_EVAL_BATCHES = 4       # of 16 frames: 64 images (the script's 32: 512)
+TW_YL_STEPS = 75          # the YOLACT's training steps (the script's 300)
+TW_EVAL_BATCHES = 2       # of 16 frames: 32 images (the script's 32: 512)
 TW_DCN_STEPS = 30         # each DCN training's steps (the script's 200)
 TW_DCN_LOG_EVERY = 5      # the DCN runs' log lines (the script's 25)
 TW_F32_RUNGS = ("flax-bf16", "pc+f32head", "float+f32head")
@@ -6400,6 +6433,271 @@ def _trained_weights_runs(card, weights):
     return launches
 
 
+# ---- phase 20: dla_centernet ----------------------------------------------
+
+DLA_PATH, YP_DEEP_PATH = "dla_centernet", "yolo_pose_deep"
+DLA_SEED = 22
+DLA_REQUESTS = 2          # requests of KP_BATCH frames checked against the plain kernels
+DLA_ITERS = 3             # timed requests
+DLA_CLI_BATCHES = 2       # --epoch-n-batches of the custom net's CLI run and its warm start
+DLA_CLI_CONFIG = CLI_CONFIG + 'backbone = "dla"\n'
+YP_DEEP_DEPTHS = (50, 101)
+YP_DEEP_BATCH = 4         # the YOLO-Pose CLI's --batch-size
+YP_DEEP_ITERS = 3
+
+
+def dla_centernet_net():
+    """``samples_torpedo``'s custom-DLA Centernet on the card, bf16, the
+    flax init from a seed."""
+    mc, oc = samples_torpedo.model_config, samples_torpedo.object_config
+    return Centernet(oc, mc.backbone_heights, mc.backbone_channels, mc.downsamples,
+                     torch.Generator().manual_seed(DLA_SEED), "cuda", dtype=torch.bfloat16).eval()
+
+
+def dla_pipelines(net, projection, knobs):
+    """(the ``CenternetServer`` configuration's keypoint pipeline on kernel
+    A, on its plain version)."""
+    mc, oc = samples_torpedo.model_config, samples_torpedo.object_config
+    return tuple(make_centernet_keypoint_pipeline(net, mc, oc, projection, torch.device("cuda"),
+                                                  knobs=knobs, impl=impl,
+                                                  dtype=KEYPOINTS.input_dtype)
+                 for impl in ("kernel", "plain"))
+
+
+def serve_dla_centernet(card, errs):
+    """The custom net served at full width through the node's keypoint
+    pipeline, batch 16: the requests counted, checked against the plain
+    decode, A's two calls on the net's maps against A's plain version, and
+    timed.  Returns the served run's launches."""
+    mc, oc = samples_torpedo.model_config, samples_torpedo.object_config
+    net = dla_centernet_net()
+    n_params = sum(p.numel() for p in net.parameters())
+    _, _, projection = keypoints_config()
+    n_slots = max(len(c.keypoints) for c in oc.configs)
+    requests = [request_frames(30 + i, (KP_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+                for i in range(DLA_REQUESTS)]
+    pipe, _ = dla_pipelines(net, projection, SERVING_DECODE)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    answers = [pipe(r) for r in requests]
+    torch.cuda.synchronize()
+    launches = (dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES),
+                dict(kernels.VARIANT_LAUNCHES))
+    want = {**{name: 0 for name in KERNELS}, "peak_decode": 2 * DLA_REQUESTS}
+    require(launches[0] == want and launches[2] == {("peak_decode", "K=10"): DLA_REQUESTS,
+                                                    ("peak_decode", "K=50"): DLA_REQUESTS},
+            f"{DLA_PATH}: launches {launches[0]} {launches[2]}, expected {want}")
+    for out in answers:
+        d = out.detections
+        require(d.valid.shape == (KP_BATCH, SERVING_DECODE.n_detections)
+                and out.keypoint_valid.shape == (KP_BATCH, SERVING_DECODE.n_detections, n_slots)
+                and finite(d.score, d.y, d.x, d.h, d.w, out.keypoint_y, out.keypoint_x),
+                f"{DLA_PATH}: outputs")
+    print(f"serve {DLA_PATH}: samples_torpedo's Centernet ({n_params} parameters, bf16, "
+          f"flax init) at {mc.in_w}x{mc.in_h}, {DLA_REQUESTS} requests x {KP_BATCH} frames "
+          f"through make_centernet_keypoint_pipeline; launches {launches[0]} (kernel A by K: "
+          f"{launches[2]}); at the served thresholds "
+          f"{sum(int(a.detections.valid.sum()) for a in answers)} detections valid (random "
+          f"weights)")
+
+    # The whole requests on kernel A and on its plain version, every slot
+    # decoded; then A's two calls on one forward's maps.
+    pipe0, plain0 = dla_pipelines(net, projection, ALL_SLOTS)
+    swaps, claimed = 0, [0, 0]
+    for r in requests:
+        got, ref = pipe0(r), plain0(r)
+        swaps += check_bf16_centernet(DLA_PATH, detection_deltas(
+            ref.detections, got.detections, score_threshold=0.0), ref.detections)
+        claimed = [c + int(o.keypoint_valid.sum()) for c, o in zip(claimed, (got, ref))]
+    with torch.inference_mode():
+        pred = net(preprocess(requests[0].to("cuda"), (mc.in_h, mc.in_w), IMAGENET_MEAN,
+                              IMAGENET_STDDEV, KEYPOINTS.input_dtype))
+    maps = (pred.heatmap_nchw().contiguous(), pred.keypoint_heatmap_nchw().contiguous())
+    require([tuple(m.shape) for m in maps] == [(KP_BATCH, 4, mc.in_h // 4, mc.in_w // 4)] * 2,
+            f"{DLA_PATH}: heatmaps {[tuple(m.shape) for m in maps]}")
+    for row, x, kk in (("peak_decode", maps[0], SERVING_DECODE.n_detections),
+                       ("peak_decode_k50", maps[1], SERVING_DECODE.keypoint_n_detections)):
+        got, ref = peak_decode_cuda(x, kk), peak_decode(x, kk)
+        torch.cuda.synchronize()
+        e = (got[2] - ref[2]).abs().max().item()
+        require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]) and e <= PEAK_ATOL,
+                f"{DLA_PATH}: kernel A K={kk}: indices, labels or score err {e}")
+        errs[row] = max(errs[row], e)
+        print(f"check peak_decode {DLA_PATH} {tuple(x.shape)} K={kk}: index/label exact, "
+              f"score max_abs_err {e:.3g} (atol {PEAK_ATOL})")
+    print(f"serve {DLA_PATH}: decoded kernel vs plain at threshold 0: {swaps} top-K slots "
+          f"swapped of {DLA_REQUESTS * KP_BATCH * SERVING_DECODE.n_detections}; keypoints "
+          f"claimed {claimed[0]} (plain {claimed[1]})")
+    del pred, maps
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe(requests[0])
+    ms = time_ms(lambda: pipe(requests[0]), DLA_ITERS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, n_kernels = device_busy(lambda: pipe(requests[0]), reps=1)
+    idle = "not measured" if busy is None else f"{1 - busy / ms:.1%}"
+    print(f"time {DLA_PATH}: {ms:.3f} ms a request of {KP_BATCH} = {KP_BATCH * 1000 / ms:.2f} "
+          f"frames/s ({DLA_ITERS} requests back to back, CUDA events); device busy {busy} ms "
+          f"in {n_kernels} kernels a request, idle {idle}; peak memory allocated {peak:.2f} GiB "
+          f"({card})")
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_dla_cli(card, roots):
+    """``scripts/train_centernet.py`` with ``backbone = "dla"`` on phase 7's
+    dataset directories at batch 32: one epoch of DLA_CLI_BATCHES, then a
+    warm start from its checkpoint."""
+    mc, tc, oc = samples_torpedo.model_config, samples_torpedo.train_config, \
+        samples_torpedo.object_config
+    with tempfile.TemporaryDirectory() as directory:
+        base = pathlib.Path(directory)
+        (base / "cli_dla.py").write_text(DLA_CLI_CONFIG.format(epochs=1))
+        sys.path.insert(0, str(base))
+        try:
+            common = ["--dataset-roots", *map(str, roots), "--no-figures", "--config",
+                      "cli_dla", "--epoch-n-batches", str(DLA_CLI_BATCHES)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = train_centernet.main(common + ["--results-dir", str(base / "run")])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with train_epoch_times() as epochs:
+                warm = train_centernet.main(common + [
+                    "--results-dir", str(base / "warm"),
+                    "--checkpoint", str(base / "run" / "checkpoints")])
+                torch.cuda.synchronize()
+        finally:
+            sys.path.remove(str(base))
+            sys.modules.pop("cli_dla", None)
+        require(not any(kernels.LAUNCHES.values()),
+                f"{DLA_PATH} CLI: port kernels launched {dict(kernels.LAUNCHES)}")
+        require(isinstance(state.model, Centernet)
+                and state.model.backbone.down.stem.conv.compute_dtype == torch.bfloat16,
+                f"{DLA_PATH} CLI: the model is not the bf16 custom Centernet")
+        manager = CheckpointManager(base / "run" / "checkpoints")
+        saved = torch.load(base / "run" / "checkpoints" / str(manager.all_steps()[-1])
+                           / "state.pt", map_location="cuda", weights_only=True)
+        fresh = Centernet(oc, mc.backbone_heights, mc.backbone_channels, mc.downsamples,
+                          device="cuda", dtype=torch.bfloat16)
+        restored = manager.restore(TrainState(fresh, adam_with_clip(
+            fresh.parameters(), tc.lr, tc.grad_max_norm)))
+        require(all(torch.equal(v, saved["model"][k])
+                    for k, v in restored.model.state_dict().items()),
+                f"{DLA_PATH} CLI: the restored parameters differ from the saved ones")
+        runs = [[r for r in cli_records(base / name) if "train/total" in r or "val/total" in r]
+                for name in ("run", "warm")]
+        del restored, fresh, saved
+    train = [[r for r in run if "train/total" in r] for run in runs]
+    require([[r["step"] for r in t] for t in train] ==
+            [list(range(DLA_CLI_BATCHES)), list(range(DLA_CLI_BATCHES, 2 * DLA_CLI_BATCHES))]
+            and warm.step == 2 * DLA_CLI_BATCHES
+            and all(math.isfinite(v) for run in runs for r in run for k, v in r.items()
+                    if k.startswith(("train/", "val/"))),
+            f"{DLA_PATH} CLI: steps or losses {runs}")
+    (_, s, n, first), = epochs
+    print(f"train {DLA_PATH} CLI: backbone \"dla\" (bf16, flax init), batch {tc.batch_size}, "
+          f"{DLA_CLI_BATCHES} steps in {run_s:.1f} s with its validation, losses "
+          f"{[round(r['train/total'], 4) for r in train[0]]}, then a warm start from step "
+          f"{DLA_CLI_BATCHES}: losses {[round(r['train/total'], 4) for r in train[1]]}; every "
+          f"loss finite, the restored parameters equal to the saved ones; no port kernel "
+          f"launched")
+    print(f"time {DLA_PATH} CLI: the warm start's epoch {tc.batch_size * n / s:.2f} images/s "
+          f"(host reading included), {tc.batch_size * n / (s - first):.2f} after its first "
+          f"batch arrived ({first:.2f} s); peak memory allocated {peak:.2f} GiB ({card})")
+    del state, warm
+    torch.cuda.empty_cache()
+
+
+def yolo_pose_deep(card, errs):
+    """YOLO-Pose on the ResNet-50 and -101 trunks at the CLI's widths,
+    batch 4: one bf16 train step (every gradient finite), and a served
+    request (kernel B without the crop, counted, and held to its plain
+    version on the net's belief maps).  Returns the served requests'
+    launches."""
+    cfg0 = BENCH_YOLO_POSE.model
+    with tempfile.TemporaryDirectory() as directory:
+        _, (img_np, truth_np) = fat_batches(pathlib.Path(directory), 41, YP_DEEP_BATCH)
+    img, truth = to_card(img_np, truth_np)
+    frames = request_frames(42, (YP_DEEP_BATCH, FRAME_H, FRAME_W, 3)).pin_memory()
+    served = ({name: 0 for name in KERNELS}, {}, {})
+    for depth in YP_DEEP_DEPTHS:
+        cfg = dataclasses.replace(cfg0, backbone_depth=depth)
+        model = YoloPose(cfg, torch.Generator().manual_seed(depth), device="cuda",
+                         dtype=torch.bfloat16, init="flax")
+        require(model.backbone.tap_depths == (512, 1024, 2048)
+                and len(model.backbone.layer3) == (6 if depth == 50 else 23),
+                f"yolo_pose resnet{depth}: trunk")
+        state = TrainState(model, warmup_adam(model.parameters(), YP_TRAIN_LR, YP_WARMUP, 1.0))
+        step = make_yolo_pose_train_step(cfg)
+        _, losses = step(state, img, truth)
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+        n_grads = sum(p.grad is not None for p in model.parameters())
+        require(not bad and n_grads > 0 and math.isfinite(float(losses.total)),
+                f"yolo_pose resnet{depth}: loss {float(losses.total)}, non-finite gradients {bad}")
+        torch.cuda.synchronize()
+        step_ms = time_ms(lambda: step(state, img, truth), YP_DEEP_ITERS)
+
+        model.eval()
+        serve = dataclasses.replace(BENCH_YOLO_POSE, model=cfg)
+        pipe = make_yolo_pose_pipeline(model, cfg, serve.object_points, serve.camera_matrix,
+                                       torch.device("cuda"), dtype=serve.input_dtype)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = pipe(frames)
+        torch.cuda.synchronize()
+        launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+        variants = dict(kernels.VARIANT_LAUNCHES)
+        require(launches == {**{name: 0 for name in KERNELS}, "mask_assembly": 1}
+                and variants == {("mask_assembly", "no crop"): 1},
+                f"yolo_pose resnet{depth}: launches {launches} {variants}")
+        check_yolo_pose_outputs(out, YP_DEEP_BATCH)
+        for name, n in launches.items():
+            served[0][name] += n
+        for key, n in variants.items():
+            served[2][key] = served[2].get(key, 0) + n
+        for key, n in entries.items():
+            served[1][key] = served[1].get(key, 0) + n
+        with torch.inference_mode():
+            pred = model(yolo_pose_image(frames))
+        proto, coeff = yolo_pose_belief_call(pred)
+        got, ref = assemble_mask_cuda(proto, coeff), assemble_mask_batch(proto, coeff)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        require(e <= MASK_ATOL, f"mask_assembly yolo_pose resnet{depth}: err {e}")
+        errs["mask_assembly_belief"] = max(errs["mask_assembly_belief"], e)
+        request_ms = time_ms(lambda: pipe(frames), YP_DEEP_ITERS)
+        print(f"yolo_pose resnet{depth}: {sum(p.numel() for p in model.parameters())} "
+              f"parameters at {cfg.in_w}x{cfg.in_h}; a bf16 train step at batch "
+              f"{YP_DEEP_BATCH}: loss {float(losses.total):.5g}, {n_grads} gradients finite, "
+              f"{step_ms:.3f} ms a step; a served request of {YP_DEEP_BATCH} frames "
+              f"{request_ms:.3f} ms (launches {launches}); kernel B at the belief call "
+              f"{tuple(proto.shape)} K={coeff.shape[1]} no crop: max_abs_err {e:.3g} (atol "
+              f"{MASK_ATOL}) ({card})")
+        del model, state, pred, out, proto, coeff, got, ref
+        torch.cuda.empty_cache()
+    return served
+
+
+def dla_centernet_phase(card, errs, cli_roots):
+    """Phase 20 (see the module docstring); returns the launches of the
+    custom net's served requests and of the deep YOLO-Pose requests."""
+    t0 = time.perf_counter()
+    served = {DLA_PATH: serve_dla_centernet(card, errs)}
+    t1 = lap(f"{DLA_PATH} serve", t0)
+    train_dla_cli(card, cli_roots)
+    t1 = lap(f"{DLA_PATH} CLI", t1)
+    served[YP_DEEP_PATH] = yolo_pose_deep(card, errs)
+    lap(f"{DLA_PATH} yolo_pose resnet50 and resnet101", t1)
+    return served
+
+
 def _first_path(paths):
     return paths if paths is None or isinstance(paths, str) else paths[0]
 
@@ -6463,8 +6761,9 @@ def main(argv=None) -> int:
                          kp_scales, card, args.profile)
     with phase("train"):
         served["train"] = train_phase(errs, card)
+    cli_data = tempfile.TemporaryDirectory()   # phase 7's datasets, phase 20 reads them
     with phase("train_cli"):
-        served["train_cli"] = train_cli_phase(card)
+        served["train_cli"] = train_cli_phase(card, cli_data.name)
     with phase("train_yolact"):
         served["train_yolact"] = train_yolact_phase(card)
     with phase("yolo_pose"):
@@ -6495,7 +6794,10 @@ def main(argv=None) -> int:
     served.update(dcn_served)
     with phase("trained_weights"):
         served["trained_weights"] = trained_weights_phase(card)
-    all_paths = ALL_PATHS + tuple(DCN_PROFILES) + ("trained_weights",)
+    with phase(DLA_PATH):
+        served.update(dla_centernet_phase(card, errs, cli_dataset_roots(cli_data.name)))
+    cli_data.cleanup()
+    all_paths = ALL_PATHS + tuple(DCN_PROFILES) + ("trained_weights", DLA_PATH, YP_DEEP_PATH)
 
     def launches(path, row):
         kernel, entry = ROWS[row]

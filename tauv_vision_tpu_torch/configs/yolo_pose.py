@@ -1,11 +1,8 @@
 """YOLO-Pose configuration: ``YoloPoseModelConfig`` of
 ``tauv_vision_tpu/configs/yolo_pose.py``, copied so the port imports
 nothing of the JAX package.  Same fields, defaults, derived properties
-and JSON round trip.
-
-The port builds only the ResNet-18 trunk: a ``backbone_depth`` of 34, 50
-or 101 (the JAX ``ResnetFeatures``) raises until ROADMAP.md Queue 1 item
-6 ports them.
+and JSON round trip.  ``backbone_depth`` is the ResNet trunk's depth,
+one of ``BACKBONE_DEPTHS``; another raises.
 """
 
 from __future__ import annotations
@@ -15,7 +12,7 @@ from typing import Tuple
 
 from tauv_vision_tpu_torch.configs.yolact import _Json
 
-BACKBONE_DEPTHS = (18,)
+BACKBONE_DEPTHS = (18, 34, 50, 101)
 
 
 @dataclass(frozen=True)
@@ -62,9 +59,8 @@ class YoloPoseModelConfig(_Json):
 
     def __post_init__(self):
         if self.backbone_depth not in BACKBONE_DEPTHS:
-            raise NotImplementedError(
-                f"backbone_depth {self.backbone_depth}: the port builds ResNet-18 only; "
-                "ResNet-34/50/101 are ROADMAP.md Queue 1 item 6")
+            raise ValueError(
+                f"backbone_depth must be one of {BACKBONE_DEPTHS}, got {self.backbone_depth}")
         object.__setattr__(
             self, "pointnet_layers",
             tuple(tuple(layer) for layer in self.pointnet_layers),

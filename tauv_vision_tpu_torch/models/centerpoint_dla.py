@@ -35,7 +35,11 @@ from torch import nn
 
 from tauv_vision_tpu_torch.configs.centernet import ObjectConfigSet, get_head_channels
 from tauv_vision_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from tauv_vision_tpu_torch.models.centernet import Prediction
+from tauv_vision_tpu_torch.models.centernet import (
+    HEATMAP_BIAS,
+    Prediction,
+    prediction_from_heads,
+)
 from tauv_vision_tpu_torch.models.layers import (
     Conv2d,
     batch_norm,
@@ -55,7 +59,6 @@ DLA34_CHANNELS = (16, 32, 64, 128, 256, 512)
 FIRST_LEVEL = 2   # down ratio 4
 LAST_LEVEL = 5
 HEAD_CONV = 256
-HEATMAP_BIAS = -2.19
 UP_IMPLS = ("kernel", "plain")
 INITS = {"lecun": init_parameters, "flax": flax_init_parameters}
 # Stage names of ``f32_stages``: DLATrunk's ("early" is stem, level0 and
@@ -514,32 +517,3 @@ class CenterpointDLA34(nn.Module):
         dtype); the fields are f32."""
         return prediction_from_heads(self.object_config,
                                      [o.permute(0, 2, 3, 1) for o in self.model(img)])
-
-
-def prediction_from_heads(object_config: ObjectConfigSet,
-                          heads: Sequence[torch.Tensor]) -> Prediction:
-    """The ``Prediction`` of the heads' NHWC outputs, in the order of
-    ``get_head_channels`` (the JAX ``CenterpointDLA34``'s unpacking)."""
-    oc = object_config
-    out = list(heads)
-    heatmap = out.pop(0)
-    keypoint_heatmap = keypoint_affinity = None
-    if oc.train_keypoints:
-        keypoint_heatmap = out.pop(0)
-        aff = out.pop(0)
-        b, h, w, _ = aff.shape
-        keypoint_affinity = aff.reshape(b, h, w, oc.n_keypoints, 2)
-    size = out.pop(0)
-    offset = out.pop(0)
-    fields = {}
-    for name in ("yaw", "pitch", "roll"):
-        if getattr(oc, f"train_{name}"):
-            fields[f"{name}_bin"] = out.pop(0)
-            fields[f"{name}_offset"] = out.pop(0)
-    if oc.train_depth:
-        fields["depth"] = out.pop(0)
-    return Prediction(
-        heatmap=heatmap, keypoint_heatmap=keypoint_heatmap,
-        keypoint_affinity=keypoint_affinity, size=size, offset=offset,
-        **fields,
-    )

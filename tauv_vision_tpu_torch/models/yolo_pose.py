@@ -1,8 +1,8 @@
 """YOLO-Pose (counterpart of ``tauv_vision_tpu/models/yolo_pose.py``):
-the YOLACT skeleton (ResNet-18 -> FPN -> protonet on level 0) plus a
-Pointnet belief/affinity prototype cascade on FPN level 1 (stride 16), and
-one prediction head, shared across the levels, that also emits each
-anchor's belief and affinity coefficients.
+the YOLACT skeleton (the ResNet of ``backbone_depth`` -> FPN -> protonet
+on level 0) plus a Pointnet belief/affinity prototype cascade on FPN level
+1 (stride 16), and one prediction head, shared across the levels, that
+also emits each anchor's belief and affinity coefficients.
 
 Module names follow the JAX package's (``backbone``, ``fpn``,
 ``protonet``, ``pointnet``, ``prediction_head``), whose flax paths
@@ -31,7 +31,7 @@ from tauv_vision_tpu_torch.models.layers import (
 from tauv_vision_tpu_torch.models.pointnet import Pointnet
 from tauv_vision_tpu_torch.models.prediction_head import Bottleneck, extra_stage
 from tauv_vision_tpu_torch.models.protonet import Protonet
-from tauv_vision_tpu_torch.models.resnet import Resnet18Features
+from tauv_vision_tpu_torch.models.resnet import ResnetFeatures
 from tauv_vision_tpu_torch.ops.anchors import get_all_anchors
 
 
@@ -139,8 +139,8 @@ class YoloPose(nn.Module):
         cfg = config
         self.config = cfg
         self.dtype = dtype
-        self.backbone = Resnet18Features(dtype)
-        self.fpn = FeaturePyramid((128, 256, 512), cfg.feature_depth,
+        self.backbone = ResnetFeatures(cfg.backbone_depth, dtype)
+        self.fpn = FeaturePyramid(self.backbone.tap_depths, cfg.feature_depth,
                                   cfg.n_fpn_downsample_layers, dtype)
         self.protonet = Protonet(cfg.feature_depth, cfg.n_prototype_masks,
                                  cfg.n_masknet_layers_pre_upsample,

@@ -1,12 +1,15 @@
 """CenterNet training entry point (counterpart of
 ``tauv_vision_tpu/scripts/train_centernet.py``, with the same flags).
 
-Multi-dataset concat, the DCN ``CenterpointDLA34`` in bf16 as the JAX CLI
-builds it (its defaults: deformable IDA with a 3-cell window, the flax
-initialisers), optional warm start, Adam with gradient clipping, per-batch
-loss logging, epoch checkpoints, per-layer watch statistics.  The config
-module names the model, training and object configurations
-(``model_config``, ``train_config``, ``object_config``).
+Multi-dataset concat, the model in bf16 with the flax initialisers as the
+JAX CLI builds it, optional warm start, Adam with gradient clipping,
+per-batch loss logging, epoch checkpoints, per-layer watch statistics.  The
+config module names the model, training and object configurations
+(``model_config``, ``train_config``, ``object_config``) and may pick the
+backbone family (``backbone``): "dla34" (the default) is the DCN
+``CenterpointDLA34`` (deformable IDA with a 3-cell window, the JAX
+model's defaults), "dla" the custom ``Centernet`` built from
+``backbone_heights``, ``backbone_channels`` and ``downsamples``.
 
 Run on the card:
   python -m tauv_vision_tpu_torch.scripts.train_centernet \\
@@ -16,8 +19,7 @@ Run on the card:
 
 ``main(argv, device="cpu")`` runs it on the CPU.  Not here yet: the
 heatmap figures (ROADMAP Queue 1 item 3.2: without ``--no-figures`` the
-CLI raises), the custom ``backbone="dla"`` (Queue 1 item 6: raises) and
-data-parallel training (Queue 1 item 3.3).
+CLI raises) and data-parallel training (Queue 1 item 3.3).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from tauv_vision_tpu_torch.data.dataset_dir import Split
 from tauv_vision_tpu_torch.data.loader import BatchLoader, ConcatDataset
 from tauv_vision_tpu_torch.data.pose_dataset import PoseDataset, collate_pose_samples
 from tauv_vision_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from tauv_vision_tpu_torch.models.centernet import Centernet
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
 from tauv_vision_tpu_torch.train.checkpoint import CheckpointManager
 from tauv_vision_tpu_torch.train.metrics import JsonlWriter, MultiWriter, StdoutWriter
@@ -101,19 +104,20 @@ def main(argv=None, device=DEFAULT_DEVICE) -> TrainState:
     train_config = config_module.train_config
     object_config = config_module.object_config
     backbone = getattr(config_module, "backbone", "dla34")
-    if backbone != "dla34":
-        raise NotImplementedError(
-            f"backbone {backbone!r}: the port has only the DLA-34 backbone; the custom "
-            "'dla' backbone is ROADMAP Queue 1 item 6")
     if not args.no_figures:
         raise NotImplementedError(
             "the heatmap figures are not ported yet (ROADMAP Queue 1 item 3.2); "
             "pass --no-figures")
 
-    model = CenterpointDLA34(
-        object_config, device=device, deform=True, dcn_max_offset=DCN_MAX_OFFSET,
-        dtype=torch.bfloat16, init="flax",
-        generator=torch.Generator().manual_seed(INIT_SEED))
+    generator = torch.Generator().manual_seed(INIT_SEED)
+    if backbone == "dla34":
+        model = CenterpointDLA34(
+            object_config, device=device, deform=True, dcn_max_offset=DCN_MAX_OFFSET,
+            dtype=torch.bfloat16, init="flax", generator=generator)
+    else:
+        model = Centernet(
+            object_config, model_config.backbone_heights, model_config.backbone_channels,
+            model_config.downsamples, generator, device, dtype=torch.bfloat16)
 
     train_transform = build_train_transform(model_config, train_config)
     val_transform = build_val_transform(model_config)

@@ -14,7 +14,8 @@ upsamples and deformable convs are not recorded, as in the JAX package,
 whose ``calibrate`` sees only ``nn.Conv`` modules.  Scales are keyed by
 the JAX module path of the port's module name (``weights.yolact_flax_path``
 for the YOLACT, ``weights.centerpoint_calibration_paths`` for the
-CenterNet), so one scales dict feeds both stacks.  ``refine_scales_mse``
+DLA-34 CenterNet, ``weights.centernet_flax_path`` for the custom-DLA
+``Centernet``), so one scales dict feeds both stacks.  ``refine_scales_mse``
 (the clip factor of least squared quantization error, per channel) and
 ``calibrate_bias_correction`` (each conv's mean output error in int8,
 per output channel) read the calibrated convs' inputs the same way, and

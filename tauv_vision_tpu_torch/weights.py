@@ -7,12 +7,14 @@ HWIO -> OIHW, the depthwise upsample ``[k, k, 1, C]`` -> ``[C, 1, k, k]``,
 a DCN block's own ``weight`` [3, 3, C, O] / ``bias`` leaves -> its
 ``conv.weight`` [O, C, 3, 3] / ``conv.bias``,
 the protonet's transposed-conv ``[kh, kw, Cin, Cout]`` ->
-``[Cin, Cout, kh, kw]``, BatchNorm ``scale/bias/mean/var`` ->
-``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``).
-The port never needs JAX for this.
+``[Cin, Cout, kh, kw]`` (the custom DLA's IDA upsamples, flax
+``nn.ConvTranspose``s, flipped in space first), BatchNorm
+``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var`` (+
+``num_batches_tracked``).  The port never needs JAX for this.
 
-``centerpoint_flax_from_state_dict``, ``yolact_flax_from_state_dict`` and
-``yolo_pose_flax_from_state_dict`` are the ways back, and
+``centerpoint_flax_from_state_dict``, ``centernet_flax_from_state_dict``,
+``yolact_flax_from_state_dict`` and ``yolo_pose_flax_from_state_dict``
+are the ways back, and
 ``read_flax_variables`` / ``write_flax_variables`` read and write such a
 tree as the pickle of the JAX package's
 ``scripts/quantize_accuracy_check.py`` and ``scripts/yolact_parity_check.py``
@@ -54,6 +56,7 @@ def _get(tree: dict, path: Path) -> dict:
 def _convert(variables: dict, name_of: Callable[[Path], str],
              root: Path = (),
              transpose_of: Callable[[Path], tuple] = lambda p: _HWIO_TO_OIHW,
+             flipped: Callable[[Path], bool] = lambda p: False,
              ) -> Dict[str, torch.Tensor]:
     params = _get(variables["params"], root)
     stats = _get(variables.get("batch_stats", {}), root)
@@ -65,8 +68,10 @@ def _convert(variables: dict, name_of: Callable[[Path], str],
     for path, leaves in _modules(params):
         name = name_of(path)
         if "kernel" in leaves:
-            put(f"{name}.weight", np.transpose(
-                np.asarray(leaves["kernel"], np.float32), transpose_of(path)))
+            kernel = np.asarray(leaves["kernel"], np.float32)
+            if flipped(path):
+                kernel = kernel[::-1, ::-1]
+            put(f"{name}.weight", np.transpose(kernel, transpose_of(path)))
             if "bias" in leaves:
                 put(f"{name}.bias", leaves["bias"])
         elif "weight" in leaves:  # a DCN block's deformable conv
@@ -167,6 +172,106 @@ def centerpoint_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]
     return _convert(variables, _centerpoint_name, root=("model",))
 
 
+# The custom ``Centernet``'s flax tree: for each flax module kind, its
+# children as (flax type, port names, child kind).  The n-th child of a
+# type (``Conv_{n}``) is the port module names[n % len(names)] formatted
+# with n // len(names): an IDA stage's ``ConvBnRelu_{2k}`` and
+# ``ConvBnRelu_{2k+1}`` are its ``proj.{k}`` and ``node.{k}``, a residual
+# block's ``Conv_0`` its ``project``.  A child of the model that is not
+# its backbone is a head, under its own name.
+_DLA_CHILDREN = {
+    "Centernet": (("DLABackbone", ("backbone",), "DLABackbone"),),
+    "DLABackbone": (("DLADown", ("down",), "DLADown"),
+                    ("MultiIDAUp", ("ida_up",), "MultiIDAUp"),
+                    ("IDAUpReverse", ("ida_reverse",), "IDAUp")),
+    "DLADown": (("ConvBnRelu", ("stem",), "ConvBnRelu"),
+                ("ResidualBlock", ("downsample.{}",), "ResidualBlock"),
+                ("Tree", ("trees.{}",), "Tree")),
+    "MultiIDAUp": (("IDAUp", ("stages.{}",), "IDAUp"),),
+    "IDAUp": (("ConvBnRelu", ("proj.{}", "node.{}"), "ConvBnRelu"),
+              ("ConvTranspose", ("up.{}",), None)),
+    "Tree": (("Tree", ("tree1", "tree2"), "Tree"),
+             ("ResidualBlock", ("block1", "block2"), "ResidualBlock"),
+             ("Root", ("root",), "ConvBnRelu")),
+    "ResidualBlock": (("Conv", ("project", "conv1", "conv2"), None),
+                      ("BatchNorm", ("project_bn", "bn1", "bn2"), None)),
+    "ConvBnRelu": (("Conv", ("conv",), None), ("BatchNorm", ("bn",), None)),
+    "Head": (("Conv", ("conv", "out"), None),),
+}
+
+
+def _centernet_name(path: Path) -> str:
+    kind, out = "Centernet", []
+    for token in path:
+        auto = re.fullmatch(r"([A-Za-z]+)_(\d+)", token)
+        for flax_type, names, child in _DLA_CHILDREN.get(kind, ()):
+            if auto and auto[1] == flax_type:
+                n = int(auto[2])
+                name = names[n % len(names)]
+                if "{}" in name or n < len(names):
+                    kind = child
+                    out.append(name.format(n // len(names)))
+                    break
+        else:
+            if kind != "Centernet":
+                raise ValueError(f"unrecognised Centernet module {'/'.join(path)}")
+            kind = "Head"
+            out.append(token)
+    return ".".join(out)
+
+
+def _centernet_child(kind: str, tokens, i: int):
+    """(flax child name, its kind, tokens consumed) of the port name's
+    tokens from ``i`` in a module of ``kind``; None if none matches."""
+    for flax_type, names, child in _DLA_CHILDREN.get(kind, ()):
+        for j, name in enumerate(names):
+            if "{}" in name:
+                if name[:-len(".{}")] == tokens[i] and i + 1 < len(tokens):
+                    return f"{flax_type}_{int(tokens[i + 1]) * len(names) + j}", child, 2
+            elif name == tokens[i]:
+                return f"{flax_type}_{j}", child, 1
+    return None
+
+
+def centernet_flax_path(name: str) -> str:
+    """The JAX package's module path (``DLABackbone_0/MultiIDAUp_0/IDAUp_0/
+    ConvBnRelu_1/Conv_0``, ``heatmap/Conv_1``) of a port ``Centernet``
+    module name (``backbone.ida_up.stages.0.node.0.conv``,
+    ``heatmap.out``): the inverse of the naming used by
+    ``centernet_state_dict_from_flax``, so that calibration scales are
+    keyed the same in both stacks."""
+    tokens = name.split(".")
+    kind, out, i = "Centernet", [], 0
+    while i < len(tokens):
+        found = _centernet_child(kind, tokens, i)
+        if found is None:
+            if kind != "Centernet":
+                raise ValueError(f"unrecognised Centernet module {name}")
+            found = (tokens[i], "Head", 1)
+        out.append(found[0])
+        kind, i = found[1], i + found[2]
+    return "/".join(out)
+
+
+def _ida_upsample(path: Path) -> bool:
+    """Whether a flax module path is one of the custom DLA's IDA upsamples,
+    flax ``nn.ConvTranspose``s: with kernel = stride and VALID padding they
+    equal ``ConvTranspose2d`` with the kernel flipped in space."""
+    return path[-1].startswith("ConvTranspose")
+
+
+def _centernet_transpose_of(path: Path) -> tuple:
+    return _HWIO_TO_TRANSPOSED if _ida_upsample(path) else _HWIO_TO_OIHW
+
+
+def centernet_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """The custom ``Centernet``'s weights -> the port's ``Centernet`` state
+    dict; the IDA upsamples' kernels ``[k, k, Cin, Cout]`` flipped in
+    space, then -> ``[Cin, Cout, k, k]``."""
+    return _convert(variables, _centernet_name, transpose_of=_centernet_transpose_of,
+                    flipped=_ida_upsample)
+
+
 _HEAD_GROUPS = {"shared": "_extra", "cls": "_classification_extra",
                 "box": "_box_extra", "mask": "_mask_extra"}
 _HEAD_OUTPUTS = {"classification": "_classification_layer",
@@ -176,7 +281,7 @@ _HEAD_OUTPUTS = {"classification": "_classification_layer",
 def _yolact_name(path: Path) -> str:
     top, rest = path[0], path[1:]
     if top == "backbone":
-        block = re.fullmatch(r"layer(\d)_(\d)", rest[0])
+        block = re.fullmatch(r"layer(\d)_(\d+)", rest[0])
         if block is None:
             return "_backbone." + rest[0]
         sub = {"downsample_conv": "downsample.0",
@@ -288,10 +393,12 @@ def _yolo_pose_name(path: Path) -> str:
 
 def yolo_pose_flax_path(name: str) -> str:
     """The JAX package's module path (``pointnet/belief_0/conv_1``,
-    ``prediction_head/shared_0/bottleneck/conv1``, ``backbone/layer1_0/conv1``)
-    of a port ``YoloPose`` module name (``pointnet.belief.0.convs.1``,
-    ``prediction_head.shared.0.bottleneck.conv1``,
-    ``backbone.layer1.0.conv1``): the inverse of the naming used by
+    ``prediction_head/shared_0/bottleneck/conv1``, ``backbone/layer1_0/conv1``,
+    a deep trunk's ``backbone/layer3_22/conv3`` and
+    ``backbone/layer1_0/downsample_bn``) of a port ``YoloPose`` module name
+    (``pointnet.belief.0.convs.1``, ``prediction_head.shared.0.bottleneck.conv1``,
+    ``backbone.layer1.0.conv1``, ``backbone.layer3.22.conv3``,
+    ``backbone.layer1.0.downsample.1``): the inverse of the naming used by
     ``yolo_pose_state_dict_from_flax``."""
     top, _, rest = name.partition(".")
     if top in _YOLACT_PREFIXES:
@@ -325,7 +432,8 @@ def _put(tree: dict, path: str, leaf: str, value: np.ndarray) -> None:
 
 
 def _flax_from_state_dict(state_dict: Dict[str, torch.Tensor], flax_path: Callable[[str], str],
-                          transposed: Callable[[Path], bool] = lambda path: False) -> dict:
+                          transposed: Callable[[Path], bool] = lambda path: False,
+                          flipped: Callable[[Path], bool] = lambda path: False) -> dict:
     """A port state dict -> the JAX package's ``{"params", "batch_stats"}``
     tree of f32 numpy arrays, each module at ``flax_path(name)``: conv
     kernels OIHW -> HWIO (a transposed conv's, where ``transposed`` holds
@@ -334,7 +442,8 @@ def _flax_from_state_dict(state_dict: Dict[str, torch.Tensor], flax_path: Callab
     ``conv.weight`` / ``conv.bias`` -> its own ``weight`` / ``bias``
     leaves, BatchNorm ``weight/bias`` -> ``scale/bias`` under ``params``
     and ``running_mean/var`` -> ``mean/var`` under ``batch_stats``;
-    ``num_batches_tracked`` has no counterpart."""
+    ``num_batches_tracked`` has no counterpart.  A kernel whose path
+    ``flipped`` holds for is flipped in space back, as it was imported."""
     variables: dict = {"params": {}, "batch_stats": {}}
 
     def array(t):
@@ -356,8 +465,12 @@ def _flax_from_state_dict(state_dict: Dict[str, torch.Tensor], flax_path: Callab
         path = flax_path(module)
         value = array(value)
         if leaf == "weight":
-            order = _HWIO_TO_TRANSPOSED if transposed(tuple(path.split("/"))) else _OIHW_TO_HWIO
-            value = np.ascontiguousarray(np.transpose(value, order))
+            tokens = tuple(path.split("/"))
+            value = np.transpose(value, _HWIO_TO_TRANSPOSED if transposed(tokens)
+                                 else _OIHW_TO_HWIO)
+            if flipped(tokens):
+                value = value[::-1, ::-1]
+            value = np.ascontiguousarray(value)
         _put(variables["params"], path, name, value)
     return variables
 
@@ -367,6 +480,13 @@ def centerpoint_flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dic
     ``CenterpointDLA34`` state dict -> the JAX package's variables tree
     (``_flax_from_state_dict``)."""
     return _flax_from_state_dict(state_dict, centerpoint_flax_path)
+
+
+def centernet_flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``centernet_state_dict_from_flax``: a port
+    ``Centernet`` state dict -> the JAX package's variables tree, the IDA
+    upsamples permuted and flipped back."""
+    return _flax_from_state_dict(state_dict, centernet_flax_path, _ida_upsample, _ida_upsample)
 
 
 def yolact_flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:

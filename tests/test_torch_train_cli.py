@@ -16,9 +16,12 @@ statistics against the JAX package's.
   (``--checkpoint``): its first step is the saved step's successor, and
   its model and Adam moments before training equal the saved ones bit
   for bit.  JAX's own DLA-34 CLI is not run here (a full-width compile).
+- The custom ``backbone="dla"`` (``samples_torpedo``'s Centernet, its
+  five trees of height 2 and six levels of 128 channels, in bf16 with the
+  flax initialisers, as the JAX CLI builds it) trains two finite steps
+  and warm-starts from its checkpoint, its model restored bit for bit.
 - What the CLI does not do yet raises: the figures (without
-  ``--no-figures``), the custom ``backbone="dla"``, and the card when
-  there is none (no quiet CPU run).
+  ``--no-figures``), and the card when there is none (no quiet CPU run).
 """
 
 import dataclasses
@@ -35,6 +38,7 @@ from torch import nn
 from tauv_vision_tpu.train.watch import watch_metrics as jax_watch_metrics
 from tauv_vision_tpu_torch.configs import samples_torpedo
 from tauv_vision_tpu_torch.data.synthetic import write_square_pose_dataset
+from tauv_vision_tpu_torch.models.centernet import Centernet
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
 from tauv_vision_tpu_torch.scripts import train_centernet
 from tauv_vision_tpu_torch.train.checkpoint import CheckpointManager
@@ -156,11 +160,39 @@ def test_torch_train_cli_trains_and_warm_starts(cli_run, capsys):
     assert "epoch 0: train=" in capsys.readouterr().out
 
 
+def test_torch_train_cli_custom_dla_trains_and_warm_starts(cli_run):
+    results, state = cli_run("cli_dla", "--no-figures", "--epoch-n-batches", "2", epochs=1,
+                             backbone="dla")
+    model = state.model
+    assert isinstance(model, Centernet) and state.step == 2
+    assert next(model.parameters()).device.type == "cpu"
+    assert model.backbone.down.trees[0].tree2.root.conv.compute_dtype == torch.bfloat16
+    assert len(model.backbone.down.trees) == 5 and len(model.backbone.ida_up.stages) == 5
+    train = [r for r in _records(results) if "train/total" in r]
+    assert [r["step"] for r in train] == [0, 1]
+    assert all(math.isfinite(r["train/total"]) for r in train)
+
+    manager = CheckpointManager(results / "checkpoints")
+    saved = torch.load(results / "checkpoints" / "2" / "state.pt", weights_only=True)
+    mc, oc = samples_torpedo.model_config, samples_torpedo.object_config
+    fresh = Centernet(oc, mc.backbone_heights, mc.backbone_channels, mc.downsamples,
+                      device="cpu", dtype=torch.bfloat16)
+    restored = manager.restore(TrainState(fresh, adam_with_clip(fresh.parameters(), 5e-4, 1.0)))
+    assert restored.step == 2
+    for name, value in restored.model.state_dict().items():
+        assert torch.equal(value, saved["model"][name]), name
+
+    results2, state2 = cli_run("cli_dla_warm", "--no-figures", "--checkpoint",
+                               str(results / "checkpoints"), "--epoch-n-batches", "2",
+                               epochs=1, backbone="dla")
+    train2 = [r for r in _records(results2) if "train/total" in r]
+    assert [r["step"] for r in train2] == [2, 3] and state2.step == 4
+    assert all(math.isfinite(r["train/total"]) for r in train2)
+
+
 def test_torch_train_cli_refuses_what_it_lacks(cli_run):
     with pytest.raises(NotImplementedError, match="figures"):
         cli_run("cli_figures")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        cli_run("cli_dla", "--no-figures", backbone="dla")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli_run("cli_card", "--no-figures", device="cuda")

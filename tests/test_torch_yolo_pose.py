@@ -165,8 +165,11 @@ def test_torch_yolo_pose_config_round_trip(tmp_path):
     assert dataclasses.asdict(JaxYoloPoseModelConfig.load(path)) == CFG.to_dict()
     JAX_CFG.save(tmp_path / "jax.json")
     assert YoloPoseModelConfig.load(tmp_path / "jax.json") == CFG
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        YoloPoseModelConfig(**{**SMALL, "backbone_depth": 50})
+    # Every depth of the JAX ``ResnetFeatures`` builds; another raises.
+    assert YoloPose(YoloPoseModelConfig(**{**SMALL, "backbone_depth": 50}),
+                    device="cpu").backbone.tap_depths == (512, 1024, 2048)
+    with pytest.raises(ValueError, match="backbone_depth"):
+        YoloPoseModelConfig(**{**SMALL, "backbone_depth": 42})
 
 
 def _flax_leaves(variables):

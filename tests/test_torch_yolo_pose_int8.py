@@ -224,10 +224,7 @@ def test_torch_yolo_pose_chain_refuses_other_models(nets):
     yolact = yolact_pair(YolactModelConfig(**SMALL_YOLACT), 0)[3]
     with pytest.raises(TypeError, match="YoloPose"):
         port_chain.yolo_pose_chain_forward(port_chain.ChainCtx(yolact, {}))
-    cfg = dataclasses.replace(CFG)
-    object.__setattr__(cfg, "backbone_depth", 50)
-    model = YoloPose(CFG, device="cpu")
-    model.config = cfg
+    model = YoloPose(dataclasses.replace(CFG, backbone_depth=50), device="cpu")
     with pytest.raises(NotImplementedError, match="ResNet-18"):
         port_chain.yolo_pose_chain_forward(port_chain.ChainCtx(
             model, scales, path_of=yolo_pose_flax_path))
