@@ -9,7 +9,8 @@ two requests, as ``bench.py`` times them (six of them in int8, four in
 bf16, and one through the serving executor from disk), three serve the
 CenterNet node's full configuration alone, and three serve YOLO-Pose;
 phase 20 also serves the custom-DLA CenterNet (``dla_centernet``) and
-YOLO-Pose on the deep ResNet trunks (``yolo_pose_deep``):
+YOLO-Pose on the deep ResNet trunks (``yolo_pose_deep``), and phase 21
+trains and serves data-parallel on two ranks (``data_parallel_*``):
 
 - ``plain_ida``: the CenterpointDLA34 with plain-conv IDA (the IDA that
   ``bench.py`` serves with no flags), all f32, beside the f32 YOLACT;
@@ -386,7 +387,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
    trunks at the CLI's widths (960x480, feature depth 64, 21 classes),
    batch 4: one bf16 train step each (every gradient finite) and a bf16
    request each (kernel B without the crop, counted, and held to its
-   plain version on the net's belief maps), their ms printed.
+   plain version on the net's belief maps), their ms printed;
+21. data_parallel: data parallelism (``parallel/``): a one-rank NCCL group
+   on this card runs one all-reduce; then 2 gloo ranks spawned on this
+   card (``parallel.distributed.spawn``: NCCL refuses two ranks on one
+   device) run ``scripts/dryrun_multichip``'s jobs at global batch 8, each
+   against the same job in this process: one f32 train step of the
+   plain-IDA ``CenterpointDLA34`` at 360x640 (TF32 off, cuDNN
+   deterministic; every loss term within 1e-5 relative and every summed
+   gradient within 1e-4 relative L2, or ``YARDSTICK`` times the single
+   step's own move under an input scale of 1 +- ``NUDGE``; C 8 launches a
+   rank), one bf16 step of the DCN DLA-34 with the offset penalty
+   (offsets drawn a few cells long; the loss and the penalty finite and
+   each within 1e-2 relative of the single step; E 16 launches a rank),
+   and the f32 ``make_centernet_pipeline`` and ``make_yolact_pipeline`` on
+   640x480 frames (decodes 100% matched, p95 <= 1e-5; A and C, and B,
+   launched on each rank); every kernel call of the one-process runs (the
+   first at each distinct shape) cut to rank 0's 4 rows and held against
+   its plain version (A, B, C f32 and bf16, E bf16, phase 3's and 5's
+   tolerances); the DP step's ms and its collectives' share (calls,
+   bytes, ms), beside the single step's ms.
 
 Each phase prints its seconds, and the script its total.
 
@@ -405,6 +425,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import itertools
 import json
@@ -416,6 +437,7 @@ import sys
 import tempfile
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -506,7 +528,9 @@ from tauv_vision_tpu_torch.scripts import (
     train_yolact,
     train_yolo_pose,
 )
+from tauv_vision_tpu_torch.parallel import distributed
 from tauv_vision_tpu_torch.scripts import dcn_offset_stats as dos
+from tauv_vision_tpu_torch.scripts import dryrun_multichip
 from tauv_vision_tpu_torch.scripts import quantize_accuracy_check as qac
 from tauv_vision_tpu_torch.scripts import yolact_parity_check as ypc
 from tauv_vision_tpu_torch.scripts.kernel_times import queued_ms, time_ms
@@ -5669,7 +5693,7 @@ def keypoints_per_layer_phase(kp_net, kp_scales, card):
 # scripts/quantize_accuracy_check.py on the card: its training, then its
 # modes on the trained weights, each cut in depth (the training, the
 # evaluation set, the bootstrap, the keypoint net's training, QAT).
-QA_STEPS = 75             # the training's steps (the script's 300)
+QA_STEPS = 50             # the training's steps (the script's 300)
 QA_EVAL_BATCHES = 2       # of 16 frames: 32 images (the script's 32: 512)
 QA_BOOTSTRAP = 200        # resamples (the script's 1,000)
 QA_KP_STEPS = 50          # the keypoint net's training steps (300)
@@ -6227,7 +6251,7 @@ def dcn_profiles_phase(nets, cn_cfg, yl, yl_cfg, chains, yl_scales, yl_bf16, car
 
 # scripts/yolact_parity_check.py and scripts/dcn_offset_stats.py on the
 # card, each cut in depth: the YOLACT's evaluation set, the DCN trainings.
-TW_YL_STEPS = 75          # the YOLACT's training steps (the script's 300)
+TW_YL_STEPS = 50          # the YOLACT's training steps (the script's 300)
 TW_EVAL_BATCHES = 2       # of 16 frames: 32 images (the script's 32: 512)
 TW_DCN_STEPS = 30         # each DCN training's steps (the script's 200)
 TW_DCN_LOG_EVERY = 5      # the DCN runs' log lines (the script's 25)
@@ -6698,6 +6722,334 @@ def dla_centernet_phase(card, errs, cli_roots):
     return served
 
 
+# ---- phase 21 -------------------------------------------------------------
+
+DP_RANKS = 2
+DP_BATCH = 8              # the global batch: 4 rows a rank
+DP_TIMED = 1              # timed steps and requests, after one warm-up
+DP_LOSS_RTOL, DP_GRAD_RTOL = TRAIN_BARS[torch.float32]
+DP_DCN_RTOL = 1e-2        # the bf16 DCN step's loss and offset penalty, against one process
+DP_P95 = 1e-5
+DP_SEED = 21
+DP_OFFSET_GAIN, DP_OFFSET_BIAS = 1.5, 1.0   # tests/test_torch_dryrun_multichip.py's
+DP_TRAIN, DP_DCN, DP_SERVE = "data_parallel_train", "data_parallel_dcn", "data_parallel_serve"
+
+
+def dp_weights(build, seed):
+    """A model's weights drawn on the CPU from ``seed``."""
+    return {k: v.clone() for k, v in
+            build(device="cpu", generator=torch.Generator().manual_seed(seed)).state_dict().items()}
+
+
+def dp_with_offsets(weights):
+    """DCN offset convs drawn so that the offsets reach a few cells (the
+    flax init's are 0, where the penalty is 0)."""
+    rng = np.random.default_rng(DP_SEED)
+    out = dict(weights)
+    for key, value in weights.items():
+        if ".offset." in key:
+            draw = (rng.normal(0.0, DP_OFFSET_GAIN / np.sqrt(value[0].numel()), tuple(value.shape))
+                    if key.endswith("weight")
+                    else rng.uniform(-DP_OFFSET_BIAS, DP_OFFSET_BIAS, tuple(value.shape)))
+            out[key] = torch.from_numpy(draw.astype(np.float32))
+    return out
+
+
+def dp_jobs():
+    """The phase's jobs: the f32 train step, the bf16 DCN step, the two
+    pipelines (``dryrun_multichip.TrainJob`` / ``ServeJob``)."""
+    oc, mc, tc, img, truth = train_setup()
+    img = img[:DP_BATCH]
+    truth = dataclasses.replace(truth, **{f.name: getattr(truth, f.name)[:DP_BATCH]
+                                          for f in dataclasses.fields(truth)
+                                          if getattr(truth, f.name) is not None})
+    plain = functools.partial(CenterpointDLA34, oc, deform=False, init="flax")
+    dcn = functools.partial(CenterpointDLA34, oc, deform=True, dtype=torch.bfloat16,
+                            dcn_max_offset=DCN_WINDOW, init="flax")
+    dcn_tc = dataclasses.replace(tc, loss_lambda_dcn_offset=1.0, dcn_offset_range=1.0)
+    serve_oc, cn_cfg = centernet_config()
+    yl_cfg = yolact_config()
+    cn = functools.partial(CenterpointDLA34, serve_oc, deform=False)
+    yl = functools.partial(Yolact, yl_cfg)
+    frames = request_frames(DP_SEED, (DP_BATCH, FRAME_H, FRAME_W, 3)).numpy()
+    return [
+        dryrun_multichip.TrainJob(DP_TRAIN, "centernet", plain, dp_weights(plain, DP_SEED),
+                                  (mc, tc, oc), img, truth, lr=tc.lr, grads=True, exact=True,
+                                  time_iters=DP_TIMED),
+        dryrun_multichip.TrainJob(DP_DCN, "centernet", dcn,
+                                  dp_with_offsets(dp_weights(dcn, DP_SEED)), (mc, dcn_tc, oc),
+                                  img, truth, lr=tc.lr, time_iters=DP_TIMED),
+        dryrun_multichip.ServeJob(DP_SERVE + "/centernet", "centernet", cn,
+                                  dp_weights(cn, DP_SEED), cn_cfg, frames, ALL_SLOTS,
+                                  exact=True, time_iters=DP_TIMED),
+        dryrun_multichip.ServeJob(DP_SERVE + "/yolact", "yolact", yl, dp_weights(yl, DP_SEED),
+                                  yl_cfg, frames, ALL_SLOTS, exact=True, time_iters=DP_TIMED),
+    ]
+
+
+def dp_nccl_group_of_one():
+    """A one-rank NCCL group on this card (made by ``torch.distributed``
+    itself: ``initialize`` makes no group of one), one all-reduce, then the
+    group left."""
+    address = f"127.0.0.1:{distributed.free_port()}"
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://{address}", world_size=1,
+                                         rank=0, timeout=distributed.TIMEOUT)
+    try:
+        t = torch.arange(4.0, device="cuda")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        require(torch.equal(t.cpu(), torch.arange(4.0)), f"data_parallel: NCCL all-reduce {t}")
+        backend = torch.distributed.get_backend()
+    finally:
+        distributed.shutdown()
+    print(f"data_parallel: a one-rank {backend} group all-reduced 4 floats")
+
+
+# The wrappers of phase 21's paths, where the paths look them up: (module,
+# wrapper, the arguments that are rows of the batch).
+DP_WRAPPERS = (("serving.centernet_decode", "peak_decode_cuda", (0,)),
+               ("serving.yolact_decode", "assemble_mask_cuda", (0, 1, 2)),
+               ("ops.conv_transpose", "depthwise_upsample_cuda", (0,)),
+               ("ops.deform_conv", "deform_conv2d_cuda", (0, 1, 2)))
+
+
+@contextlib.contextmanager
+def dp_recorded_calls():
+    """Inside the ``with``, each wrapper of ``DP_WRAPPERS`` keeps a copy of
+    its first call at each distinct shape, into the dict yielded: {key:
+    (wrapper, args, keyword options)}.  The wrappers launch as before."""
+    import importlib
+
+    calls = {}
+
+    def recording(name, fn):
+        def call(*args, **kwargs):
+            key = (name,) + tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else a
+                                  for a in args) + tuple(
+                (k, v) for k, v in sorted(kwargs.items()) if not torch.is_tensor(v))
+            if key not in calls:
+                calls[key] = (name, [a.detach().clone() if torch.is_tensor(a) else a
+                                     for a in args],
+                              {k: v for k, v in kwargs.items() if k in ("max_offset", "variant")})
+            return fn(*args, **kwargs)
+        return call
+
+    modules = [importlib.import_module(f"tauv_vision_tpu_torch.{m}") for m, _, _ in DP_WRAPPERS]
+    originals = [getattr(m, name) for m, (_, name, _) in zip(modules, DP_WRAPPERS)]
+    for m, (_, name, _), fn in zip(modules, DP_WRAPPERS, originals):
+        setattr(m, name, recording(name, fn))
+    try:
+        yield calls
+    finally:
+        for m, (_, name, _), fn in zip(modules, DP_WRAPPERS, originals):
+            setattr(m, name, fn)
+
+
+def dp_check_kernels(calls):
+    """Each kernel call recorded on phase 21's one-process runs (the first
+    at each distinct shape) cut to its first ``DP_BATCH // DP_RANKS`` rows,
+    the rows rank 0 gives the kernel, against the kernel's plain version
+    on them, at phase 3's and 5's tolerances.  Returns {row of the kernels
+    line: max_abs_err}."""
+    per = DP_BATCH // DP_RANKS
+    batched = {name: rows for _, name, rows in DP_WRAPPERS}
+    errs = {}
+    for name, args, options in calls.values():
+        require(all(args[i] is None or args[i].shape[0] == DP_BATCH for i in batched[name]),
+                f"data_parallel: {name} called on another batch than {DP_BATCH}")
+        args = [a[:per] if i in batched[name] and a is not None else a
+                for i, a in enumerate(args)]
+        x = args[0]
+        shape = tuple(x.shape)
+        if name == "peak_decode_cuda":
+            k = args[1]
+            require(k in (SERVING_DECODE.n_detections, SERVING_DECODE.keypoint_n_detections),
+                    f"data_parallel: kernel A at K={k}")
+            row = "peak_decode" if k == SERVING_DECODE.n_detections else "peak_decode_k50"
+            got, want = peak_decode_cuda(*args), peak_decode(*args)
+            torch.cuda.synchronize()
+            e = (got[2] - want[2]).abs().max().item()
+            require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                    and e <= PEAK_ATOL, f"data_parallel: kernel A {shape} K={k}: indices, "
+                                        f"labels or score err {e}")
+            tol = f"index/label exact, score atol {PEAK_ATOL}"
+        elif name == "assemble_mask_cuda":
+            row = "mask_assembly"
+            got, want = assemble_mask_cuda(*args), assemble_mask_batch(*args)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            require(e <= MASK_ATOL, f"data_parallel: kernel B proto {shape}: err {e}")
+            tol = f"atol {MASK_ATOL}"
+        elif name == "depthwise_upsample_cuda":
+            got, want = depthwise_upsample_cuda(*args), depthwise_upsample(*args)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            e = diff.max().item()
+            if x.dtype == torch.float32:
+                row, tol = "depthwise_upsample", f"rtol=atol={UPSAMPLE_TOL}"
+                bad = (diff > UPSAMPLE_TOL + UPSAMPLE_TOL * want.abs()).any().item()
+            else:
+                row, tol = "depthwise_upsample_bf16", "one bf16 ulp"
+                bad = (diff / bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+                       ).max().item() > 1.0
+            require(got.shape == want.shape and not bad,
+                    f"data_parallel: kernel C {x.dtype} {shape} f={args[2]}: err {e}")
+        else:
+            got = deform_conv2d_cuda(*args, **options)
+            want = deform_conv2d(*args, **options)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            e = diff.max().item()
+            if x.dtype == torch.float32:
+                row, tol = "deform_conv", f"rtol=atol={DCN_TOL}"
+                bar = DCN_TOL + DCN_TOL * want.abs()
+            else:
+                row, tol = "deform_conv_bf16", "one bf16 ulp + 9 C 2^-24 max|plain|"
+                big = torch.maximum(got.float().abs(), want.float().abs())
+                bar = bf16_ulp(big) + 9 * shape[1] * 2.0 ** -24 * want.float().abs().max()
+            require(got.shape == want.shape and bool(torch.isfinite(got).all())
+                    and not (diff > bar).any().item(),
+                    f"data_parallel: kernel E {x.dtype} {shape} {options}: err {e}")
+        errs[row] = max(errs.get(row, 0.0), e)
+        print(f"check {row} data_parallel rank 0's {shape}: max_abs_err {e:.3g} ({tol})")
+    return errs
+
+
+def dp_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def dp_check_train(job, ranks, one, moved):
+    """The f32 DP step against one process: losses and gradients (module
+    docstring); returns (max loss error, max gradient error, parameters
+    held by the yardstick)."""
+    def bar(base, want, name):
+        return max([base] + [YARDSTICK * dp_rel(m["grads"][name], want) for m in moved])
+
+    got = ranks[0]["losses"]
+    require(all(r["losses"] == got for r in ranks), f"{job.name}: the ranks' losses differ")
+    loss_err = 0.0
+    for name, value in got.items():
+        err = dp_rel(value, one["losses"][name])
+        require(err <= DP_LOSS_RTOL,
+                f"{job.name}: loss {name} {value} against {one['losses'][name]}")
+        loss_err = max(loss_err, err)
+    grads, want = ranks[0]["grads"], one["grads"]
+    require(set(grads) == set(want), f"{job.name}: gradients of other parameters")
+    grad_err, by_yardstick, errs, moves = 0.0, 0, [], []
+    for name, g in grads.items():
+        w = want[name]
+        weight = name[:-len("bias")] + "weight"
+        if name.endswith(".bias") and weight in want and (
+                np.linalg.norm(w) <= DP_GRAD_RTOL * np.linalg.norm(want[weight])):
+            # 0 in exact arithmetic (a conv bias before a batch-statistics BatchNorm).
+            require(np.linalg.norm(g) <= DP_GRAD_RTOL * np.linalg.norm(grads[weight]),
+                    f"{job.name}: {name}'s gradient is not ~0")
+            continue
+        if not w.any():
+            require(not g.any(), f"{job.name}: {name}'s gradient is not 0")
+            continue
+        err = dp_rel(g, w)
+        limit = bar(DP_GRAD_RTOL, w, name)
+        require(err <= limit, f"{job.name}: {name}'s gradient {err:.3g} > {limit:.3g}")
+        by_yardstick += err > DP_GRAD_RTOL
+        grad_err = max(grad_err, err)
+        errs.append(err)
+        moves.append(max(dp_rel(m["grads"][name], w) for m in moved))
+    print(f"{job.name}: {len(errs)} gradients, relative L2 to one process: median "
+          f"{np.median(errs):.3g}, p90 {np.percentile(errs, 90):.3g}; the single step's own "
+          f"move under the nudge: median {np.median(moves):.3g}, p90 "
+          f"{np.percentile(moves, 90):.3g}")
+    return loss_err, grad_err, by_yardstick
+
+
+def data_parallel_phase(card):
+    """Phase 21 (see the module docstring); returns ({path: launches summed
+    over the ranks} for the kernels line, {row: max_abs_err} of the kernels
+    at rank 0's shapes)."""
+    t0 = time.perf_counter()
+    dp_nccl_group_of_one()
+    jobs = dp_jobs()
+    t1 = lap("data_parallel jobs", t0)
+    ranks = distributed.spawn(dryrun_multichip.rank_jobs, DP_RANKS, jobs, device="cuda")
+    t1 = lap(f"data_parallel {DP_RANKS} ranks", t1)
+    with dp_recorded_calls() as calls:
+        single = [dryrun_multichip.run(job, None, "cuda") for job in jobs]
+    # The f32 train step's own move under an input scale of 1 +- NUDGE.
+    moved = [dryrun_multichip.run(dataclasses.replace(jobs[0], img=jobs[0].img * (1 + sign * NUDGE),
+                                                      time_iters=0), None, "cuda")
+             for sign in (1, -1)]
+    t1 = lap("data_parallel one process", t1)
+    errs = dp_check_kernels(calls)
+    del calls
+    require({"peak_decode", "mask_assembly", "depthwise_upsample", "depthwise_upsample_bf16",
+             "deform_conv_bf16"} <= set(errs), f"data_parallel: kernels checked {sorted(errs)}")
+    lap("data_parallel kernels at rank 0's shapes", t1)
+    by_job = [[r[i] for r in ranks] for i in range(len(jobs))]
+
+    train = jobs[0]
+    loss_err, grad_err, by_yardstick = dp_check_train(train, by_job[0], single[0], moved)
+    for rank in by_job[0]:
+        require(rank["launches"]["kernels"]["depthwise_upsample"] == 8,
+                f"{DP_TRAIN}: C launches {rank['launches']['kernels']}")
+    dcn = by_job[1][0]["losses"]
+    require(all(r["losses"] == dcn for r in by_job[1]), f"{DP_DCN}: the ranks' losses differ")
+    dcn_one = single[1]["losses"]
+    require(dcn_one["dcn_offset"] > 0, f"{DP_DCN}: no offset penalty")
+    dcn_errs = {name: dp_rel(dcn[name], dcn_one[name]) for name in ("total", "dcn_offset")}
+    require(all(np.isfinite(dcn[name]) and err <= DP_DCN_RTOL for name, err in dcn_errs.items()),
+            f"{DP_DCN}: DP losses {dcn} against {dcn_one} (bar {DP_DCN_RTOL})")
+    for rank in by_job[1]:
+        entries = rank["launches"]["entries"]
+        require(entries["tauv_deform_conv_bf16"] == N_DCN,
+                f"{DP_DCN}: E launches {entries['tauv_deform_conv_bf16']} a rank")
+    serve_p95 = 0.0
+    for job, rs, one in zip(jobs[2:], by_job[2:], single[2:]):
+        want = SimpleNamespace(**one["detections"])
+        for rank in rs:
+            deltas = detection_deltas(SimpleNamespace(**rank["detections"]), want)
+            p95 = max(v for k, v in deltas.items() if k.endswith("_p95"))
+            require(deltas["total"] > 0 and deltas["matched_fraction"] == 1.0 and p95 <= DP_P95,
+                    f"{job.name}: DP decode against one process {deltas}")
+            serve_p95 = max(serve_p95, p95)
+            counts = rank["launches"]["kernels"]
+            need = (("peak_decode", "depthwise_upsample") if job.kind == "centernet"
+                    else ("mask_assembly",))
+            require(all(counts[k] > 0 for k in need), f"{job.name}: launches {counts}")
+    print(f"data_parallel: f32 train step of the plain-IDA DLA-34 at "
+          f"{train.img.shape[1]}x{train.img.shape[2]}, global batch {DP_BATCH} on "
+          f"{DP_RANKS} gloo ranks on one card: losses max rel {loss_err:.3g} (bar "
+          f"{DP_LOSS_RTOL:g}), gradients max rel L2 {grad_err:.3g} (bar {DP_GRAD_RTOL:g}; "
+          f"{by_yardstick} held by the yardstick); bf16 DCN step loss {dcn['total']:.6g} against "
+          f"{dcn_one['total']:.6g}, rel {dcn_errs['total']:.3g}, its offset penalty "
+          f"{dcn['dcn_offset']:.6g} against {dcn_one['dcn_offset']:.6g}, rel "
+          f"{dcn_errs['dcn_offset']:.3g} (bar {DP_DCN_RTOL:g} on each); pipelines "
+          f"100% matched, p95 max {serve_p95:.3g}; kernels at rank 0's shapes against their "
+          f"plain versions, max_abs_err {errs}")
+    for job, rs, one in zip(jobs, by_job, single):
+        r = rs[0]
+        print(f"data_parallel {job.name}: {r['ms']:.2f} ms a step on {DP_RANKS} ranks of one card "
+              f"(rank 0; one process {one['ms']:.2f} ms); with every collective timed "
+              f"{r['timed_ms']:.2f} ms, collectives {r['collective_ms']:.2f} ms "
+              f"({100 * r['collective_share']:.1f}%), {r['collective_calls']:.0f} calls, "
+              f"{r['collective_bytes'] / 2 ** 20:.1f} MiB a step; the job {r['seconds']:.1f} s "
+              f"on rank 0, its build and {DP_TIMED} timed steps included [{card}]")
+
+    def summed(rs):
+        out = []
+        for what in ("kernels", "entries", "variants"):
+            total = {}
+            for r in rs:
+                for k, v in r["launches"][what].items():
+                    total[k] = total.get(k, 0) + v
+            out.append(total)
+        return tuple(out)
+
+    return {DP_TRAIN: summed(by_job[0]), DP_DCN: summed(by_job[1]),
+            DP_SERVE: summed(by_job[2] + by_job[3])}, errs
+
+
 def _first_path(paths):
     return paths if paths is None or isinstance(paths, str) else paths[0]
 
@@ -6797,7 +7149,13 @@ def main(argv=None) -> int:
     with phase(DLA_PATH):
         served.update(dla_centernet_phase(card, errs, cli_dataset_roots(cli_data.name)))
     cli_data.cleanup()
-    all_paths = ALL_PATHS + tuple(DCN_PROFILES) + ("trained_weights", DLA_PATH, YP_DEEP_PATH)
+    with phase("data_parallel"):
+        dp_served, dp_errs = data_parallel_phase(card)
+    served.update(dp_served)
+    for row, e in dp_errs.items():
+        errs[row] = max(errs[row], e)
+    all_paths = ALL_PATHS + tuple(DCN_PROFILES) + ("trained_weights", DLA_PATH, YP_DEEP_PATH,
+                                                   DP_TRAIN, DP_DCN, DP_SERVE)
 
     def launches(path, row):
         kernel, entry = ROWS[row]

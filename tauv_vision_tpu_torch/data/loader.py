@@ -15,7 +15,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Iterator, List, Sequence
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -38,6 +38,13 @@ class BatchLoader:
 
     ``collate_fn(samples) -> batch`` receives ``batch_size`` raw samples.
     Incomplete trailing batches are dropped (static shapes).
+
+    ``shard=(rank, world)`` (data parallelism): ``batch_size`` stays the
+    global batch and must divide by ``world``; every rank draws the same
+    permutation for a seed and epoch and collates only its rows
+    ``host_local_batch_slice`` of each global batch, so the ranks' batch k,
+    concatenated, is the unsharded loader's batch k (the collate pads to
+    fixed sizes, row by row).
     """
 
     def __init__(
@@ -50,9 +57,16 @@ class BatchLoader:
         prefetch: int = 2,
         seed: int = 0,
         drop_last: bool = True,
+        shard: Optional[Tuple[int, int]] = None,
     ):
+        if shard is not None:
+            rank, world = shard
+            if batch_size % world or not 0 <= rank < world or not drop_last:
+                raise ValueError(f"shard {shard} of a global batch of {batch_size} "
+                                 f"(drop_last={drop_last}; a shard needs whole batches)")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard = shard
         self.collate_fn = collate_fn
         self.shuffle = shuffle
         self.n_workers = max(1, n_workers)
@@ -77,6 +91,10 @@ class BatchLoader:
         ]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.shard is not None:
+            rank, world = self.shard
+            per = self.batch_size // world
+            batches = [b[rank * per:(rank + 1) * per] for b in batches]
         return batches
 
     def __iter__(self) -> Iterator[Any]:

@@ -3,14 +3,17 @@ dtype, and seeded initialisation."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+from typing import Iterator
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tauv_vision_tpu_torch.ops.deform_conv import DeformConv2d
+from tauv_vision_tpu_torch.parallel.mesh import parallel
 from tauv_vision_tpu_torch.params import cast_parameter, derived
 
 BN_EPS = 1e-5
@@ -35,7 +38,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     input, the add writes ``out_dtype``); where autograd records, the same
     ops out of place, which round alike.  The rsqrt is correctly rounded
     (an f64 root); XLA's is within one ulp of it.  The state dict is
-    ``nn.BatchNorm2d``'s."""
+    ``nn.BatchNorm2d``'s.
+
+    Under a data mesh of more than one rank (``mesh``, set by the step that
+    runs the module, ``data_parallel``), training takes its statistics
+    over the global batch, as flax does under a mesh: each rank's
+    per-channel sums of x and x^2 in f32 and its count are all-reduced
+    through ``Mesh.psum`` (whose backward all-reduces their gradients),
+    then the same formulas apply."""
+
+    mesh = None
 
     def __init__(self, channels: int, out_dtype=torch.float32):
         super().__init__(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -61,8 +73,16 @@ class BatchNorm2d(nn.BatchNorm2d):
         (its ``use_fast_variance``, clamped at 0) in f32, and its
         normalisation (x - mean) * (rsqrt(var + eps) * scale) + bias."""
         x = x.float()
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        if parallel(self.mesh):
+            c = x.shape[1]
+            count = torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)
+            sums = self.mesh.psum(torch.cat((x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                                             count)))
+            mean, ex2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        else:
+            mean = x.mean(dim=(0, 2, 3))
+            ex2 = (x * x).mean(dim=(0, 2, 3))
+        var = torch.clamp_min(ex2 - mean * mean, 0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
@@ -86,6 +106,21 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 def batch_norm(channels: int, out_dtype=torch.float32) -> BatchNorm2d:
     return BatchNorm2d(channels, out_dtype)
+
+
+@contextlib.contextmanager
+def data_parallel(model: nn.Module, mesh) -> Iterator[None]:
+    """Every ``BatchNorm2d`` of ``model`` takes its training statistics
+    over ``mesh`` inside the ``with``; their own meshes afterwards."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    saved = [m.mesh for m in norms]
+    for m in norms:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m, before in zip(norms, saved):
+            m.mesh = before
 
 
 NEGATIVE_SLOPE = 0.01

@@ -17,18 +17,21 @@ from typing import Optional
 
 import torch
 
+from tauv_vision_tpu_torch.parallel.mesh import psum
+
 
 def focal_loss(prediction: torch.Tensor, truth: torch.Tensor, alpha: float,
-               beta: float) -> torch.Tensor:
+               beta: float, mesh=None) -> torch.Tensor:
     """Penalty-reduced focal loss on probabilities, elementwise (the
     caller sums).
 
     ``prediction`` is already sigmoided.  Peak pixels are where ``truth``
     is close to 1 (``torch.isclose``'s default tolerances, as
-    ``jnp.isclose``'s); N is their count over the whole tensor.  With
-    N == 0 the negative term is dropped."""
+    ``jnp.isclose``'s); N is their count over the whole tensor, and under
+    a data ``mesh`` over the global batch (so the ranks' sums add up to
+    the global loss).  With N == 0 the negative term is dropped."""
     p = torch.isclose(truth, torch.ones((), dtype=truth.dtype, device=truth.device))
-    n = p.sum()
+    n = psum(p.sum(), mesh)
     pf = p.to(prediction.dtype)
 
     log_pred = torch.log(torch.clamp_min(prediction, 1e-4))

@@ -17,9 +17,20 @@ Run on the card:
       --results-dir ~/runs/centernet \\
       --config tauv_vision_tpu_torch.configs.samples_torpedo --no-figures
 
+Data-parallel on N cards of a host (one rank a card, NCCL; ranks that
+share a card use gloo):
+  torchrun --nproc-per-node N -m tauv_vision_tpu_torch.scripts.train_centernet \\
+      --dataset-roots ... --results-dir ... --no-figures
+
+``train_config.batch_size`` is the global batch, as in the JAX CLI, and
+must divide by N: each rank reads its rows of every global batch
+(``BatchLoader(shard=)``) on ``cuda:LOCAL_RANK``, and the steps sum the
+ranks' gradients (``train/steps.py``).  Only rank 0 writes the metrics
+and the checkpoints, which load in one process.
+
 ``main(argv, device="cpu")`` runs it on the CPU.  Not here yet: the
-heatmap figures (ROADMAP Queue 1 item 3.2: without ``--no-figures`` the
-CLI raises) and data-parallel training (Queue 1 item 3.3).
+heatmap figures (ROADMAP Queue 1 item 3: without ``--no-figures`` the
+CLI raises).
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ from tauv_vision_tpu_torch.data.pose_dataset import PoseDataset, collate_pose_sa
 from tauv_vision_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from tauv_vision_tpu_torch.models.centernet import Centernet
 from tauv_vision_tpu_torch.models.centerpoint_dla import CenterpointDLA34
+from tauv_vision_tpu_torch.parallel.distributed import join_data_mesh, shutdown
+from tauv_vision_tpu_torch.parallel.mesh import replicate
 from tauv_vision_tpu_torch.train.checkpoint import CheckpointManager
 from tauv_vision_tpu_torch.train.metrics import JsonlWriter, MultiWriter, StdoutWriter
 from tauv_vision_tpu_torch.train.state import TrainState, adam_with_clip
@@ -95,10 +108,20 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None, device=DEFAULT_DEVICE) -> TrainState:
     """Parse ``argv``, train, and return the final ``TrainState``; the
     model lives on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    CPU), under ``torchrun`` on this rank's device of that type."""
     args = build_parser().parse_args(argv)
     device = resolve_device(device)
+    mesh, joined = join_data_mesh(device)
+    try:
+        return _train(args, mesh.device if mesh else device, mesh)
+    finally:
+        if joined:
+            shutdown()
 
+
+def _train(args, device, mesh) -> TrainState:
+    """``main``'s run on ``device``, data-parallel over ``mesh`` when one
+    is given."""
     config_module = importlib.import_module(args.config)
     model_config = config_module.model_config
     train_config = config_module.train_config
@@ -106,7 +129,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> TrainState:
     backbone = getattr(config_module, "backbone", "dla34")
     if not args.no_figures:
         raise NotImplementedError(
-            "the heatmap figures are not ported yet (ROADMAP Queue 1 item 3.2); "
+            "the heatmap figures are not ported yet (ROADMAP Queue 1 item 3); "
             "pass --no-figures")
 
     generator = torch.Generator().manual_seed(INIT_SEED)
@@ -139,30 +162,36 @@ def main(argv=None, device=DEFAULT_DEVICE) -> TrainState:
             samples, train_config.max_objects, train_config.max_keypoints
         )
 
+    shard = (mesh.rank, mesh.size) if mesh else None
     train_loader = BatchLoader(
         ConcatDataset(train_datasets), train_config.batch_size, collate,
-        n_workers=train_config.n_workers or 4,
+        n_workers=train_config.n_workers or 4, shard=shard,
     )
     val_loader = BatchLoader(
         ConcatDataset(val_datasets), train_config.batch_size, collate,
-        shuffle=False, n_workers=train_config.n_workers or 4,
+        shuffle=False, n_workers=train_config.n_workers or 4, shard=shard,
     )
 
     state = TrainState(model, adam_with_clip(model.parameters(), train_config.lr,
                                              train_config.grad_max_norm))
     results_dir = pathlib.Path(args.results_dir).expanduser()
-    checkpoints = CheckpointManager(results_dir / "checkpoints")
+    lead = mesh is None or mesh.rank == 0
+    checkpoints = CheckpointManager(results_dir / "checkpoints") if lead else None
     if args.checkpoint:
         state = CheckpointManager(pathlib.Path(args.checkpoint)).restore(state)
+    if mesh:
+        replicate(model, mesh)
 
-    train_step = make_centernet_train_step(model_config, train_config, object_config)
+    train_step = make_centernet_train_step(model_config, train_config, object_config,
+                                           mesh=mesh)
     watch_step = None
     if args.watch_every > 0:
         watch_step = make_centernet_train_step(model_config, train_config, object_config,
-                                               watch=True)
-    eval_step = make_centernet_eval_step(model_config, train_config, object_config)
+                                               watch=True, mesh=mesh)
+    eval_step = make_centernet_eval_step(model_config, train_config, object_config, mesh=mesh)
 
-    writer = MultiWriter(StdoutWriter(), JsonlWriter(results_dir / "metrics.jsonl"))
+    writer = (MultiWriter(StdoutWriter(), JsonlWriter(results_dir / "metrics.jsonl")) if lead
+              else None)
     trainer = Trainer(
         train_step, eval_step, state,
         TrainerConfig(
@@ -175,6 +204,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> TrainState:
         checkpoints=checkpoints,
         writer=writer,
         watch_step=watch_step,
+        mesh=mesh,
     )
     try:
         return trainer.fit(
@@ -187,7 +217,8 @@ def main(argv=None, device=DEFAULT_DEVICE) -> TrainState:
             },
         )
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
 
 
 if __name__ == "__main__":

@@ -15,9 +15,20 @@ Run on the card:
   python -m tauv_vision_tpu_torch.scripts.train_yolact \\
       --dataset-roots ~/datasets/a --results-dir ~/runs/yolact --no-figures
 
+Data-parallel on N cards of a host (one rank a card, NCCL; ranks that
+share a card use gloo):
+  torchrun --nproc-per-node N -m tauv_vision_tpu_torch.scripts.train_yolact \\
+      --dataset-roots ... --results-dir ... --no-figures
+
+``train_config.batch_size`` is the global batch, as in the JAX CLI, and
+must divide by N: each rank reads its rows of every global batch
+(``BatchLoader(shard=)``) on ``cuda:LOCAL_RANK``, and the steps sum the
+ranks' gradients (``train/steps.py``).  Only rank 0 writes the metrics
+and the checkpoints, which load in one process.
+
 ``main(argv, device="cpu")`` runs it on the CPU.  Not here yet: the
-figures (ROADMAP Queue 1 item 3.2: without ``--no-figures`` the CLI
-raises) and data-parallel training (Queue 1 item 3.3).
+figures (ROADMAP Queue 1 item 3: without ``--no-figures`` the CLI
+raises).
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ from tauv_vision_tpu_torch.data.segmentation_dataset import (
 )
 from tauv_vision_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from tauv_vision_tpu_torch.models.yolact import Yolact
+from tauv_vision_tpu_torch.parallel.distributed import join_data_mesh, shutdown
+from tauv_vision_tpu_torch.parallel.mesh import replicate
 from tauv_vision_tpu_torch.train.checkpoint import CheckpointManager
 from tauv_vision_tpu_torch.train.metrics import JsonlWriter, MultiWriter, StdoutWriter
 from tauv_vision_tpu_torch.train.state import TrainState, adam_with_clip
@@ -134,12 +147,24 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None, device=DEFAULT_DEVICE) -> TrainState:
     """Parse ``argv``, train at the module-literal configuration, and
     return the final ``TrainState``; the model lives on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU), under ``torchrun`` on this
+    rank's device of that type."""
     args = build_parser().parse_args(argv)
     device = resolve_device(device)
+    mesh, joined = join_data_mesh(device)
+    try:
+        return _train(args, mesh.device if mesh else device, mesh)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _train(args, device, mesh) -> TrainState:
+    """``main``'s run on ``device``, data-parallel over ``mesh`` when one
+    is given."""
     if not args.no_figures:
         raise NotImplementedError(
-            "the mask figures are not ported yet (ROADMAP Queue 1 item 3.2); "
+            "the mask figures are not ported yet (ROADMAP Queue 1 item 3); "
             "pass --no-figures")
     mc, tc = model_config, train_config
 
@@ -164,27 +189,33 @@ def main(argv=None, device=DEFAULT_DEVICE) -> TrainState:
     def collate(samples):
         return collate_segmentation_samples(samples, tc.max_objects)
 
+    shard = (mesh.rank, mesh.size) if mesh else None
     train_loader = BatchLoader(
         ConcatDataset(train_datasets), tc.batch_size, collate, n_workers=tc.n_workers,
+        shard=shard,
     )
     val_loader = BatchLoader(
         ConcatDataset(val_datasets), tc.batch_size, collate,
-        shuffle=False, n_workers=tc.n_workers,
+        shuffle=False, n_workers=tc.n_workers, shard=shard,
     )
 
     state = TrainState(model, adam_with_clip(model.parameters(), tc.lr, tc.grad_max_norm))
     results_dir = pathlib.Path(args.results_dir).expanduser()
-    checkpoints = CheckpointManager(results_dir / "checkpoints")
+    lead = mesh is None or mesh.rank == 0
+    checkpoints = CheckpointManager(results_dir / "checkpoints") if lead else None
     if args.checkpoint:
         state = CheckpointManager(pathlib.Path(args.checkpoint)).restore(state)
+    if mesh:
+        replicate(model, mesh)
 
-    train_step = make_yolact_train_step(mc, tc)
+    train_step = make_yolact_train_step(mc, tc, mesh=mesh)
     watch_step = None
     if args.watch_every > 0:
-        watch_step = make_yolact_train_step(mc, tc, watch=True)
-    eval_step = make_yolact_eval_step(mc, tc)
+        watch_step = make_yolact_train_step(mc, tc, watch=True, mesh=mesh)
+    eval_step = make_yolact_eval_step(mc, tc, mesh=mesh)
 
-    writer = MultiWriter(StdoutWriter(), JsonlWriter(results_dir / "metrics.jsonl"))
+    writer = (MultiWriter(StdoutWriter(), JsonlWriter(results_dir / "metrics.jsonl")) if lead
+              else None)
     trainer = Trainer(
         train_step, eval_step, state,
         TrainerConfig(
@@ -198,6 +229,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> TrainState:
         checkpoints=checkpoints,
         writer=writer,
         watch_step=watch_step,
+        mesh=mesh,
     )
     try:
         return trainer.fit(
@@ -210,7 +242,8 @@ def main(argv=None, device=DEFAULT_DEVICE) -> TrainState:
             },
         )
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
 
 
 if __name__ == "__main__":

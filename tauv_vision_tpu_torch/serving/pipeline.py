@@ -19,6 +19,12 @@ them, as two requests or, with ``--fused``, one combined request;
 (``configs.BF16_PAIR`` and its ladder) through it, and
 ``serving/quantize_chain.make_chain_pair_pipeline`` the int8 chains.
 
+``make_centernet_pipeline`` and ``make_yolact_pipeline`` take ``mesh=``
+for data-parallel serving: each rank is given its host-local frames,
+serves them, and gets back the decoded global batch (every rank's rows,
+in rank order), gathered by all-reduces
+(``parallel.distributed.global_array_from_host_local``).
+
 ``depth_window_z``, ``mask_mean_z`` and ``back_project`` turn decoded
 detections and a depth image into camera-frame 3D points, for the node
 servers of ``serving/nodes.py``.
@@ -26,6 +32,7 @@ servers of ``serving/nodes.py``.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -38,6 +45,8 @@ from tauv_vision_tpu_torch.configs.yolact import YolactModelConfig
 from tauv_vision_tpu_torch.configs.yolo_pose import YoloPoseModelConfig
 from tauv_vision_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from tauv_vision_tpu_torch.ops.image import normalize_image, preprocess, resize_frames
+from tauv_vision_tpu_torch.parallel.distributed import global_array_from_host_local
+from tauv_vision_tpu_torch.parallel.mesh import Mesh, parallel
 from tauv_vision_tpu_torch.serving.centernet_decode import decode, decode_keypoints
 from tauv_vision_tpu_torch.serving.yolact_decode import decode_yolact
 from tauv_vision_tpu_torch.serving.yolo_pose_decode import attach_pnp, decode_yolo_pose
@@ -83,13 +92,27 @@ def _upload(img_uint8, device) -> torch.Tensor:
     return img_uint8.to(device, non_blocking=True)
 
 
+def _gathered(detections, mesh: Optional[Mesh]):
+    """A detections dataclass of this rank's rows as the global batch's
+    (``global_array_from_host_local`` a field, in field order); itself
+    without a mesh of more than one rank."""
+    if not parallel(mesh):
+        return detections
+    return dataclasses.replace(detections, **{
+        f.name: global_array_from_host_local(getattr(detections, f.name), mesh)
+        for f in dataclasses.fields(detections) if getattr(detections, f.name) is not None})
+
+
 def make_centernet_pipeline(model, model_config: CenternetModelConfig,
                             device=DEFAULT_DEVICE,
                             knobs: DecodeKnobs = SERVING_DECODE,
-                            impl: str = "kernel", dtype=torch.float32):
+                            impl: str = "kernel", dtype=torch.float32,
+                            mesh: Optional[Mesh] = None):
     """``fn(img_uint8) -> Detections``; ``model(img)`` takes the normalised
     NCHW image (the model itself, or a chain forward of
-    ``serving/quantize_chain.py``), and is kept as ``fn.forward``."""
+    ``serving/quantize_chain.py``), and is kept as ``fn.forward``.
+    ``mesh``: ``img_uint8`` is this rank's frames, ``device`` its device,
+    and the detections are the global batch's."""
     device = resolve_device(device)
     out_hw = (model_config.in_h, model_config.in_w)
 
@@ -97,8 +120,8 @@ def make_centernet_pipeline(model, model_config: CenternetModelConfig,
         with torch.inference_mode():
             img = preprocess(_upload(img_uint8, device), out_hw,
                              IMAGENET_MEAN, IMAGENET_STDDEV, dtype)
-            return decode(model(img), model_config, knobs.n_detections,
-                          knobs.score_threshold, impl=impl)
+            return _gathered(decode(model(img), model_config, knobs.n_detections,
+                                    knobs.score_threshold, impl=impl), mesh)
 
     pipeline.forward = model
     return pipeline
@@ -133,11 +156,14 @@ def make_yolact_pipeline(model, model_config: YolactModelConfig,
                          device=DEFAULT_DEVICE,
                          knobs: DecodeKnobs = SERVING_DECODE,
                          impl: str = "kernel", dtype=torch.float32,
-                         mask_hw: Optional[Tuple[int, int]] = None):
+                         mask_hw: Optional[Tuple[int, int]] = None,
+                         mesh: Optional[Mesh] = None):
     """``fn(img_uint8) -> YolactDetections``; ``model(img)`` takes the
     normalised NCHW image (the model itself, or a chain forward of
     ``serving/quantize_chain.py``), and is kept as ``fn.forward``.
-    ``mask_hw`` resizes the decoded masks (``decode_yolact``)."""
+    ``mask_hw`` resizes the decoded masks (``decode_yolact``).  ``mesh``:
+    ``img_uint8`` is this rank's frames, ``device`` its device, and the
+    detections are the global batch's."""
     device = resolve_device(device)
     out_hw = (model_config.in_h, model_config.in_w)
 
@@ -145,10 +171,10 @@ def make_yolact_pipeline(model, model_config: YolactModelConfig,
         with torch.inference_mode():
             img = preprocess(_upload(img_uint8, device), out_hw,
                              model_config.img_mean, model_config.img_stddev, dtype)
-            return decode_yolact(model(img), model_config, knobs.top_k,
-                                 knobs.iou_threshold,
-                                 knobs.confidence_threshold, mask_hw=mask_hw,
-                                 impl=impl)
+            return _gathered(decode_yolact(model(img), model_config, knobs.top_k,
+                                           knobs.iou_threshold,
+                                           knobs.confidence_threshold, mask_hw=mask_hw,
+                                           impl=impl), mesh)
 
     pipeline.forward = model
     return pipeline

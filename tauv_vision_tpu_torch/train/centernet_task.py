@@ -4,6 +4,13 @@
 Targets are rendered inside the step (``ops/heatmap.py``), per-object
 predictions at the centre cells are one gather, the object count divides
 as ``max(n_valid, 1)``, and a class with no angle modulo takes 2 pi.
+
+Under a data mesh (``parallel/mesh.py``) each rank holds its rows of the
+global batch: the object count and the focal loss's peak count are the
+global ones, so each additive term is this rank's share and the terms'
+sum over the ranks is the single-device loss of the global batch
+(``CenternetLosses``); ``avg_size_error`` is the rank's share of the global
+mean and ``max_size_error`` the global maximum, on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from tauv_vision_tpu_torch.ops.heatmap import (
     out_index_for_position,
 )
 from tauv_vision_tpu_torch.ops.losses import focal_loss
+from tauv_vision_tpu_torch.parallel.mesh import parallel, pmax, psum
 
 
 @dataclass
@@ -78,6 +86,9 @@ class CenternetLosses:
     # it, from the offsets the DCN blocks keep.
     dcn_offset: torch.Tensor = 0.0
 
+    # The one field that is not a sum of the ranks' shares under a mesh.
+    NOT_ADDITIVE = ("max_size_error",)
+
     def detach(self) -> "CenternetLosses":
         return dataclasses.replace(self, **{
             f.name: torch.as_tensor(getattr(self, f.name)).detach()
@@ -96,15 +107,16 @@ def centernet_loss(
     model_config: CenternetModelConfig,
     train_config: CenternetTrainConfig,
     object_config: ObjectConfigSet,
+    mesh=None,
 ) -> CenternetLosses:
     """Every loss term of a prediction against its truth (tensors on the
-    prediction's device)."""
+    prediction's device); under a data ``mesh``, this rank's shares."""
     mc, tc, oc = model_config, train_config, object_config
     device = prediction.heatmap.device
     zero = torch.zeros((), device=device)
 
     valid_f = truth.valid.float()
-    n_valid = torch.clamp_min(valid_f.sum(), 1.0)
+    n_valid = torch.clamp_min(psum(valid_f.sum(), mesh), 1.0)
 
     heatmap_target = generate_heatmap(
         truth.center, truth.label, truth.valid,
@@ -112,7 +124,8 @@ def centernet_loss(
         downsample_ratio=mc.downsample_ratio, sigma=tc.keypoint_heatmap_sigma,
     )
     l_heatmap = focal_loss(torch.sigmoid(prediction.heatmap_nchw()), heatmap_target,
-                           alpha=tc.heatmap_focal_loss_a, beta=tc.heatmap_focal_loss_b).sum()
+                           alpha=tc.heatmap_focal_loss_a, beta=tc.heatmap_focal_loss_b,
+                           mesh=mesh).sum()
     total = l_heatmap
 
     l_keypoint_heatmap = l_keypoint_affinity = zero
@@ -127,7 +140,7 @@ def centernet_loss(
         )
         l_keypoint_heatmap = tc.loss_lambda_keypoint_heatmap * focal_loss(
             torch.sigmoid(prediction.keypoint_heatmap_nchw()), kp_heatmap_target,
-            alpha=tc.heatmap_focal_loss_a, beta=tc.heatmap_focal_loss_b,
+            alpha=tc.heatmap_focal_loss_a, beta=tc.heatmap_focal_loss_b, mesh=mesh,
         ).sum()
         total = total + l_keypoint_heatmap
         # [B, H, W, K, 2] -> [B, K, 2, H, W]
@@ -146,8 +159,13 @@ def centernet_loss(
     total = total + l_size
     with torch.no_grad():
         valid = truth.valid[..., None]
-        avg_size_error = torch.nanmean(torch.where(valid, size_error, torch.nan))
-        max_size_error = torch.where(valid, size_error, 0.0).amax()
+        if parallel(mesh):
+            n_errors = mesh.psum(valid.expand_as(size_error).sum().float())
+            avg_size_error = torch.where(
+                n_errors > 0, torch.where(valid, size_error, 0.0).sum() / n_errors, torch.nan)
+        else:
+            avg_size_error = torch.nanmean(torch.where(valid, size_error, torch.nan))
+        max_size_error = pmax(torch.where(valid, size_error, 0.0).amax(), mesh)
 
     px_center = truth.center * torch.tensor([mc.in_h, mc.in_w], dtype=torch.float32,
                                             device=device)

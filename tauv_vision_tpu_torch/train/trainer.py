@@ -1,10 +1,10 @@
-"""The training loop (counterpart of ``tauv_vision_tpu/train/trainer.py``,
-without the mesh: data-parallel training comes later).
+"""The training loop (counterpart of ``tauv_vision_tpu/train/trainer.py``).
 
 Every loss term logged each ``log_every`` steps, validation averages each
 epoch, interval and best-validation checkpoints, a single-batch overfit
-mode for debugging, and per-layer watch statistics every ``watch_every``
-steps.  Figures (JAX's ``figure_fn``) are not ported yet.
+mode for debugging, per-layer watch statistics every ``watch_every``
+steps, and data-parallel execution over a mesh (``mesh=``).  Figures
+(JAX's ``figure_fn``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
+from tauv_vision_tpu_torch.parallel.mesh import Mesh, parallel
 from tauv_vision_tpu_torch.train.checkpoint import CheckpointManager
 from tauv_vision_tpu_torch.train.metrics import MetricWriter, StdoutWriter, losses_to_metrics
 from tauv_vision_tpu_torch.train.state import TrainState
@@ -39,7 +40,15 @@ class Trainer:
     of numpy ``(img [B, H, W, 3], truth)``, moved to the model's device as
     NCHW f32 and tensors at each step (on the card through pinned host
     memory).  ``watch_step``, the train step built with ``watch=True``,
-    takes the steps whose statistics ``watch_every`` logs."""
+    takes the steps whose statistics ``watch_every`` logs.
+
+    ``mesh``: every rank runs a ``Trainer`` over its host-local rows of
+    each global batch (a loader sharded by rank, ``BatchLoader(shard=)``
+    or ``make_grain_loader``), with steps built on the same mesh, whose
+    losses are the global batch's on every rank; so the logged losses and
+    the epoch and validation averages are the global ones.  The writer and
+    the checkpoints act on rank 0 only (a barrier around each save), and
+    only rank 0 prints."""
 
     def __init__(
         self,
@@ -50,14 +59,17 @@ class Trainer:
         checkpoints: Optional[CheckpointManager] = None,
         writer: Optional[MetricWriter] = None,
         watch_step: Optional[Callable] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.train_step = train_step
         self.watch_step = watch_step
         self.eval_step = eval_step
         self.state = state
         self.config = config
-        self.checkpoints = checkpoints
-        self.writer = writer or StdoutWriter()
+        self.mesh = mesh
+        self.lead = not parallel(mesh) or mesh.rank == 0
+        self.checkpoints = checkpoints if self.lead else None
+        self.writer = (writer or StdoutWriter()) if self.lead else _Silent()
         self.global_step = int(state.step)
         self.best_val_loss = float("inf")
         self.device = next(state.model.parameters()).device
@@ -127,18 +139,25 @@ class Trainer:
         return total / max(count, 1)
 
     def maybe_checkpoint(self, epoch: int, val_loss: float, configs=None):
-        if self.checkpoints is None:
-            return
-        if configs and epoch == 0:
-            self.checkpoints.save_configs(configs)
         interval = self.config.weight_save_interval
         is_interval = interval > 0 and (epoch % interval == 0)
         is_best = self.config.keep_best and val_loss < self.best_val_loss
         if is_best:
             self.best_val_loss = val_loss
-        if is_interval or is_best:
-            self.checkpoints.save(self.global_step, self.state,
-                                  metrics={"val_loss": val_loss, "epoch": epoch})
+        if not (is_interval or is_best or (configs and epoch == 0)):
+            return
+        # Every rank takes the same decision (the losses are global), so
+        # every rank reaches the barriers.
+        if parallel(self.mesh):
+            self.mesh.barrier()
+        if self.checkpoints is not None:
+            if configs and epoch == 0:
+                self.checkpoints.save_configs(configs)
+            if is_interval or is_best:
+                self.checkpoints.save(self.global_step, self.state,
+                                      metrics={"val_loss": val_loss, "epoch": epoch})
+        if parallel(self.mesh):
+            self.mesh.barrier()
 
     def fit(
         self,
@@ -151,5 +170,16 @@ class Trainer:
             val_loss = (self.run_validation_epoch(val_batches_fn(), epoch)
                         if val_batches_fn is not None else train_loss)
             self.maybe_checkpoint(epoch, val_loss, configs)
-            print(f"epoch {epoch}: train={train_loss:.5g} val={val_loss:.5g}", flush=True)
+            if self.lead:
+                print(f"epoch {epoch}: train={train_loss:.5g} val={val_loss:.5g}", flush=True)
         return self.state
+
+
+class _Silent:
+    """The writer of a rank that is not rank 0."""
+
+    def log(self, metrics, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -24,6 +24,13 @@ the same up to f32 summation order.
 
 Clips follow JAX's gradients: ``jnp.clip`` is a maximum and a minimum,
 whose derivative is 1/2 at a tie (``torch.clamp`` would give 1).
+
+Under a data mesh (``parallel/mesh.py``) each rank holds its rows of the
+global batch: ``n_pos``, which normalises the three terms and picks
+their ``n_pos > 0`` branches, is the global count, so each term is this
+rank's share and the shares' sum over the ranks is the single-device
+loss of the global batch (every field is such a sum).  OHEM and the mask
+cap are per sample and need nothing.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from tauv_vision_tpu_torch.models.yolact import YolactPrediction
 from tauv_vision_tpu_torch.ops.boxes import box_encode, box_to_mask, iou_matrix
 from tauv_vision_tpu_torch.ops.image import resize_bilinear, resize_nearest
 from tauv_vision_tpu_torch.ops.losses import binary_cross_entropy, clip, softmax_cross_entropy
+from tauv_vision_tpu_torch.parallel.mesh import psum
 
 INVALID_SEG = 254
 BACKGROUND_SEG = 255
@@ -167,9 +175,10 @@ def yolact_loss(
     truth: YolactTruth,
     model_config: YolactModelConfig,
     train_config: YolactTrainConfig,
+    mesh=None,
 ) -> YolactLosses:
     """Every loss term of a prediction against its truth (tensors on the
-    prediction's device)."""
+    prediction's device); under a data ``mesh``, this rank's shares."""
     cfg = model_config
     classification = prediction.classification  # [B, A, C+1]
     box_encoding = prediction.box_encoding      # [B, A, 4]
@@ -178,7 +187,7 @@ def yolact_loss(
     prototype = prediction.mask_prototype       # [B, h, w, P]
     sets = match_anchors(prediction, truth, model_config, train_config)
     positive, match_index = sets.positive, sets.match_index
-    n_pos = positive.sum()
+    n_pos = psum(positive.sum(), mesh)
     n_pos_f = torch.clamp_min(n_pos.float(), 1.0)
 
     # ---- classification -------------------------------------------------
